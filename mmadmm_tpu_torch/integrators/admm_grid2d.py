@@ -1,0 +1,201 @@
+"""MM-ADMM on the structured-grid (stencil) engine for 2D SquareGrid and
+Shoulder meshes (port of ``mmadmm_tpu/integrators/admm_grid2d.py``).
+
+The mesh is a uniform rect grid with cell midpoints, each cell split into
+4 triangles (``MeshUtils.h:104-155``); the Shoulder carve drops elements
+without compacting nodes (``main.cpp:519-607``). So ``D x`` is window
+slices and ``D^T y`` shifted pad-adds (``ops/stencil2d.py``), and the only
+index operation left is the monitor cell-table fetch. The per-element
+state (z, u) is channel-major ``[6, NFd]`` over all dense element slots;
+carved slots ride along as dead elements (free = 0, masked out of the node
+sums and the residuals).
+
+Reorientation swaps (v1 <-> v2 on negative-det triangles) come from the
+mesh's actual F, so the prox inputs equal those of the compact path.
+
+Each step is the reference's MM-ADMM step (``MeshIntegrator.cpp``): an
+energy-guarded predictor, then at most ``admm_iters`` iterations of
+prox z-update (kernel K1), dual update and the diagonal x-update, with the
+primal and dual residual stop. Control flow runs on the host: one
+synchronisation per ADMM iteration reads both residuals.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..geometry.topology import node_degrees
+from ..mesh import MovingMesh
+from ..ops.monitor_grid import cell_rows
+from ..ops.prox2d import prox2d
+from ..ops.reductions import sum_f64, sumsq_f64
+from ..ops.stencil2d import make_stencil_ops, match_dense
+
+
+class Grid2DState(NamedTuple):
+    x: torch.Tensor  # [NP, 2]
+    x_prev: torch.Tensor
+    u: torch.Tensor  # [6, NFd] scaled dual
+    steps: int
+    ih_last: float
+    rose: bool
+    rises: int
+
+
+class StepInfo(NamedTuple):
+    ih_start: float  # energy at the first prox call of the step (f64 sum)
+    primal: float
+    dual: float
+    n_iters: int  # ADMM iterations, one K1 launch each
+
+
+class GridADMM2D:
+    """Single-device MM-ADMM integrator on the stencil engine."""
+
+    def __init__(
+        self,
+        mesh: MovingMesh,
+        dt: float,
+        nx: int,
+        ny: int,
+        *,
+        admm_iters: int = 10,
+        tol: float = 1e-3,
+        prox_max_iters: int = 50,
+        grad_use: bool = False,
+    ):
+        NP = mesh.n_pnts
+        stride = (nx + 1) * (ny + 1)
+        if NP != stride + nx * ny:
+            raise ValueError("node layout is not the uncompacted rect grid")
+        if mesh.dtype != torch.float32:
+            raise NotImplementedError(
+                "the prox kernel K1 is float32; float64 runs need the generic "
+                "prox (ROADMAP item A10)"
+            )
+        self.mesh = mesh
+        self.dt = float(dt)
+        self.admm_iters = int(admm_iters)
+        self.tol = float(tol)
+        self.prox_tol = self.tol / 100.0  # as the JAX engine's default
+        self.prox_max_iters = int(prox_max_iters)
+        self.grad_use = bool(grad_use)
+        self.NFd = NFd = 4 * nx * ny
+
+        alive, swapped, mesh_of_dense = match_dense(nx, ny, mesh._F_np)
+
+        def planes(v):  # dense [NFd] -> per-k cell planes [4, ny, nx]
+            return v.reshape(ny, nx, 4).transpose(2, 0, 1)
+
+        free_d = np.zeros((NFd, 6))
+        free_d[alive] = mesh._elem_free_np.reshape(-1, 6)[mesh_of_dense[alive]]
+        deg = node_degrees(mesh._F_np, NP).astype(np.float64)
+        self.tau, self.w = mesh.tau, mesh.w
+        self.dt2w2 = self.dt * self.dt * self.w * self.w
+
+        def t(a):
+            return torch.as_tensor(
+                np.ascontiguousarray(a), dtype=mesh.dtype, device=mesh.device
+            )
+
+        self.swap_k = t(planes(swapped.astype(np.float64)))
+        self.alive_k = t(planes(alive.astype(np.float64)))
+        self.free = t(free_d.T)  # [6, NFd]
+        self.valid = t(alive.astype(np.float64))  # [NFd]
+        self.t_diag = t(self.tau + self.dt2w2 * deg)
+        self._gather_ch, self._scatter_ch = make_stencil_ops(nx, ny)
+
+    # ---- the engine's operators ----------------------------------------
+    def init_state(self) -> Grid2DState:
+        x0 = self.mesh.X0
+        u = torch.zeros((6, self.NFd), dtype=x0.dtype, device=x0.device)
+        return Grid2DState(x=x0, x_prev=x0, u=u, steps=0, ih_last=math.inf,
+                           rose=False, rises=0)
+
+    def gather(self, x):
+        """D x: node field ``[NP, 2]`` -> slot values ``[6, NFd]``."""
+        return self._gather_ch(x, self.swap_k)
+
+    def scatter(self, y):
+        """D^T y over live elements: ``[6, NFd]`` -> ``[NP, 2]``."""
+        return self._scatter_ch(y, self.swap_k, self.alive_k)
+
+    def x_update(self, x_bar, z, u):
+        """The diagonal solve ``(tau I + dt^2 w^2 D^T D) x = tau x_bar +
+        dt^2 w^2 D^T (z - u)`` (``MeshIntegrator.cpp:43-58``)."""
+        rhs = self.tau * x_bar + self.dt2w2 * self.scatter(z - u)
+        return rhs / self.t_diag[:, None]
+
+    def cells(self, z):
+        """The three per-vertex cell-table rows of every slot,
+        ``[48, NFd]``, fetched at the current z."""
+        rows = [cell_rows(self.mesh.grid, z[2 * v:2 * v + 2].T).T for v in range(3)]
+        return torch.cat(rows).contiguous()
+
+    def prox(self, z, dxpu):
+        """Kernel K1 on this step's slots: ``(z', ih0)``."""
+        return prox2d(
+            z, dxpu.contiguous(), self.free, self.cells(z),
+            self.mesh.ehat_np.reshape(-1), self.w, self.prox_tol,
+            self.prox_max_iters,
+        )
+
+    def euler_grad(self, x):
+        """Predictor gradient on the compact mesh path (runs in the first
+        steps and after energy rises only)."""
+        return self.mesh.gradient(x)[1]
+
+    def predict(self, state: Grid2DState):
+        """The energy-guarded predictor ``x_bar``: explicit Euler in the
+        first three steps, after two rises in a row it holds x, after one
+        rise Euler, else linear extrapolation (``admm_grid2d.py:250-269``)."""
+        x = state.x
+        if self.grad_use or state.steps <= 2 or (state.rose and state.rises < 2):
+            return x - (self.dt / self.tau) * self.euler_grad(x)
+        if state.rose:
+            return x
+        return 2.0 * x - state.x_prev
+
+    def start(self, state: Grid2DState):
+        """Predictor and the first x-update: ``(x_bar, x, z, u)``."""
+        x_bar = self.predict(state)
+        z = self.gather(state.x if state.steps == 0 else x_bar)
+        u = torch.zeros_like(state.u) if state.steps == 0 else state.u
+        return x_bar, self.x_update(x_bar, z, u), z, u
+
+    # ---- one step --------------------------------------------------------
+    def step(self, state: Grid2DState):
+        x_bar, x, z, u = self.start(state)
+        gx = self.gather(x)
+        valid = self.valid
+        ih_start = None
+        primal = dual = 0.0
+        n = 0
+        for i in range(self.admm_iters):
+            dxpu = gx + u
+            z_prev = z
+            z, ih0 = self.prox(z, dxpu)
+            if i == 0:
+                ih_start = sum_f64(torch.where(valid > 0, ih0, 0.0))
+            u = dxpu - z
+            x = self.x_update(x_bar, z, u)
+            gx = self.gather(x)
+            res = torch.stack([sumsq_f64((gx - z) * valid), sumsq_f64((z - z_prev) * valid)])
+            primal, dual = torch.sqrt(res).tolist()
+            n = i + 1
+            if primal < self.tol and dual < self.tol:
+                break
+        ih = float(ih_start) if ih_start is not None else 0.0
+        rose = ih > state.ih_last
+        new_state = Grid2DState(
+            x=x, x_prev=state.x, u=u, steps=state.steps + 1, ih_last=ih,
+            rose=rose, rises=state.rises + 1 if rose else 0,
+        )
+        return new_state, StepInfo(ih_start=ih, primal=primal, dual=dual, n_iters=n)
+
+    def energy(self, state: Grid2DState) -> float:
+        return float(self.mesh.energy(state.x))

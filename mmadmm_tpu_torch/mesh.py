@@ -1,0 +1,104 @@
+"""MovingMesh: mesh state and its operators on one device (port of the 2D
+path of ``mmadmm_tpu/mesh.py``; reference ``Mesh<D>``, ``src/Mesh.h``).
+
+* ``X [NP, 2]`` node positions, ``F [NF, 3]`` connectivity (reoriented
+  to positive orientation, ``Mesh.cpp:244-260``), ``mask [NP]`` NodeType,
+* the reference's sparse operators (``M = tau I``, ``Dmat``, ``W = w I``;
+  ``Mesh.cpp:677-753``) as a scalar ``tau``, a gather / degree-padded sum
+  pair, a scalar ``w`` and the node degrees (the diagonal of ``D^T D``),
+* the monitor background grid and its cell table, built once
+  (``Mesh.cpp:431-433``).
+
+Reference quirk kept: the JSON ``w`` is overridden by
+``w = 0.5 sqrt(rho)`` (``Mesh.cpp:451``).
+
+The prox follows the device of the tensors: the engines call
+``ops.prox2d.prox2d``, which launches kernel K1 on a CUDA tensor and runs
+its plain PyTorch version on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .geometry import topology
+from .geometry.node_type import NodeType
+from .ops import huang
+from .ops.monitor_grid import build_monitor_grid, gather_cell
+from .ops.reductions import sum_f64
+from .ops.scatter import gather_elements, scatter_add_dense
+from .runtime.device import resolve_device
+
+
+class MovingMesh:
+    def __init__(
+        self,
+        X: np.ndarray,
+        F: np.ndarray,
+        mask: np.ndarray,
+        monitor,
+        *,
+        rho: float,
+        tau: float,
+        dtype=torch.float64,
+        device=None,
+    ):
+        X = np.asarray(X, dtype=np.float64)
+        F = np.asarray(F, dtype=np.int32)
+        mask = np.asarray(mask, dtype=np.int8)
+        if X.shape[1] != 2:
+            raise NotImplementedError("3D meshes are ROADMAP item A13")
+        self.device = device = resolve_device(device)
+        self.dtype = dtype
+        self.n_pnts = X.shape[0]
+
+        F = topology.reorient_elements(X, F)  # Mesh.cpp:408 -> 244-260
+        self.n_elements = F.shape[0]
+        self.tau = float(tau)
+        self.w = 0.5 * math.sqrt(rho)  # Mesh.cpp:451 (overrides JSON w)
+
+        deg = topology.node_degrees(F, self.n_pnts)
+        dense_idx, _ = topology.dense_scatter_plan(F, self.n_pnts)
+        self.grid = build_monitor_grid(X, monitor, dtype=dtype, device=device)
+
+        def t(a, dt=dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+
+        self._X_np, self._F_np = X, F
+        fixed_v = mask[F] == NodeType.BOUNDARY_FIXED  # [NF, 3]
+        self._elem_free_np = np.repeat(~fixed_v[:, :, None], 2, axis=2).astype(np.float64)
+        self.X0 = t(X)
+        self.F = t(F, torch.int64)
+        self.deg = t(deg)
+        self.dense_idx = t(dense_idx, torch.int64)
+        self.elem_free = t(self._elem_free_np)  # [NF, 3, 2], 1.0 where movable
+        self.ehat_np = huang.reference_ehat(self.n_elements)  # float64
+        self.ehat = t(self.ehat_np)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """D x (Mesh::buildDMatrix semantics): ``[NP, 2] -> [NF, 3, 2]``."""
+        return gather_elements(x, self.F)
+
+    def scatter_add(self, vals: torch.Tensor) -> torch.Tensor:
+        """D^T y: ``[NF, 3, 2] -> [NP, 2]``."""
+        return scatter_add_dense(vals, self.dense_idx)
+
+    def energy_of_z(self, z: torch.Tensor) -> torch.Tensor:
+        """Sum of unregularized element energies at element-stacked z,
+        in float64."""
+        return sum_f64(huang.element_energy(z, gather_cell(self.grid, z), self.ehat))
+
+    def energy(self, x: torch.Tensor) -> torch.Tensor:
+        """Mesh::computeEnergy (Mesh.cpp:497-530), summed in float64."""
+        return self.energy_of_z(self.gather(x))
+
+    def gradient(self, x: torch.Tensor):
+        """``(Ih, grad [NP, 2])`` for the ADMM predictor
+        (``Mesh::eulerGrad``, Mesh.cpp:583-624): BOUNDARY_FIXED vertex
+        components are zeroed per element before the scatter to nodes."""
+        z = self.gather(x)
+        ih_e, g_e = huang.element_energy_grad(z, gather_cell(self.grid, z), self.ehat)
+        return sum_f64(ih_e), self.scatter_add(g_e * self.elem_free)

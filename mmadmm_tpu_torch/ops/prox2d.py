@@ -1,0 +1,464 @@
+"""The 2D ADMM prox z-update: kernel K1 and its plain PyTorch version.
+
+Port of ``mmadmm_tpu/ops/prox_pallas2d.py::make_prox_pallas2d`` (the
+component-form Pallas kernel, ``_make_kernel`` and ``newton_sweeps_c``).
+For every triangle it runs up to ``max_iters`` damped-Newton sweeps on
+``I_h(z) + 0.5 w^2 |dxpu - z|^2``. Each sweep takes
+
+* the analytic Huang gradient (``grad_c``), masked by ``free``,
+* the 6x6 Hessian as the forward derivative of that gradient, with
+  identity plus a 1e-9 Levenberg term on fixed coordinates (``hess_c``),
+* an unrolled LDL^T solve (``ldlt_c``), replaced by ``-g/w^2`` where the
+  result is not finite,
+* 5 backtracking trials, alpha 1/16 to 1, that need a finite energy not
+  above the start and ``edet > min(det0, 0)``.
+
+An element retires on ``gnorm < tol`` from the second sweep on, or when its
+step stalls. The unregularized energy at the input z comes out as ``ih0``.
+
+Layout: channel-major ``[C, N]`` float32 tensors (the JAX kernel's
+``[C, T, 8, 128]`` tiles are the same memory as ``[C, T*1024]``):
+``z, dxpu, free [6, N]`` (channel ``v*2 + d``), ``cells [48, N]`` (three
+16-wide cell-table rows, vertex-major).
+
+``prox2d`` is the entry point. On a CPU tensor it runs ``prox2d_plain``;
+on a CUDA tensor it launches the CUDA kernel ``csrc/prox2d.cu`` or
+raises. The plain version repeats the kernel's arithmetic operation by
+operation (the Hessian through the same forward-mode dual numbers), so the
+kernel built with ``--fmad=false`` can agree with it bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..cuda_build import load_library
+
+_DET_FLOOR = 1e-30
+_DIAG_FLOOR = 1e-12
+_LEVENBERG = 1e-9
+_ALPHAS_BT = (0.0625, 0.125, 0.25, 0.5, 1.0)  # small -> large
+ROW_W = 16
+
+# float32 constants, rounded exactly as the JAX kernel rounds them (a
+# Python float meets an f32 tile there, so it is cast to f32 first)
+_F32 = np.float32
+_THIRD = float(_F32(1.0 / 3.0))
+_C_D32 = _F32(2.0) * np.sqrt(_F32(2.0))  # 2^1.5 in f32
+_K_G2 = float(_F32(1.0 / 3.0) * _C_D32)  # third * c_d32
+_K_DGDDET = float(_F32(1.5 * (1.0 / 3.0)) * _C_D32)  # 1.5 * third * c_d32
+_K_SM2A = float(_F32(0.5 * (1.0 / 3.0)))  # (0.5 * third)
+_K_SM2B = float(_F32((0.5 - 1.0 / 3.0) * (1.0 - 1.5)) * _C_D32)
+_EPS_STALL = float(_F32(10.0 * np.finfo(np.float32).eps))
+
+
+class _Dual:
+    """Forward-mode dual number over tensors: value ``v [N]`` and
+    tangents ``d [K, N]`` (K directions at once). The derivative rules are
+    JAX's jvp rules (``lax.mul``, ``lax.div``, ``sqrt``, ``max``,
+    ``abs``), and ``csrc/prox2d.cu`` applies the same ones."""
+
+    __slots__ = ("v", "d")
+
+    def __init__(self, v, d):
+        self.v = v
+        self.d = d
+
+    def __add__(self, o):
+        if isinstance(o, _Dual):
+            return _Dual(self.v + o.v, self.d + o.d)
+        return _Dual(self.v + o, self.d)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        if isinstance(o, _Dual):
+            return _Dual(self.v - o.v, self.d - o.d)
+        return _Dual(self.v - o, self.d)
+
+    def __rsub__(self, o):
+        return _Dual(o - self.v, -self.d)
+
+    def __neg__(self):
+        return _Dual(-self.v, -self.d)
+
+    def __mul__(self, o):
+        if isinstance(o, _Dual):
+            return _Dual(self.v * o.v, self.d * o.v + self.v * o.d)
+        return _Dual(self.v * o, self.d * o)
+
+    def __rmul__(self, o):
+        return _Dual(o * self.v, o * self.d)
+
+    def __truediv__(self, o):
+        if isinstance(o, _Dual):
+            r = 1.0 / (o.v * o.v)
+            return _Dual(self.v / o.v, self.d / o.v + (-o.d * self.v) * r)
+        return _Dual(self.v / o, self.d / o)
+
+    def __rtruediv__(self, o):
+        r = 1.0 / (self.v * self.v)
+        return _Dual(o / self.v, (-self.d * o) * r)
+
+
+def _sqrt(x):
+    if isinstance(x, _Dual):
+        s = torch.sqrt(x.v)
+        return _Dual(s, x.d * (0.5 / s))
+    return torch.sqrt(x)
+
+
+def _max_floor(x, c):
+    """``max(x, c)`` for a constant c; NaN propagates."""
+    if isinstance(x, _Dual):
+        f = torch.where(x.v > c, 1.0, torch.where(x.v == c, 0.5, 0.0))
+        return _Dual(torch.clamp_min(x.v, c), x.d * f)
+    return torch.clamp_min(x, c)
+
+
+def _abs(x):
+    if isinstance(x, _Dual):
+        return _Dual(torch.abs(x.v), torch.where(x.v >= 0, x.d, -x.d))
+    return torch.abs(x)
+
+
+def _sample_m(cell, x, y):
+    """Bilinear monitor sample ``(m00, m01, m11)`` from one vertex's 16
+    cell-row channels."""
+    x0, x1, y0, y1 = cell[12], cell[13], cell[14], cell[15]
+    norm = 1.0 / ((x1 - x0) * (y1 - y0))
+    c00 = norm * (x1 - x) * (y1 - y)
+    c10 = norm * (x - x0) * (y1 - y)
+    c01 = norm * (x1 - x) * (y - y0)
+    c11 = norm * (x - x0) * (y - y0)
+
+    def entry(k):
+        return (c00 * cell[0 + k] + c10 * cell[3 + k]
+                + c01 * cell[6 + k] + c11 * cell[9 + k])
+
+    return entry(0), entry(1), entry(2)
+
+
+def _common_c(z, cells, ehat):
+    """Terms shared by energy and gradient. ``z``: 6 channels
+    (v0x, v0y, v1x, v1y, v2x, v2y); ``cells``: 3 lists of 16 channels;
+    ``ehat``: 4 floats (row-major 2x2)."""
+    m = [_sample_m(cells[v], z[2 * v], z[2 * v + 1]) for v in range(3)]
+    ms00 = m[0][0] + m[1][0] + m[2][0]
+    ms01 = m[0][1] + m[1][1] + m[2][1]
+    ms11 = m[0][2] + m[1][2] + m[2][2]
+    det_ms = ms00 * ms11 - ms01 * ms01
+    q = 1.0 / (3.0 * det_ms)  # minv = inv(m_sum) / 3
+    mi00 = ms11 * q
+    mi01 = -ms01 * q
+    mi11 = ms00 * q
+
+    e00 = z[2] - z[0]
+    e10 = z[3] - z[1]
+    e01 = z[4] - z[0]
+    e11 = z[5] - z[1]
+    edet = e00 * e11 - e01 * e10
+    r = 1.0 / edet
+    ei00 = e11 * r
+    ei01 = -e01 * r
+    ei10 = -e10 * r
+    ei11 = e00 * r
+
+    h00, h01, h10, h11 = ehat
+    fj00 = h00 * ei00 + h01 * ei10
+    fj01 = h00 * ei01 + h01 * ei11
+    fj10 = h10 * ei00 + h11 * ei10
+    fj11 = h10 * ei01 + h11 * ei11
+    det_fj = fj00 * fj11 - fj01 * fj10
+
+    mj00 = mi00 * fj00 + mi01 * fj01  # minv @ fj^T
+    mj01 = mi00 * fj10 + mi01 * fj11
+    mj10 = mi01 * fj00 + mi11 * fj01
+    mj11 = mi01 * fj10 + mi11 * fj11
+    tr = fj00 * mj00 + fj01 * mj10 + fj10 * mj01 + fj11 * mj11
+
+    det_minv = mi00 * mi11 - mi01 * mi01
+    det_m = _sqrt(1.0 / _max_floor(det_minv, _DET_FLOOR))
+    tr_c = _max_floor(tr, _DET_FLOOR)
+    det_fj_c = _max_floor(det_fj, _DET_FLOOR)
+
+    sqrt_tr = _sqrt(tr_c)
+    tr32 = tr_c * sqrt_tr
+    sqrt_dfj = _sqrt(det_fj_c)
+    dfj32 = det_fj_c * sqrt_dfj
+    inv_sqrt_dm = 1.0 / _sqrt(det_m)
+    G = _THIRD * det_m * tr32 + _K_G2 * dfj32 * inv_sqrt_dm
+    abs_k = _abs(edet * 0.5)
+    return dict(
+        m=m, mi00=mi00, mi01=mi01, mi11=mi11,
+        ei00=ei00, ei01=ei01, ei10=ei10, ei11=ei11,
+        fj00=fj00, fj01=fj01, fj10=fj10, fj11=fj11,
+        mj00=mj00, mj01=mj01, mj10=mj10, mj11=mj11,
+        tr=tr_c, det_m=det_m, det_fj=det_fj_c, G=G, abs_k=abs_k,
+        sqrt_tr=sqrt_tr, sqrt_dfj=sqrt_dfj, inv_sqrt_dm=inv_sqrt_dm,
+    )
+
+
+def energy_c(z, cells, ehat, dxpu=None, half_w2=None):
+    """``(ih_unregularized, e_regularized)``."""
+    t = _common_c(z, cells, ehat)
+    ih = t["abs_k"] * t["G"]
+    if dxpu is None:
+        return ih, ih
+    reg = (dxpu[0] - z[0]) * (dxpu[0] - z[0])
+    for i in range(1, 6):
+        reg = reg + (dxpu[i] - z[i]) * (dxpu[i] - z[i])
+    return ih, ih + half_w2 * reg
+
+
+def grad_c(z, cells, ehat, dxpu, w2, half_w2, free):
+    """``(grads[6], ih_unreg, e_reg)``; the gradient is the reference's
+    analytic one (``AdaptationFunctional.cpp:232-271``) plus the prox
+    term, masked by ``free``."""
+    t = _common_c(z, cells, ehat)
+    G, det_m, tr, det_fj = t["G"], t["det_m"], t["tr"], t["det_fj"]
+    sqrt_tr, sqrt_dfj = t["sqrt_tr"], t["sqrt_dfj"]
+    mi00, mi01, mi11 = t["mi00"], t["mi01"], t["mi11"]
+    fj00, fj01, fj10, fj11 = t["fj00"], t["fj01"], t["fj10"], t["fj11"]
+    mj00, mj01, mj10, mj11 = t["mj00"], t["mj01"], t["mj10"], t["mj11"]
+    ei00, ei01, ei10, ei11 = t["ei00"], t["ei01"], t["ei10"], t["ei11"]
+
+    s_j = det_m * sqrt_tr  # dGdJ = det_m tr^(1/2) minv_jt
+    dj00 = s_j * mj00
+    dj01 = s_j * mj01
+    dj10 = s_j * mj10
+    dj11 = s_j * mj11
+    dgddet = _K_DGDDET * t["inv_sqrt_dm"] * sqrt_dfj
+
+    a00 = fj00 * mi00 + fj01 * mi01  # A = fj minv
+    a01 = fj00 * mi01 + fj01 * mi11
+    a10 = fj10 * mi00 + fj11 * mi01
+    a11 = fj10 * mi01 + fj11 * mi11
+    b00 = a00 * a00 + a10 * a10  # B = A^T A
+    b01 = a00 * a01 + a10 * a11
+    b11 = a01 * a01 + a11 * a11
+    s_m1 = -0.5 * s_j
+    tr32 = tr * sqrt_tr
+    dfj32 = det_fj * sqrt_dfj
+    s_m2 = _K_SM2A * det_m * tr32 + (_K_SM2B * t["inv_sqrt_dm"] * dfj32)
+    dm00 = s_m1 * b00 + s_m2 * mi00  # dGdM (symmetric)
+    dm01 = s_m1 * b01 + s_m2 * mi01
+    dm11 = s_m1 * b11 + s_m2 * mi11
+
+    m = t["m"]
+    d1 = (m[1][0] - m[0][0], m[1][1] - m[0][1], m[1][2] - m[0][2])
+    d2 = (m[2][0] - m[0][0], m[2][1] - m[0][1], m[2][2] - m[0][2])
+    tr1 = d1[0] * dm00 + 2.0 * d1[1] * dm01 + d1[2] * dm11
+    tr2 = d2[0] * dm00 + 2.0 * d2[1] * dm01 + d2[2] * dm11
+    bc0 = tr1 * ei00 + tr2 * ei10
+    bc1 = tr1 * ei01 + tr2 * ei11
+
+    c1 = -G + dgddet * det_fj
+    q00 = ei00 * dj00 + ei01 * dj10  # C = einv dGdJ
+    q01 = ei00 * dj01 + ei01 * dj11
+    q10 = ei10 * dj00 + ei11 * dj10
+    q11 = ei10 * dj01 + ei11 * dj11
+    v00 = c1 * ei00 + q00 * fj00 + q01 * fj10 - bc0 * _THIRD
+    v01 = c1 * ei01 + q00 * fj01 + q01 * fj11 - bc1 * _THIRD
+    v10 = c1 * ei10 + q10 * fj00 + q11 * fj10 - bc0 * _THIRD
+    v11 = c1 * ei11 + q10 * fj01 + q11 * fj11 - bc1 * _THIRD
+
+    g0x = v00 + v10 + bc0
+    g0y = v01 + v11 + bc1
+    abs_k = t["abs_k"]
+    grads = [g0x * abs_k, g0y * abs_k, -v00 * abs_k, -v01 * abs_k,
+             -v10 * abs_k, -v11 * abs_k]
+    ih = abs_k * G
+    reg = (dxpu[0] - z[0]) * (dxpu[0] - z[0])
+    for i in range(1, 6):
+        reg = reg + (dxpu[i] - z[i]) * (dxpu[i] - z[i])
+    e_reg = ih + half_w2 * reg
+    grads = [(grads[i] + w2 * (z[i] - dxpu[i])) * free[i] for i in range(6)]
+    return grads, ih, e_reg
+
+
+def hess_c(z, cells, ehat, dxpu, w2, half_w2, free):
+    """Lower triangle ``H[i][j]`` (i >= j) of the 6x6 derivative of
+    ``grad_c``, from one dual pass carrying all 6 directions. Fixed
+    coordinates get identity rows and columns, and every diagonal the
+    Levenberg term."""
+    n = z[0].shape[0]
+    eye = torch.eye(6, dtype=z[0].dtype, device=z[0].device)
+    zd = [_Dual(z[i], eye[i][:, None].expand(6, n)) for i in range(6)]
+    dg, _, _ = grad_c(zd, cells, ehat, dxpu, w2, half_w2, free)
+    H = [[None] * 6 for _ in range(6)]
+    for i in range(6):
+        for j in range(i + 1):
+            h = dg[i].d[j] * free[i] * free[j]
+            if i == j:
+                h = h + (1.0 - free[i]) + _LEVENBERG
+            H[i][j] = h
+    return H
+
+
+def ldlt_c(H, b):
+    """Unrolled LDL^T solve of ``H x = b`` (lower triangle of H read)."""
+    n = len(b)
+    L = [[None] * n for _ in range(n)]
+    D = [None] * n
+    for j in range(n):
+        d = H[j][j]
+        for k in range(j):
+            d = d - L[j][k] * L[j][k] * D[k]
+        d = torch.where(torch.abs(d) < _DIAG_FLOOR, _DIAG_FLOOR, d)
+        D[j] = d
+        for i in range(j + 1, n):
+            s = H[i][j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k] * D[k]
+            L[i][j] = s / d
+    zv = [None] * n
+    for i in range(n):
+        s = b[i]
+        for k in range(i):
+            s = s - L[i][k] * zv[k]
+        zv[i] = s
+    y = [zv[i] / D[i] for i in range(n)]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s
+    return x
+
+
+def _edet_c(z):
+    return (z[2] - z[0]) * (z[5] - z[1]) - (z[4] - z[0]) * (z[3] - z[1])
+
+
+def _rmax(xs):
+    return functools.reduce(torch.maximum, xs)
+
+
+def _sweep(not_first, zc, dxpu, free, cells, ehat, consts, tol):
+    """One Newton sweep over elements that are all active. Returns
+    ``(z_new[6], still_active)``."""
+    w2, half_w2, inv_w2 = consts
+    g, _, e0 = grad_c(zc, cells, ehat, dxpu, w2, half_w2, free)
+    gnorm = torch.abs(g[0])
+    for i in range(1, 6):
+        gnorm = gnorm + torch.abs(g[i])
+    H = hess_c(zc, cells, ehat, dxpu, w2, half_w2, free)
+    p = ldlt_c(H, [-g[i] for i in range(6)])
+    finite = functools.reduce(torch.logical_and, [torch.isfinite(pi) for pi in p])
+    p = [torch.where(finite, p[i], -g[i] * inv_w2) for i in range(6)]
+
+    det0 = _edet_c(zc)
+    det_floor = torch.clamp_max(det0, 0.0)
+    alpha = torch.zeros_like(zc[0])
+    for a in _ALPHAS_BT:
+        zt = [zc[i] + a * p[i] for i in range(6)]
+        _, e_a = energy_c(zt, cells, ehat, dxpu, half_w2)
+        ok = torch.isfinite(e_a) & (e_a <= e0) & (_edet_c(zt) > det_floor)
+        alpha = torch.where(ok, a, alpha)
+    step_inf = alpha * _rmax([torch.abs(pi) for pi in p])
+    zmax = _rmax([torch.abs(zi) for zi in zc])
+    stalled = step_inf <= _EPS_STALL * (1.0 + zmax)
+    if not_first:
+        active_now = ~(gnorm < tol)
+    else:
+        active_now = torch.ones_like(stalled)
+    z_new = [torch.where(active_now, zc[i] + alpha * p[i], zc[i]) for i in range(6)]
+    return z_new, active_now & ~stalled
+
+
+def _consts(w: float):
+    """f32 prox constants ``(w^2, w^2/2, 1/w^2)`` as the JAX kernel
+    rounds them."""
+    return (float(_F32(w * w)), float(_F32(0.5 * w * w)), float(_F32(1.0 / (w * w))))
+
+
+def prox2d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
+    """Plain PyTorch K1 on ``[C, N]`` channel tensors. Sweeps only the
+    elements still active (an element's result does not depend on any
+    other element). Returns ``(z_out [6, N], ih0 [N])``; ``stats``, if
+    given, receives ``sweeps`` and ``element_sweeps``."""
+    ehat = tuple(float(v) for v in ehat)
+    consts = _consts(w)
+    tol = float(_F32(tol))
+    cell_rows = lambda c: [[c[v * ROW_W + k] for k in range(ROW_W)] for v in range(3)]  # noqa: E731
+    ih0, _ = energy_c(list(z), cell_rows(cells), ehat)
+    out = z.clone()
+    idx = torch.arange(z.shape[1], device=z.device)
+    sweeps = element_sweeps = 0
+    for it in range(int(max_iters)):
+        if idx.numel() == 0:
+            break
+        sub = idx if idx.numel() < z.shape[1] else slice(None)
+        z_new, keep = _sweep(
+            it > 0, list(out[:, sub]), list(dxpu[:, sub]), list(free[:, sub]),
+            cell_rows(cells[:, sub]), ehat, consts, tol,
+        )
+        out[:, sub] = torch.stack(z_new)
+        sweeps += 1
+        element_sweeps += idx.numel()
+        idx = idx[keep]
+    if stats is not None:
+        stats.update(sweeps=sweeps, element_sweeps=element_sweeps)
+    return out, ih0
+
+
+def _check(name, t, rows, n, device):
+    if t.device != device or t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32 on {device}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != (rows, n):
+        raise ValueError(f"{name}: expected shape {(rows, n)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def prox2d(z, dxpu, free, cells, ehat, w, tol, max_iters):
+    """K1: the prox z-update on ``[C, N]`` float32 channel tensors.
+
+    A CPU tensor goes to ``prox2d_plain``. A CUDA tensor launches the
+    kernel from ``csrc/prox2d.cu`` on the current stream (built at first
+    use) and counts the launch in ``prox2d.launches``."""
+    n = z.shape[1]
+    for name, t, rows in (("z", z, 6), ("dxpu", dxpu, 6), ("free", free, 6),
+                          ("cells", cells, 3 * ROW_W)):
+        _check(name, t, rows, n, z.device)
+    if z.device.type == "cpu":
+        return prox2d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters)
+    if z.device.type != "cuda":
+        raise ValueError(f"prox2d runs on cpu or cuda, not {z.device}")
+    lib = library()
+    zout = torch.empty_like(z)
+    ih0 = torch.empty(n, dtype=z.dtype, device=z.device)
+    w2, half_w2, inv_w2 = _consts(w)
+    h = [float(v) for v in ehat]
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    rc = lib.mm_prox2d(
+        z.data_ptr(), dxpu.data_ptr(), free.data_ptr(), cells.data_ptr(),
+        zout.data_ptr(), ih0.data_ptr(), n, h[0], h[1], h[2], h[3],
+        w2, half_w2, inv_w2, float(tol), int(max_iters), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"prox2d kernel launch failed: CUDA error {rc}")
+    prox2d.launches += 1
+    return zout, ih0
+
+
+prox2d.launches = 0
+
+# mm_prox2d(z, dxpu, free, cells, zout, ih0, n, h00, h01, h10, h11, w2,
+#           half_w2, inv_w2, tol, max_iters, stream) in csrc/prox2d.cu
+_SIGNATURES = {"mm_prox2d": (
+    [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_float] * 8
+    + [ctypes.c_int, ctypes.c_void_p],
+    ctypes.c_int,
+)}
+
+
+def library() -> ctypes.CDLL:
+    """K1's library, built from ``csrc/prox2d.cu`` at first use."""
+    return load_library("prox2d", _SIGNATURES)

@@ -1,0 +1,76 @@
+"""Experiment setup: config -> (mesh, integrator) (port of
+``mmadmm_tpu/problems.py``; reference ``main.cpp:142-782``).
+
+The port runs MM-ADMM (method 0) on the 2D stencil engine. Every other
+route raises ``NotImplementedError`` naming the ROADMAP item that ports
+it. The JAX package also gates the stencil engine on mesh size, to choose
+between it and the stock element-major engine; the port has only the
+stencil engine, so it takes every mesh that fits it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import ExperimentConfig
+from .geometry.node_type import NodeType
+from .geometry.rect_mesh import generate_uniform_rect_mesh
+from .geometry.shoulder import make_shoulder_mesh
+from .mesh import MovingMesh
+from .monitors import get_monitor
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def build_geometry(cfg: ExperimentConfig):
+    """``(X, F, mask)`` for SquareGrid and Shoulder (``main.cpp:874-904``)."""
+    btype = NodeType(cfg.boundary_node_type)
+    args = (cfg.dim, cfg.nx, cfg.ny, cfg.nz, cfg.xa, cfg.xb, cfg.ya, cfg.yb,
+            cfg.za, cfg.zb, btype)
+    if cfg.test_type == "SquareGrid":
+        return generate_uniform_rect_mesh(*args)
+    if cfg.test_type == "Shoulder":
+        return make_shoulder_mesh(*args)
+    if cfg.test_type in ("LevelSet", "FromFile"):
+        raise NotImplementedError(
+            f"{cfg.test_type} meshes run on the stock ADMM path (ROADMAP item A10)"
+        )
+    raise ValueError(f"unknown TestType {cfg.test_type!r}")
+
+
+def build_problem(cfg: ExperimentConfig, device=None):
+    """Return ``(mesh, integrator)`` ready to run, on ``device`` (CUDA
+    unless the caller asks for the CPU)."""
+    if cfg.method == 1:
+        raise NotImplementedError("explicit Euler is ROADMAP item A11")
+    if cfg.method == 2:
+        raise NotImplementedError("backward Euler is ROADMAP item A12")
+    if cfg.method != 0:
+        raise ValueError(f"unknown method {cfg.method}")
+    if cfg.dim != 2:
+        raise NotImplementedError("3D meshes are ROADMAP item A13")
+    if cfg.comp_mesh:
+        raise NotImplementedError("computational meshes are ROADMAP item A14")
+    if cfg.n_devices > 1:
+        raise NotImplementedError("multi-GPU runs are ROADMAP item A15")
+    X, F, mask = build_geometry(cfg)
+    mesh = MovingMesh(
+        X, F, mask, get_monitor(cfg.dim, cfg.mon_type),
+        rho=cfg.rho, tau=cfg.tau, dtype=_DTYPES[cfg.dtype], device=device,
+    )
+    # the stencil engine's gate (problems.py:136-161 in the JAX package)
+    if (4 * cfg.nx * cfg.ny) % 1024 != 0 or (
+        mesh.n_pnts != (cfg.nx + 1) * (cfg.ny + 1) + cfg.nx * cfg.ny
+    ):
+        raise NotImplementedError(
+            "meshes off the stencil engine's gate run on the stock ADMM path "
+            "(ROADMAP item A10)"
+        )
+    from .integrators.admm_grid2d import GridADMM2D
+
+    integ = GridADMM2D(
+        mesh, cfg.dt, cfg.nx, cfg.ny,
+        admm_iters=cfg.admm_iter, tol=cfg.step_tol,
+        prox_max_iters=cfg.prox_newton_iters, grad_use=cfg.grad_use,
+    )
+    return mesh, integ
