@@ -5,17 +5,23 @@
 Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: kernel K1 from ``csrc/prox2d.cu`` with ``nvcc``, and its
-   registers and spills (``-Xptxas -v``);
-3. kernel vs plain: kernel K1 (``csrc/prox2d.cu``) against its plain
-   PyTorch version on the same inputs, at Shoulder nx=16 and on the
-   step-0 inputs of Shoulder-320 (409,600 element slots);
-4. main path: Shoulder-320 MM-ADMM through ``problems.build_problem`` and
-   ``integrators.run_loop.run``, at most 30 steps with the DtTol stop;
-   the energies must be finite and fall, and K1's launch count must equal
-   the ADMM iterations;
-5. timing: K1 alone (median of 20 launches, CUDA events), the plain
-   version once, and K1's bound; one JSON line ``{"kernels": [...]}``.
+2. build: kernel K1 (``csrc/prox2d.cu``) and kernels K2 and K3
+   (``csrc/be2d.cu``), one ``nvcc`` per source, started together, and
+   their registers and spills (``-Xptxas -v``);
+3. kernel vs plain: every kernel against its plain PyTorch version on the
+   same inputs, at Shoulder nx=16 and on the step-0 inputs of
+   Shoulder-320 (409,600 element slots);
+4. main paths, each through ``problems.build_problem`` and
+   ``integrators.run_loop.run`` at Shoulder-320, at most 30 steps with the
+   DtTol stop, with every launch count set to 0 just before and read just
+   after: MM-ADMM (method 0; K1 launches = ADMM iterations), explicit
+   Euler (method 1; K2 launches = steps) and backward Euler (method 2; K3
+   launches = steps, K2 launches = Newton iterations + 3 per step). The
+   energies must be finite and fall. Euler and backward Euler at Shoulder
+   nx=16 must also agree with the port's CPU run (plain versions, held to
+   the JAX package by tests/test_torch_euler_be.py);
+5. timing: each kernel alone (median of 20 launches, CUDA events), its
+   plain version once, and its bound; one JSON line ``{"kernels": [...]}``.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 1
@@ -37,21 +43,25 @@ T0 = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 STEP_CAP = 30
+SMALL_STEPS = 4  # card-vs-CPU check of Euler and backward Euler at nx=16
 MONITOR1320_IH0 = 0.845393  # BASELINE.md:34, the reference's recorded Ih at step 0
+# eg2d launches of one backward-Euler step beyond its Newton iterations:
+# the explicit-Euler guess, the residual F0 and the post-step energy
+BE_EG_PER_STEP = 3
 
 
 def say(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:8.2f} s] {msg}", flush=True)
 
 
-def shoulder(nx: int):
+def shoulder(nx: int, method: int = 0, device: str = "cuda"):
     from mmadmm_tpu_torch import ExperimentConfig, build_problem
 
     cfg = ExperimentConfig(
-        test_type="Shoulder", dim=2, mon_type=1, method=0, nx=nx, ny=nx,
+        test_type="Shoulder", dim=2, mon_type=1, method=method, nx=nx, ny=nx,
         dt=5e-3, tau=0.1, rho=50.0, dtype="float32",
     )
-    mesh, integ = build_problem(cfg, device="cuda")
+    mesh, integ = build_problem(cfg, device=device)
     return cfg, mesh, integ
 
 
@@ -61,6 +71,13 @@ def prox_inputs(integ):
     _, x, z, u = integ.start(state)
     dxpu = (integ.gather(x) + u).contiguous()
     return z.contiguous(), dxpu, integ.free, integ.cells(z)
+
+
+def be_inputs(integ):
+    """The inputs of the first K2 call of step 0 of either Euler method:
+    ``(z [6, NFd], cells [48, NFd], ehat)``."""
+    z = integ.eg.gather(integ.mesh.X0).contiguous()
+    return z, integ.eg.cells(z), integ.mesh.ehat_np.reshape(-1)
 
 
 def check_close(name, a, b, rtol, atol):
@@ -78,6 +95,20 @@ def check_close(name, a, b, rtol, atol):
             f"first: {float(a[ok][i])} vs {float(b[ok][i])}"
         )
     return float(err.max()) if err.numel() else 0.0
+
+
+def check_slots(name, a, b, rtol, atol_frac):
+    """Channel-major ``[C, N]``: |a - b| <= rtol |b| + atol_frac * (the
+    largest finite |b| of the slot), the same non-finite entries."""
+    fin_a, fin_b = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fin_a, fin_b) or not torch.equal(a[~fin_b], b[~fin_b]):
+        raise AssertionError(f"{name}: non-finite entries differ")
+    scale = torch.where(fin_b, b.abs(), 0.0).amax(0, keepdim=True)
+    err = torch.where(fin_b, (a - b).abs(), 0.0)
+    bad = err > rtol * b.abs() + atol_frac * scale
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} entries out of band")
+    return float(err.max())
 
 
 def compare(label, integ):
@@ -104,6 +135,29 @@ def compare(label, integ):
         f"max |ih0 err| {err_ih:.3e}, max |energy err| {err_e:.3e}, max |z' err| {err_z:.3e}, "
         f"bit-equal z' {100 * same:.2f}% of elements")
     return max(err_ih, err_z), (z, dxpu, free, cells)
+
+
+def compare_be(label, z, cells, ehat):
+    """K2 and K3 against their plain versions. Bands of
+    tests/test_torch_be2d.py: ih within rtol 2e-5; g and the 21 Hessian
+    channels within rtol 1e-4 and atol 1e-6 of the slot's largest entry.
+    Returns ``(K2 max abs error, K3 max abs error)``."""
+    from mmadmm_tpu_torch.ops import be2d as B
+
+    gk, ihk = B.eg2d(z, cells, ehat)
+    Hk = B.hess2d(z, cells, ehat)
+    torch.cuda.synchronize()
+    gp, ihp = B.eg2d_plain(z, cells, ehat)
+    Hp = B.hess2d_plain(z, cells, ehat)
+    err_ih = check_slots(f"{label} K2 ih", ihk[None], ihp[None], 2e-5, 0.0)
+    err_g = check_slots(f"{label} K2 g", gk, gp, 1e-4, 1e-6)
+    err_h = check_slots(f"{label} K3 H", Hk, Hp, 1e-4, 1e-6)
+    same_eg = float(((gk == gp).all(0) & (ihk == ihp)).float().mean())
+    same_h = float((Hk == Hp).all(0).float().mean())
+    say(f"{label}: {z.shape[1]} slots; within bands; K2 max |ih err| {err_ih:.3e}, "
+        f"max |g err| {err_g:.3e}, bit-equal {100 * same_eg:.2f}% of slots; "
+        f"K3 max |H err| {err_h:.3e}, bit-equal {100 * same_h:.2f}% of slots")
+    return max(err_ih, err_g), err_h
 
 
 class _OpCounter(torch.utils._python_dispatch.TorchDispatchMode):
@@ -143,12 +197,109 @@ def time_kernel(fn, n=20):
     return statistics.median(times)
 
 
+def time_plain(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t)
+
+
+def bound(fn, n_floats):
+    """``(bound ms, bound_by, ops, bytes)`` of a function whose plain
+    version ``fn`` does the counted operations and which moves
+    ``n_floats`` f32 values (inputs read once, outputs written once)."""
+    with _OpCounter() as counter:
+        fn()
+    nbytes = 4 * n_floats
+    bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
+    ops_ms = 1e3 * counter.ops / H100_F32_OPS_PER_S
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(bytes_ms, ops_ms), by, counter.ops, nbytes
+
+
+def counts():
+    from mmadmm_tpu_torch.ops import be2d as B
+    from mmadmm_tpu_torch.ops import prox2d as P
+
+    return {"prox2d": P.prox2d.launches, "eg2d": B.eg2d.launches,
+            "hess2d": B.hess2d.launches}
+
+
+def zero_counts():
+    from mmadmm_tpu_torch.ops import be2d as B
+    from mmadmm_tpu_torch.ops import prox2d as P
+
+    P.prox2d.launches = B.eg2d.launches = B.hess2d.launches = 0
+
+
+def drive(label, cfg, integ):
+    """One main path at Shoulder-320: ``(infos, trace, launch counts)``,
+    the counts set to 0 just before the run and read just after."""
+    from mmadmm_tpu_torch.integrators.run_loop import run
+
+    infos = []
+    last = [time.perf_counter()]
+
+    def on_step(k, info):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        infos.append(info)
+        extra = "".join(f" {f} {getattr(info, f)}" for f in ("n_iters", "n_newton")
+                        if hasattr(info, f))
+        say(f"{label} step {k}: ih {info.ih:.9f}{extra} {1e3 * (now - last[0]):.1f} ms")
+        last[0] = now
+
+    state = integ.init_state()
+    torch.cuda.synchronize()
+    zero_counts()
+    last[0] = time.perf_counter()
+    state, trace, steps = run(integ, state, cap=STEP_CAP, dt_tol=cfg.dt_tol, on_step=on_step)
+    torch.cuda.synchronize()
+    launched = counts()
+    ih = trace[:steps]
+    say(f"{label}: {steps} steps, Ih {ih[0]:.9f} -> {ih[-1]:.9f}; launches {launched}")
+    if not all(math.isfinite(v) for v in ih):
+        raise AssertionError(f"{label}: non-finite energy in {ih}")
+    if not ih[-1] < ih[0]:
+        raise AssertionError(f"{label}: energy did not fall: {ih[0]} -> {ih[-1]}")
+    if not bool(torch.isfinite(state.x).all()):
+        raise AssertionError(f"{label}: non-finite mesh positions")
+    return infos, ih, launched
+
+
+def expect(label, launched, want):
+    if launched != want or not any(want.values()):
+        raise AssertionError(f"{label}: launches {launched}, expected {want}")
+
+
+def card_vs_cpu(method):
+    """Euler or backward Euler at Shoulder nx=16, SMALL_STEPS steps on the
+    card (kernels) and on the CPU (plain versions): Ih within the bands of
+    tests/test_torch_euler_be.py (rtol 1e-6 Euler, 1e-5 backward Euler),
+    the same Newton counts."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        _, _, integ = shoulder(16, method, device)
+        state, infos = integ.init_state(), []
+        for _ in range(SMALL_STEPS):
+            state, info = integ.step(state)
+            infos.append(info)
+        runs.append(infos)
+    rtol = 1e-6 if method == 1 else 1e-5
+    for k, (a, b) in enumerate(zip(*runs)):
+        if not math.isclose(a.ih, b.ih, rel_tol=rtol) or a[1:] != b[1:]:
+            raise AssertionError(f"method {method} step {k}: card {a} vs cpu {b}")
+    say(f"method {method} at Shoulder nx=16: card and CPU agree over {SMALL_STEPS} steps "
+        f"(Ih rtol {rtol}): {[round(i.ih, 9) for i in runs[0]]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from mmadmm_tpu_torch import cuda_build
-    from mmadmm_tpu_torch.integrators.run_loop import run
+    from mmadmm_tpu_torch.ops import be2d as B
     from mmadmm_tpu_torch.ops import prox2d as P
 
     smi = subprocess.run(
@@ -159,86 +310,87 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     say(f"device: {kind}; {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    # ---- build ---------------------------------------------------------------
     t = time.perf_counter()
+    cuda_build.build(["prox2d", "be2d"])
     P.library()
-    say(f"build: prox2d {time.perf_counter() - t:.2f} s")
-    for line in cuda_build.ptxas_report("prox2d").splitlines():
-        say(f"ptxas prox2d: {line.strip()}")
+    B.library()
+    say(f"build: prox2d and be2d together in {time.perf_counter() - t:.2f} s")
+    for name in ("prox2d", "be2d"):
+        for line in cuda_build.ptxas_report(name).splitlines():
+            say(f"ptxas {name}: {line.strip()}")
 
+    # ---- kernels vs plain ------------------------------------------------------
     _, _, small = shoulder(16)
     compare("K1 vs plain, Shoulder nx=16", small)
+    _, _, small_eg = shoulder(16, 1)
+    compare_be("K2/K3 vs plain, Shoulder nx=16", *be_inputs(small_eg))
     t = time.perf_counter()
     cfg, mesh, integ = shoulder(320)
     say(f"Shoulder-320 set-up: {mesh.n_pnts} nodes, {mesh.n_elements} live "
         f"triangles, {integ.NFd} slots ({time.perf_counter() - t:.2f} s)")
-    max_err, inputs = compare("K1 vs plain, Shoulder-320 step 0", integ)
+    k1_err, inputs = compare("K1 vs plain, Shoulder-320 step 0", integ)
+    cfg_e, _, euler = shoulder(320, 1)
+    cfg_b, _, be = shoulder(320, 2)
+    be_in = be_inputs(euler)
+    k2_err, k3_err = compare_be("K2/K3 vs plain, Shoulder-320 step 0", *be_in)
 
-    # ---- main path ---------------------------------------------------------
-    iters = []
-    last = [time.perf_counter()]
-
-    def on_step(k, info):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        iters.append(info.n_iters)
-        say(f"step {k}: ih_start {info.ih_start:.9f} n_iters {info.n_iters} "
-            f"primal {info.primal:.3e} dual {info.dual:.3e} "
-            f"{1e3 * (now - last[0]):.1f} ms")
-        last[0] = now
-
-    state = integ.init_state()
-    P.prox2d.launches = 0
-    last[0] = time.perf_counter()
-    state, trace, steps = run(integ, state, cap=STEP_CAP, dt_tol=cfg.dt_tol, on_step=on_step)
-    torch.cuda.synchronize()
-    launches = P.prox2d.launches
-    ih = trace[:steps]
-    say(f"main path: {steps} steps, Ih {ih[0]:.9f} -> {ih[-1]:.9f}; "
-        f"K1 launches {launches}, ADMM iterations {sum(iters)}")
-    say(f"step-0 Ih {ih[0]:.6f} beside the reference's recorded Monitor1320 "
-        f"initial Ih {MONITOR1320_IH0} (information: dt/rho may differ from its JSON)")
-    if not all(math.isfinite(v) for v in ih):
-        raise AssertionError(f"non-finite energy in {ih}")
-    if not ih[-1] < ih[0]:
-        raise AssertionError(f"energy did not fall: {ih[0]} -> {ih[-1]}")
-    if launches != sum(iters) or launches == 0:
-        raise AssertionError(f"K1 launches {launches} != ADMM iterations {sum(iters)}")
-    if not bool(torch.isfinite(state.x).all()):
-        raise AssertionError("non-finite mesh positions")
+    # ---- main paths -----------------------------------------------------------
+    infos, ih, launched = drive("MM-ADMM", cfg, integ)
+    iters = sum(i.n_iters for i in infos)
+    expect("MM-ADMM", launched, {"prox2d": iters, "eg2d": 0, "hess2d": 0})
+    say(f"MM-ADMM: K1 launches {launched['prox2d']} = ADMM iterations {iters}; "
+        f"step-0 Ih {ih[0]:.6f} beside the reference's recorded Monitor1320 initial Ih "
+        f"{MONITOR1320_IH0} (information: dt/rho may differ from its JSON)")
+    infos_e, _, launched_e = drive("Euler", cfg_e, euler)
+    expect("Euler", launched_e, {"prox2d": 0, "eg2d": len(infos_e), "hess2d": 0})
+    say(f"Euler: K2 launches {launched_e['eg2d']} = steps {len(infos_e)}")
+    infos_b, _, launched_b = drive("backward Euler", cfg_b, be)
+    newton = sum(i.n_newton for i in infos_b)
+    expect("backward Euler", launched_b, {
+        "prox2d": 0, "eg2d": newton + BE_EG_PER_STEP * len(infos_b), "hess2d": len(infos_b)})
+    say(f"backward Euler: K3 launches {launched_b['hess2d']} = steps {len(infos_b)}; "
+        f"K2 launches {launched_b['eg2d']} = Newton iterations {newton} + "
+        f"{BE_EG_PER_STEP} x {len(infos_b)} steps")
+    card_vs_cpu(1)
+    card_vs_cpu(2)
 
     # ---- timing --------------------------------------------------------------
     z, dxpu, free, cells = inputs
     args = (integ.mesh.ehat_np.reshape(-1), integ.w, integ.prox_tol, integ.prox_max_iters)
-    ms = time_kernel(lambda: P.prox2d(z, dxpu, free, cells, *args))
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    P.prox2d_plain(z, dxpu, free, cells, *args)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t)
     stats = {}
-    with _OpCounter() as counter:
-        P.prox2d_plain(z, dxpu, free, cells, *args, stats=stats)
+    rows = []
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, b):
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+        })
+        say(f"{name}: {ms:.4f} ms (median of 20); plain {plain_ms:.1f} ms; bound "
+            f"{b[0]:.4f} ms by {b[1]} ({b[2]:.4e} operations at 67 TFLOP/s, {b[3]} bytes "
+            f"at 3.35 TB/s)")
+
     n = z.shape[1]
-    nbytes = 4 * n * (6 + 6 + 6 + 48 + 6 + 1)
-    bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
-    ops_ms = 1e3 * counter.ops / H100_F32_OPS_PER_S
-    say(f"K1 at {n} slots: {ms:.3f} ms (median of 20); plain {plain_ms:.1f} ms; "
-        f"{stats['element_sweeps']} element-sweeps in {stats['sweeps']} sweeps, "
-        f"{counter.ops:.4e} operations ({ops_ms:.4f} ms at 67 TFLOP/s), "
-        f"{nbytes} bytes ({bytes_ms:.4f} ms at 3.35 TB/s)")
-    print(json.dumps({"kernels": [{
-        "name": "prox2d",
-        "route": "cuda",
-        "source": "mmadmm_tpu_torch/csrc/prox2d.cu",
-        "replaces": "mmadmm_tpu/ops/prox_pallas2d.py:573",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-    }]}), flush=True)
+    row("prox2d", "mmadmm_tpu_torch/csrc/prox2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:573",
+        launched["prox2d"], k1_err,
+        time_kernel(lambda: P.prox2d(z, dxpu, free, cells, *args)),
+        time_plain(lambda: P.prox2d_plain(z, dxpu, free, cells, *args)),
+        bound(lambda: P.prox2d_plain(z, dxpu, free, cells, *args, stats=stats),
+              n * (6 + 6 + 6 + 48 + 6 + 1)))
+    say(f"K1 step-0 work: {stats['element_sweeps']} element-sweeps in {stats['sweeps']} sweeps")
+    zb, cb, eh = be_in
+    row("eg2d", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:501",
+        launched_e["eg2d"] + launched_b["eg2d"], k2_err,
+        time_kernel(lambda: B.eg2d(zb, cb, eh)), time_plain(lambda: B.eg2d_plain(zb, cb, eh)),
+        bound(lambda: B.eg2d_plain(zb, cb, eh), n * (6 + 48 + 6 + 1)))
+    row("hess2d", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:514",
+        launched_b["hess2d"], k3_err,
+        time_kernel(lambda: B.hess2d(zb, cb, eh)),
+        time_plain(lambda: B.hess2d_plain(zb, cb, eh)),
+        bound(lambda: B.hess2d_plain(zb, cb, eh), n * (6 + 48 + 21)))
+    say(f"launches by path: MM-ADMM {launched}, Euler {launched_e}, backward Euler {launched_b}")
+    print(json.dumps({"kernels": rows}), flush=True)
     say("all phases passed")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,9 +1,11 @@
 """Carry the JAX package's state into the port.
 
 There are no weights here: the state is the mesh. These functions take the
-JAX package's ``GridADMM2D`` arrays, as NumPy, and load them into a port
-``GridADMM2D`` built from the same config, so that both packages start
-from the same bits. The tests use them; nothing here imports JAX.
+JAX package's arrays, as NumPy, and load them into a port integrator built
+from the same config, so that both packages start from the same bits:
+``GridADMM2D`` constants and state, and the Euler and backward-Euler
+state (``EulerState`` / ``BackwardEulerState``). The tests use them;
+nothing here imports JAX.
 
 Array names follow the JAX package: the integrator's constants
 ``swap_k, alive_k [4, ny, nx]``, ``valid_t [T, 8, 128]``,
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from .integrators.admm_grid2d import Grid2DState, GridADMM2D
+from .integrators.euler import EulerState
 
 
 def _t(a, like: torch.Tensor, shape=None):
@@ -59,3 +62,13 @@ def load_grid2d_state(integ: GridADMM2D, arrays: dict) -> Grid2DState:
         rose=bool(arrays.get("rose", False)),
         rises=int(arrays.get("rises", 0)),
     )
+
+
+def load_euler_state(integ, arrays: dict) -> EulerState:
+    """A port state for ``EulerIntegrator`` or ``BackwardEulerIntegrator``
+    from ``x`` and, optionally, ``x_prev`` (default ``x``: the JAX
+    ``EulerState`` has none) and ``steps``."""
+    like = integ.mesh.X0
+    x = _t(arrays["x"], like)
+    x_prev = _t(arrays["x_prev"], like) if "x_prev" in arrays else x
+    return EulerState(x=x, x_prev=x_prev, steps=int(arrays.get("steps", 0)))

@@ -1,0 +1,219 @@
+// The 2D Huang functional on one triangle, for the port's kernels (K1 in
+// prox2d.cu, K2 and K3 in be2d.cu): forward-mode dual numbers, the
+// bilinear monitor sample from a vertex's 16-wide cell row, the terms
+// shared by energy and gradient, the energy and the analytic gradient.
+//
+// Port of the component math of mmadmm_tpu/ops/prox_pallas2d.py
+// (_sample_m_c, _common_c, energy_c, grad_c). ops/prox2d.py repeats these
+// operations in the same order, so with --fmad=false a kernel built on
+// them agrees with its plain PyTorch version bit for bit.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr float kDetFloor = 1e-30f;
+constexpr float kLevenberg = 1e-9f;
+
+struct Dual {
+  float v, d;
+};
+
+// Forward-mode rules, as JAX's jvp rules and ops/prox2d.py::_Dual.
+__device__ __forceinline__ Dual operator+(Dual a, Dual b) { return {a.v + b.v, a.d + b.d}; }
+__device__ __forceinline__ Dual operator+(Dual a, float b) { return {a.v + b, a.d}; }
+__device__ __forceinline__ Dual operator+(float a, Dual b) { return {b.v + a, b.d}; }
+__device__ __forceinline__ Dual operator-(Dual a, Dual b) { return {a.v - b.v, a.d - b.d}; }
+__device__ __forceinline__ Dual operator-(Dual a, float b) { return {a.v - b, a.d}; }
+__device__ __forceinline__ Dual operator-(float a, Dual b) { return {a - b.v, -b.d}; }
+__device__ __forceinline__ Dual operator-(Dual a) { return {-a.v, -a.d}; }
+__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
+  return {a.v * b.v, a.d * b.v + a.v * b.d};
+}
+__device__ __forceinline__ Dual operator*(Dual a, float b) { return {a.v * b, a.d * b}; }
+__device__ __forceinline__ Dual operator*(float a, Dual b) { return {a * b.v, a * b.d}; }
+__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
+  float r = 1.0f / (b.v * b.v);
+  return {a.v / b.v, a.d / b.v + (-b.d * a.v) * r};
+}
+__device__ __forceinline__ Dual operator/(Dual a, float b) { return {a.v / b, a.d / b}; }
+__device__ __forceinline__ Dual operator/(float a, Dual b) {
+  float r = 1.0f / (b.v * b.v);
+  return {a / b.v, (-b.d * a) * r};
+}
+
+// max(x, c) that keeps a NaN x (jnp.maximum / torch.clamp_min)
+__device__ __forceinline__ float max_floor(float x, float c) { return (x > c || x != x) ? x : c; }
+__device__ __forceinline__ Dual max_floor(Dual x, float c) {
+  float f = x.v > c ? 1.0f : (x.v == c ? 0.5f : 0.0f);
+  return {max_floor(x.v, c), x.d * f};
+}
+__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+__device__ __forceinline__ Dual sqrt_(Dual x) {
+  float s = sqrtf(x.v);
+  return {s, x.d * (0.5f / s)};
+}
+__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
+__device__ __forceinline__ Dual abs_(Dual x) { return {fabsf(x.v), x.v >= 0.0f ? x.d : -x.d}; }
+
+struct Consts {
+  float h00, h01, h10, h11;  // Ehat, row-major
+  float w2, half_w2, inv_w2, tol;
+};
+
+// f32 constants rounded as the JAX kernel rounds them (see ops/prox2d.py)
+__device__ __forceinline__ float third() { return 1.0f / 3.0f; }
+__device__ __forceinline__ float c_d32() { return 2.0f * sqrtf(2.0f); }
+
+template <typename T>
+__device__ __forceinline__ void sample_m(const float* c, T x, T y, T& m0, T& m1, T& m2) {
+  float x0 = c[12], x1 = c[13], y0 = c[14], y1 = c[15];
+  float norm = 1.0f / ((x1 - x0) * (y1 - y0));
+  T c00 = norm * (x1 - x) * (y1 - y);
+  T c10 = norm * (x - x0) * (y1 - y);
+  T c01 = norm * (x1 - x) * (y - y0);
+  T c11 = norm * (x - x0) * (y - y0);
+  m0 = c00 * c[0] + c10 * c[3] + c01 * c[6] + c11 * c[9];
+  m1 = c00 * c[1] + c10 * c[4] + c01 * c[7] + c11 * c[10];
+  m2 = c00 * c[2] + c10 * c[5] + c01 * c[8] + c11 * c[11];
+}
+
+template <typename T>
+struct Common {
+  T m[3][3];
+  T mi00, mi01, mi11, ei00, ei01, ei10, ei11;
+  T fj00, fj01, fj10, fj11, mj00, mj01, mj10, mj11;
+  T tr, det_m, det_fj, G, abs_k, sqrt_tr, sqrt_dfj, inv_sqrt_dm;
+};
+
+template <typename T>
+__device__ __forceinline__ void common(const T* z, const float* cells, const Consts& k, Common<T>& t) {
+#pragma unroll
+  for (int v = 0; v < 3; ++v) sample_m(cells + 16 * v, z[2 * v], z[2 * v + 1], t.m[v][0], t.m[v][1], t.m[v][2]);
+  T ms00 = t.m[0][0] + t.m[1][0] + t.m[2][0];
+  T ms01 = t.m[0][1] + t.m[1][1] + t.m[2][1];
+  T ms11 = t.m[0][2] + t.m[1][2] + t.m[2][2];
+  T det_ms = ms00 * ms11 - ms01 * ms01;
+  T q = 1.0f / (3.0f * det_ms);
+  t.mi00 = ms11 * q;
+  t.mi01 = -ms01 * q;
+  t.mi11 = ms00 * q;
+
+  T e00 = z[2] - z[0];
+  T e10 = z[3] - z[1];
+  T e01 = z[4] - z[0];
+  T e11 = z[5] - z[1];
+  T edet = e00 * e11 - e01 * e10;
+  T r = 1.0f / edet;
+  t.ei00 = e11 * r;
+  t.ei01 = -e01 * r;
+  t.ei10 = -e10 * r;
+  t.ei11 = e00 * r;
+
+  t.fj00 = k.h00 * t.ei00 + k.h01 * t.ei10;
+  t.fj01 = k.h00 * t.ei01 + k.h01 * t.ei11;
+  t.fj10 = k.h10 * t.ei00 + k.h11 * t.ei10;
+  t.fj11 = k.h10 * t.ei01 + k.h11 * t.ei11;
+  T det_fj = t.fj00 * t.fj11 - t.fj01 * t.fj10;
+
+  t.mj00 = t.mi00 * t.fj00 + t.mi01 * t.fj01;
+  t.mj01 = t.mi00 * t.fj10 + t.mi01 * t.fj11;
+  t.mj10 = t.mi01 * t.fj00 + t.mi11 * t.fj01;
+  t.mj11 = t.mi01 * t.fj10 + t.mi11 * t.fj11;
+  T tr = t.fj00 * t.mj00 + t.fj01 * t.mj10 + t.fj10 * t.mj01 + t.fj11 * t.mj11;
+
+  T det_minv = t.mi00 * t.mi11 - t.mi01 * t.mi01;
+  t.det_m = sqrt_(1.0f / max_floor(det_minv, kDetFloor));
+  t.tr = max_floor(tr, kDetFloor);
+  t.det_fj = max_floor(det_fj, kDetFloor);
+  t.sqrt_tr = sqrt_(t.tr);
+  T tr32 = t.tr * t.sqrt_tr;
+  t.sqrt_dfj = sqrt_(t.det_fj);
+  T dfj32 = t.det_fj * t.sqrt_dfj;
+  t.inv_sqrt_dm = 1.0f / sqrt_(t.det_m);
+  t.G = third() * t.det_m * tr32 + (third() * c_d32()) * dfj32 * t.inv_sqrt_dm;
+  t.abs_k = abs_(edet * 0.5f);
+}
+
+// (ih_unregularized, e_regularized) at z
+__device__ __forceinline__ void energy(const float* z, const float* cells, const float* dxpu,
+                                       const Consts& k, float& ih, float& e_reg) {
+  Common<float> t;
+  common(z, cells, k, t);
+  ih = t.abs_k * t.G;
+  float reg = (dxpu[0] - z[0]) * (dxpu[0] - z[0]);
+  for (int i = 1; i < 6; ++i) reg = reg + (dxpu[i] - z[i]) * (dxpu[i] - z[i]);
+  e_reg = ih + k.half_w2 * reg;
+}
+
+__device__ __forceinline__ float energy_unreg(const float* z, const float* cells, const Consts& k) {
+  Common<float> t;
+  common(z, cells, k, t);
+  return t.abs_k * t.G;
+}
+
+// masked regularized gradient into g, the unregularized energy into ih;
+// returns e_reg
+template <typename T>
+__device__ __forceinline__ T grad(const T* z, const float* cells, const float* dxpu, const float* fr,
+                                  const Consts& k, T* g, T& ih) {
+  Common<T> t;
+  common(z, cells, k, t);
+  T s_j = t.det_m * t.sqrt_tr;
+  T dj00 = s_j * t.mj00;
+  T dj01 = s_j * t.mj01;
+  T dj10 = s_j * t.mj10;
+  T dj11 = s_j * t.mj11;
+  T dgddet = ((float)(1.5 * (1.0 / 3.0)) * c_d32()) * t.inv_sqrt_dm * t.sqrt_dfj;
+
+  T a00 = t.fj00 * t.mi00 + t.fj01 * t.mi01;
+  T a01 = t.fj00 * t.mi01 + t.fj01 * t.mi11;
+  T a10 = t.fj10 * t.mi00 + t.fj11 * t.mi01;
+  T a11 = t.fj10 * t.mi01 + t.fj11 * t.mi11;
+  T b00 = a00 * a00 + a10 * a10;
+  T b01 = a00 * a01 + a10 * a11;
+  T b11 = a01 * a01 + a11 * a11;
+  T s_m1 = -0.5f * s_j;
+  T tr32 = t.tr * t.sqrt_tr;
+  T dfj32 = t.det_fj * t.sqrt_dfj;
+  // Python doubles rounded to f32 where they meet a tile, as in JAX
+  const float k_sm2a = (float)(0.5 * (1.0 / 3.0));
+  const float k_sm2b = (float)((0.5 - 1.0 / 3.0) * (1.0 - 1.5)) * c_d32();
+  T s_m2 = k_sm2a * t.det_m * tr32 + (k_sm2b * t.inv_sqrt_dm * dfj32);
+  T dm00 = s_m1 * b00 + s_m2 * t.mi00;
+  T dm01 = s_m1 * b01 + s_m2 * t.mi01;
+  T dm11 = s_m1 * b11 + s_m2 * t.mi11;
+
+  T d10 = t.m[1][0] - t.m[0][0], d11 = t.m[1][1] - t.m[0][1], d12 = t.m[1][2] - t.m[0][2];
+  T d20 = t.m[2][0] - t.m[0][0], d21 = t.m[2][1] - t.m[0][1], d22 = t.m[2][2] - t.m[0][2];
+  T tr1 = d10 * dm00 + 2.0f * d11 * dm01 + d12 * dm11;
+  T tr2 = d20 * dm00 + 2.0f * d21 * dm01 + d22 * dm11;
+  T bc0 = tr1 * t.ei00 + tr2 * t.ei10;
+  T bc1 = tr1 * t.ei01 + tr2 * t.ei11;
+
+  T c1 = -t.G + dgddet * t.det_fj;
+  T q00 = t.ei00 * dj00 + t.ei01 * dj10;
+  T q01 = t.ei00 * dj01 + t.ei01 * dj11;
+  T q10 = t.ei10 * dj00 + t.ei11 * dj10;
+  T q11 = t.ei10 * dj01 + t.ei11 * dj11;
+  T v00 = c1 * t.ei00 + q00 * t.fj00 + q01 * t.fj10 - bc0 * third();
+  T v01 = c1 * t.ei01 + q00 * t.fj01 + q01 * t.fj11 - bc1 * third();
+  T v10 = c1 * t.ei10 + q10 * t.fj00 + q11 * t.fj10 - bc0 * third();
+  T v11 = c1 * t.ei11 + q10 * t.fj01 + q11 * t.fj11 - bc1 * third();
+
+  T g0x = v00 + v10 + bc0;
+  T g0y = v01 + v11 + bc1;
+  T abs_k = t.abs_k;
+  T raw[6] = {g0x * abs_k, g0y * abs_k, -v00 * abs_k, -v01 * abs_k, -v10 * abs_k, -v11 * abs_k};
+  ih = abs_k * t.G;
+  T reg = (dxpu[0] - z[0]) * (dxpu[0] - z[0]);
+  for (int i = 1; i < 6; ++i) reg = reg + (dxpu[i] - z[i]) * (dxpu[i] - z[i]);
+  T e_reg = ih + k.half_w2 * reg;
+  for (int i = 0; i < 6; ++i) g[i] = (raw[i] + k.w2 * (z[i] - dxpu[i])) * fr[i];
+  return e_reg;
+}
+
+}  // namespace

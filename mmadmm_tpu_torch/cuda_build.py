@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 A source ``csrc/<name>.cu`` exports plain C functions. It is compiled by
-``nvcc`` into ``_build/lib<name>-<hash>.so`` (the hash covers the source
-and the flags, so an edited source builds anew) at first use and loaded
-with ``ctypes``. ``nvcc -Xptxas -v`` output (registers and spills per
-kernel) is kept beside the library as ``<name>-<hash>.ptxas.txt``.
+``nvcc`` into ``_build/lib<name>-<hash>.so`` (the hash covers the source,
+every ``csrc/`` header it includes and the flags, so an edited source or
+header builds anew) at first use and loaded with ``ctypes``. ``build``
+starts one ``nvcc`` per source, all at once. ``nvcc -Xptxas -v`` output
+(registers and spills per kernel) is kept beside the library as
+``<name>-<hash>.ptxas.txt``.
 
 No PyTorch headers are compiled: a source with ``torch/extension.h`` takes
 minutes to build, a plain C interface seconds.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -42,10 +45,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc/`` file it includes, directly
+    or through another include."""
+    todo, seen = [f"{name}.cu"], []
+    while todo:
+        rel = todo.pop()
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def _paths(name: str):
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        src = f.read()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in sorted(_sources(name)):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + f.read())
+    h = h.hexdigest()[:16]
     return (os.path.join(BUILD_DIR, f"lib{name}-{h}.so"),
             os.path.join(BUILD_DIR, f"{name}-{h}.ptxas.txt"))
 
@@ -59,28 +81,44 @@ def ptxas_report(name: str) -> str:
         )
 
 
-def load_library(name: str, signatures: dict) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed.
-
-    ``signatures`` maps each C function to ``(argtypes, restype)``. Raises
-    with the compiler's output if the build fails."""
-    lib = _loaded.get(name)
-    if lib is not None:
-        return lib
-    so, log = _paths(name)
-    if not os.path.exists(so):
+def build(names) -> None:
+    """Build every ``csrc/<name>.cu`` of ``names`` that has no current
+    library yet, one ``nvcc`` process per source, all started together.
+    Raises with the compiler's output if a build fails."""
+    jobs = []
+    for name in names:
+        so, log = _paths(name)
+        if os.path.exists(so):
+            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        jobs.append((name, so, log, tmp, proc))
+    failed = []
+    for name, so, log, tmp, proc in jobs:
+        out, _ = proc.communicate()
         with open(log, "w") as f:
-            f.write(proc.stdout)
+            f.write(out)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+
+    ``signatures`` maps each C function to ``(argtypes, restype)``."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    lib = ctypes.CDLL(_paths(name)[0])
     for fn, (argtypes, restype) in signatures.items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)

@@ -1,1 +1,2 @@
-"""Time integrators of the port (MM-ADMM on the 2D stencil engine)."""
+"""Time integrators of the port on the 2D stencil engine: MM-ADMM,
+explicit Euler and backward Euler, and the outer run loop."""

@@ -30,7 +30,7 @@ import torch
 
 from ..geometry.topology import node_degrees
 from ..mesh import MovingMesh
-from ..ops.monitor_grid import cell_rows
+from ..ops.monitor_grid import cell_rows48
 from ..ops.prox2d import prox2d
 from ..ops.reductions import sum_f64, sumsq_f64
 from ..ops.stencil2d import make_stencil_ops, match_dense
@@ -47,7 +47,7 @@ class Grid2DState(NamedTuple):
 
 
 class StepInfo(NamedTuple):
-    ih_start: float  # energy at the first prox call of the step (f64 sum)
+    ih: float  # energy at the first prox call of the step (f64 sum)
     primal: float
     dual: float
     n_iters: int  # ADMM iterations, one K1 launch each
@@ -133,8 +133,7 @@ class GridADMM2D:
     def cells(self, z):
         """The three per-vertex cell-table rows of every slot,
         ``[48, NFd]``, fetched at the current z."""
-        rows = [cell_rows(self.mesh.grid, z[2 * v:2 * v + 2].T).T for v in range(3)]
-        return torch.cat(rows).contiguous()
+        return cell_rows48(self.mesh.grid, z)
 
     def prox(self, z, dxpu):
         """Kernel K1 on this step's slots: ``(z', ih0)``."""
@@ -195,7 +194,7 @@ class GridADMM2D:
             x=x, x_prev=state.x, u=u, steps=state.steps + 1, ih_last=ih,
             rose=rose, rises=state.rises + 1 if rose else 0,
         )
-        return new_state, StepInfo(ih_start=ih, primal=primal, dual=dual, n_iters=n)
+        return new_state, StepInfo(ih=ih, primal=primal, dual=dual, n_iters=n)
 
     def energy(self, state: Grid2DState) -> float:
         return float(self.mesh.energy(state.x))

@@ -18,16 +18,19 @@ import numpy as np
 
 def run(integ, state, *, cap: int, dt_tol: float, target_ih: float | None = None,
         on_step=None):
-    """Step ``integ`` from ``state`` until a stop. Returns ``(state,
-    trace [cap] float64, steps)``; trace slots after the last step are
-    NaN. ``on_step(k, info)``, if given, runs after each step."""
+    """Step ``integ`` from ``state`` until a stop. ``integ.step(state)``
+    returns ``(state, info)`` with the step's energy in ``info.ih`` (for
+    MM-ADMM and explicit Euler at the step's start, for backward Euler at
+    its end, as in the JAX package). Returns ``(state, trace [cap]
+    float64, steps)``; trace slots after the last step are NaN.
+    ``on_step(k, info)``, if given, runs after each step."""
     cap = int(cap)
     trace = np.full(cap, np.nan)
     ih_prev = math.inf
     k = 0
     while k < cap:
         state, info = integ.step(state)
-        ih = float(info.ih_start)
+        ih = float(info.ih)
         trace[k] = ih
         if on_step is not None:
             on_step(k, info)

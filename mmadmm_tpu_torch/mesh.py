@@ -75,6 +75,9 @@ class MovingMesh:
         self.deg = t(deg)
         self.dense_idx = t(dense_idx, torch.int64)
         self.elem_free = t(self._elem_free_np)  # [NF, 3, 2], 1.0 where movable
+        # [NP, 1], 1.0 at INTERIOR nodes: explicit and backward Euler mask
+        # the assembled node gradient with it (Mesh::eulerStepMod)
+        self.interior_nodes = t((mask == NodeType.INTERIOR).astype(np.float64)[:, None])
         self.ehat_np = huang.reference_ehat(self.n_elements)  # float64
         self.ehat = t(self.ehat_np)
 

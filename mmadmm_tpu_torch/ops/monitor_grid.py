@@ -114,6 +114,14 @@ def cell_rows(grid: MonitorGrid, pts: torch.Tensor) -> torch.Tensor:
     return grid.cell_table[yi * ncx + xi]
 
 
+def cell_rows48(grid: MonitorGrid, z_ch: torch.Tensor) -> torch.Tensor:
+    """The three per-vertex cell-table rows of every element slot, the
+    kernels' ``cells [48, N]`` input (vertex-major), fetched at the slot
+    positions ``z_ch [6, N]`` (channel ``v*2 + d``)."""
+    rows = [cell_rows(grid, z_ch[2 * v:2 * v + 2].T).T for v in range(3)]
+    return torch.cat(rows).contiguous()
+
+
 def gather_cell(grid: MonitorGrid, pts: torch.Tensor) -> dict:
     """Frozen interpolation cells for points ``pts [..., 2]``: corner
     tensors ``vals [..., 4, 4]`` (row-major ``m00, m01, m10, m11`` with

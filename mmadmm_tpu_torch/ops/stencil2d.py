@@ -136,3 +136,18 @@ def match_dense(nx: int, ny: int, F_mesh):
     swapped = np.zeros(Fc.shape[0], dtype=bool)
     swapped[alive] = ~same
     return alive, swapped, mesh_of_dense
+
+
+def dense_layout(nx: int, ny: int, mesh):
+    """The stencil engine's gate: ``match_dense``'s ``(alive, swapped,
+    mesh_of_dense)`` for a mesh on the (nx, ny) rect grid, or ``None`` if
+    its nodes are not the uncompacted rect layout, its slot count is not a
+    whole number of 1024-slot tiles (the JAX kernels' tile, kept so both
+    packages route a mesh alike), or its elements are not an ordered
+    subset of the dense grid's."""
+    if mesh.n_pnts != (nx + 1) * (ny + 1) + nx * ny or (4 * nx * ny) % 1024 != 0:
+        return None
+    try:
+        return match_dense(nx, ny, mesh._F_np)
+    except ValueError:
+        return None

@@ -1,11 +1,13 @@
 """Experiment setup: config -> (mesh, integrator) (port of
 ``mmadmm_tpu/problems.py``; reference ``main.cpp:142-782``).
 
-The port runs MM-ADMM (method 0) on the 2D stencil engine. Every other
-route raises ``NotImplementedError`` naming the ROADMAP item that ports
-it. The JAX package also gates the stencil engine on mesh size, to choose
-between it and the stock element-major engine; the port has only the
-stencil engine, so it takes every mesh that fits it.
+The port runs MM-ADMM (method 0), explicit Euler (method 1) and backward
+Euler (method 2) on the 2D stencil engine. Every other route raises
+``NotImplementedError`` naming the ROADMAP item that ports it. The JAX
+package also gates the stencil engine on mesh size (and, for Euler and
+backward Euler, on environment switches), to choose between it and the
+compact element-major engines; the port has only the stencil engine, so
+it takes every mesh that fits it.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from .geometry.rect_mesh import generate_uniform_rect_mesh
 from .geometry.shoulder import make_shoulder_mesh
 from .mesh import MovingMesh
 from .monitors import get_monitor
+from .ops.stencil2d import dense_layout
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -33,7 +36,7 @@ def build_geometry(cfg: ExperimentConfig):
         return make_shoulder_mesh(*args)
     if cfg.test_type in ("LevelSet", "FromFile"):
         raise NotImplementedError(
-            f"{cfg.test_type} meshes run on the stock ADMM path (ROADMAP item A10)"
+            f"{cfg.test_type} meshes run on the compact engines (ROADMAP item A10)"
         )
     raise ValueError(f"unknown TestType {cfg.test_type!r}")
 
@@ -41,11 +44,7 @@ def build_geometry(cfg: ExperimentConfig):
 def build_problem(cfg: ExperimentConfig, device=None):
     """Return ``(mesh, integrator)`` ready to run, on ``device`` (CUDA
     unless the caller asks for the CPU)."""
-    if cfg.method == 1:
-        raise NotImplementedError("explicit Euler is ROADMAP item A11")
-    if cfg.method == 2:
-        raise NotImplementedError("backward Euler is ROADMAP item A12")
-    if cfg.method != 0:
+    if cfg.method not in (0, 1, 2):
         raise ValueError(f"unknown method {cfg.method}")
     if cfg.dim != 2:
         raise NotImplementedError("3D meshes are ROADMAP item A13")
@@ -58,10 +57,17 @@ def build_problem(cfg: ExperimentConfig, device=None):
         X, F, mask, get_monitor(cfg.dim, cfg.mon_type),
         rho=cfg.rho, tau=cfg.tau, dtype=_DTYPES[cfg.dtype], device=device,
     )
+    if cfg.method == 1:
+        from .integrators.euler import EulerIntegrator
+
+        return mesh, EulerIntegrator(mesh, cfg.dt, cfg.nx, cfg.ny)
+    if cfg.method == 2:
+        from .integrators.backward_euler import BackwardEulerIntegrator
+
+        return mesh, BackwardEulerIntegrator(mesh, cfg.dt, cfg.nx, cfg.ny,
+                                             tol=cfg.step_tol)
     # the stencil engine's gate (problems.py:136-161 in the JAX package)
-    if (4 * cfg.nx * cfg.ny) % 1024 != 0 or (
-        mesh.n_pnts != (cfg.nx + 1) * (cfg.ny + 1) + cfg.nx * cfg.ny
-    ):
+    if dense_layout(cfg.nx, cfg.ny, mesh) is None:
         raise NotImplementedError(
             "meshes off the stencil engine's gate run on the stock ADMM path "
             "(ROADMAP item A10)"

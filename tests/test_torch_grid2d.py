@@ -3,7 +3,7 @@ GridADMM2D (``MMADMM_GRID2D=1``, ``prox_backend="pallas"`` in interpreter
 mode, the pattern of tests/test_grid2d.py:25-58) at Shoulder nx=16, both
 started from the same state through ``mmadmm_tpu_torch.convert``.
 
-Bands: ``n_iters`` identical; ``ih_start`` within rel 1e-6. The JAX
+Bands: ``n_iters`` identical; the step energy ``ih`` within rel 1e-6. The JAX
 package's own stock-vs-grid band is 1e-7; the port adds in f64 where JAX
 adds f32 blocks, and XLA and PyTorch order f32 operations differently."""
 
@@ -76,7 +76,7 @@ def test_step_matches_jax(jax_run, port_run, k):
     ih_j, it_j = jax_run[3][k]
     info = port_run[1][k]
     assert info.n_iters == it_j
-    assert info.ih_start == pytest.approx(ih_j, rel=1e-6)
+    assert info.ih == pytest.approx(ih_j, rel=1e-6)
 
 
 def test_final_state_matches_jax(jax_run, port_run):
@@ -90,7 +90,7 @@ def test_final_state_matches_jax(jax_run, port_run):
 
 def test_energy_falls_and_stays_finite(port_run):
     integ, infos, state = port_run
-    ih = [i.ih_start for i in infos]
+    ih = [i.ih for i in infos]
     assert all(math.isfinite(v) for v in ih) and ih[-1] < ih[0]
     assert torch.isfinite(state.x).all()
     assert integ.energy(state) < ih[0]
@@ -145,7 +145,7 @@ def test_run_loop_nan_stop():
         dt = 1.0
 
         def step(self, state):
-            return state, type("I", (), {"ih_start": float("nan")})()
+            return state, type("I", (), {"ih": float("nan")})()
 
     _, trace, steps = run(Nan(), None, cap=4, dt_tol=0.0)
     assert steps == 1 and np.isnan(trace).all()

@@ -6,13 +6,18 @@ them; the file imports no JAX, so it also runs on the card's machine:
 
 Bands for K1 (``csrc/prox2d.cu`` vs ``ops/prox2d.py::prox2d_plain``),
 those of tests/test_prox_pallas2d.py:95-119: ih0 within rtol 2e-5, the
-regularized energies after the solve within rtol 5e-5."""
+regularized energies after the solve within rtol 5e-5. For K2 and K3
+(``csrc/be2d.cu`` vs ``ops/be2d.py::eg2d_plain`` / ``hess2d_plain``),
+those of tests/test_torch_be2d.py: ih within rtol 2e-5, the gradient and
+the Hessian channels within rtol 1e-4 and atol 1e-6 of the slot's
+largest entry."""
 
 import pytest
 import torch
 
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.integrators.run_loop import run
+from mmadmm_tpu_torch.ops import be2d as B
 from mmadmm_tpu_torch.ops import prox2d as P
 
 
@@ -21,9 +26,10 @@ def _card():
         pytest.skip("needs a CUDA card")
 
 
-def _problem(nx=16):
+def _problem(nx=16, method=0):
     return build_problem(ExperimentConfig(
-        test_type="Shoulder", dim=2, mon_type=1, nx=nx, ny=nx, dtype="float32"))
+        test_type="Shoulder", dim=2, mon_type=1, method=method, nx=nx, ny=nx,
+        dtype="float32"))
 
 
 def _inputs(integ):
@@ -86,3 +92,72 @@ def test_cuda_tensors_never_take_the_plain_version():
     (z, dxpu, free, cells), args = _inputs(integ)
     with pytest.raises(ValueError):
         P.prox2d(z.double(), dxpu, free, cells, *args)
+
+
+def _be_inputs():
+    _, integ = _problem(method=2)
+    z = integ.eg.gather(integ.mesh.X0).contiguous()
+    return z, integ.eg.cells(z), integ.mesh.ehat_np.reshape(-1)
+
+
+def _close_per_slot(got, ref, rtol, atol_frac):
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+    ok = torch.isfinite(ref)
+    scale = torch.where(ok, ref.abs(), 0.0).amax(0, keepdim=True)
+    err = torch.where(ok, (got - ref).abs(), 0.0)
+    assert bool((err <= rtol * ref.abs() + atol_frac * scale).all())
+
+
+def _check_be(z, cells, ehat):
+    before = (B.eg2d.launches, B.hess2d.launches)
+    gk, ihk = B.eg2d(z, cells, ehat)
+    Hk = B.hess2d(z, cells, ehat)
+    torch.cuda.synchronize()
+    assert (B.eg2d.launches, B.hess2d.launches) == (before[0] + 1, before[1] + 1)
+    gp, ihp = B.eg2d_plain(z, cells, ehat)
+    Hp = B.hess2d_plain(z, cells, ehat)
+    _close_per_slot(ihk[None], ihp[None], 2e-5, 0.0)
+    _close_per_slot(gk, gp, 1e-4, 1e-6)
+    _close_per_slot(Hk, Hp, 1e-4, 1e-6)
+
+
+def test_k2_k3_match_plain():
+    _card()
+    _check_be(*_be_inputs())
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+def test_k2_k3_ragged_sizes(n):
+    _card()
+    z, cells, ehat = _be_inputs()
+    _check_be(z[:, :n].contiguous(), cells[:, :n].contiguous(), ehat)
+
+
+def test_euler_paths_launch_k2_and_k3_as_counted():
+    """Explicit Euler: one K2 launch per step. Backward Euler: one K3
+    launch per step, and K2 once per Newton iteration plus three times a
+    step (the explicit-Euler guess, the first residual, the post-step
+    energy)."""
+    _card()
+    for method in (1, 2):
+        _, integ = _problem(method=method)
+        B.eg2d.launches = B.hess2d.launches = 0
+        infos = []
+        _, trace, steps = run(integ, integ.init_state(), cap=3, dt_tol=0.0,
+                              on_step=lambda k, info: infos.append(info))
+        assert steps == 3 and trace[2] < trace[0]
+        if method == 1:
+            assert (B.eg2d.launches, B.hess2d.launches) == (3, 0)
+        else:
+            newton = sum(i.n_newton for i in infos)
+            assert (B.eg2d.launches, B.hess2d.launches) == (newton + 3 * 3, 3)
+
+
+def test_cuda_tensors_never_take_the_plain_k2_k3():
+    _card()
+    z, cells, ehat = _be_inputs()
+    for fn in (B.eg2d, B.hess2d):
+        with pytest.raises(ValueError):
+            fn(z.double(), cells, ehat)
+        with pytest.raises(ValueError):
+            fn(z, cells.cpu(), ehat)
