@@ -5,21 +5,27 @@
 Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: kernel K1 (``csrc/prox2d.cu``) and kernels K2 and K3
-   (``csrc/be2d.cu``), one ``nvcc`` per source, started together, and
-   their registers and spills (``-Xptxas -v``);
+2. build: kernel K1 (``csrc/prox2d.cu``), kernels K2 and K3
+   (``csrc/be2d.cu``) and kernel K4 (``csrc/prox3d.cu``), one ``nvcc`` per
+   source, started together, and their registers and spills
+   (``-Xptxas -v``);
 3. kernel vs plain: every kernel against its plain PyTorch version on the
-   same inputs, at Shoulder nx=16 and on the step-0 inputs of
-   Shoulder-320 (409,600 element slots);
+   same inputs: K1-K3 at Shoulder nx=16 and on the step-0 inputs of
+   Shoulder-320 (409,600 element slots), K4 at 3D SquareGrid nx=4 and on
+   the step-0 inputs of 3D Shoulder-40 and 3D SquareGrid-40 (768,000
+   slots each);
 4. main paths, each through ``problems.build_problem`` and
-   ``integrators.run_loop.run`` at Shoulder-320, at most 30 steps with the
-   DtTol stop, with every launch count set to 0 just before and read just
-   after: MM-ADMM (method 0; K1 launches = ADMM iterations), explicit
-   Euler (method 1; K2 launches = steps) and backward Euler (method 2; K3
-   launches = steps, K2 launches = Newton iterations + 3 per step). The
-   energies must be finite and fall. Euler and backward Euler at Shoulder
-   nx=16 must also agree with the port's CPU run (plain versions, held to
-   the JAX package by tests/test_torch_euler_be.py);
+   ``integrators.run_loop.run`` with the DtTol stop, with every launch
+   count set to 0 just before and read just after: at Shoulder-320, at
+   most 30 steps, MM-ADMM (method 0; K1 launches = ADMM iterations),
+   explicit Euler (method 1; K2 launches = steps) and backward Euler
+   (method 2; K3 launches = steps, K2 launches = Newton iterations + 3 per
+   step); at 3D Shoulder-40 and 3D SquareGrid-40, at most 20 steps, 3D
+   MM-ADMM (K4 launches = ADMM iterations). The energies must be finite
+   and fall. Euler and backward Euler at Shoulder nx=16 and 3D MM-ADMM at
+   SquareGrid nx=4 must also agree with the port's CPU run (plain
+   versions, held to the JAX package by tests/test_torch_euler_be.py and
+   tests/test_torch_soa3d_*.py);
 5. timing: each kernel alone (median of 20 launches, CUDA events), its
    plain version once, and its bound; one JSON line ``{"kernels": [...]}``.
 
@@ -43,7 +49,8 @@ T0 = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 STEP_CAP = 30
-SMALL_STEPS = 4  # card-vs-CPU check of Euler and backward Euler at nx=16
+STEP_CAP_3D = 20
+SMALL_STEPS = 4  # card-vs-CPU checks at nx=16 (2D) and nx=4 (3D)
 MONITOR1320_IH0 = 0.845393  # BASELINE.md:34, the reference's recorded Ih at step 0
 # eg2d launches of one backward-Euler step beyond its Newton iterations:
 # the explicit-Euler guess, the residual F0 and the post-step energy
@@ -65,8 +72,21 @@ def shoulder(nx: int, method: int = 0, device: str = "cuda"):
     return cfg, mesh, integ
 
 
+def box3d(test_type: str, mon_type: int, n: int, device: str = "cuda"):
+    """3D MM-ADMM on an n^3 box mesh: Shoulder with the identity monitor (a
+    constant grid) or SquareGrid with the radial bump (the 48-wide table)."""
+    from mmadmm_tpu_torch import ExperimentConfig, build_problem
+
+    cfg = ExperimentConfig(
+        test_type=test_type, dim=3, mon_type=mon_type, method=0, nx=n, ny=n, nz=n,
+        dt=5e-3, tau=0.1, rho=50.0, dtype="float32",
+    )
+    mesh, integ = build_problem(cfg, device=device)
+    return cfg, mesh, integ
+
+
 def prox_inputs(integ):
-    """The inputs of the first K1 call of step 0."""
+    """The inputs of the first prox call (K1 or K4) of step 0."""
     state = integ.init_state()
     _, x, z, u = integ.start(state)
     dxpu = (integ.gather(x) + u).contiguous()
@@ -134,6 +154,38 @@ def compare(label, integ):
     say(f"{label}: {z.shape[1]} slots; within bands (ih0 rtol 2e-5, energy rtol 5e-5); "
         f"max |ih0 err| {err_ih:.3e}, max |energy err| {err_e:.3e}, max |z' err| {err_z:.3e}, "
         f"bit-equal z' {100 * same:.2f}% of elements")
+    return max(err_ih, err_z), (z, dxpu, free, cells)
+
+
+def compare3(label, integ):
+    """K4 against its plain version on the first prox inputs of step 0.
+    Bands of tests/test_prox_pallas3d.py:88-108: ih0 within rtol 2e-5, the
+    regularized energies after the solve within rtol 1e-4 (atol 1e-6).
+    The two perform the same float operations in the same order, so they
+    are expected to agree bit for bit; the bands hold if they do not."""
+    from mmadmm_tpu_torch.ops import prox3d as P3
+    from mmadmm_tpu_torch.ops.newton import consts
+
+    z, dxpu, free, cells = prox_inputs(integ)
+    ehat = integ.mesh.ehat_np.reshape(-1)
+    args = (ehat, integ.w, integ.prox_tol, integ.prox_max_iters)
+    zk, ihk = P3.prox3d(z, dxpu, free, cells, *args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    zp, ihp = P3.prox3d_plain(z, dxpu, free, cells, *args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    rows = P3._rows(cells)
+    half_w2 = consts(integ.w)[1]
+    e_k = P3.energy_c3(list(zk), rows, tuple(ehat), list(dxpu), half_w2)[1]
+    e_p = P3.energy_c3(list(zp), rows, tuple(ehat), list(dxpu), half_w2)[1]
+    err_ih = check_close(f"{label} ih0", ihk, ihp, 2e-5, 1e-8)
+    err_e = check_close(f"{label} regularized energy", e_k, e_p, 1e-4, 1e-6)
+    err_z = float((zk - zp).abs().max())
+    same = float(((zk == zp).all(0) & (ihk == ihp)).float().mean())
+    say(f"{label}: {z.shape[1]} slots; within bands (ih0 rtol 2e-5, energy rtol 1e-4); "
+        f"max |ih0 err| {err_ih:.3e}, max |energy err| {err_e:.3e}, max |z' err| {err_z:.3e}, "
+        f"bit-equal (z', ih0) {100 * same:.2f}% of elements; plain version {plain_s:.2f} s")
     return max(err_ih, err_z), (z, dxpu, free, cells)
 
 
@@ -218,24 +270,26 @@ def bound(fn, n_floats):
     return max(bytes_ms, ops_ms), by, counter.ops, nbytes
 
 
-def counts():
+def _wrappers():
     from mmadmm_tpu_torch.ops import be2d as B
     from mmadmm_tpu_torch.ops import prox2d as P
+    from mmadmm_tpu_torch.ops import prox3d as P3
 
-    return {"prox2d": P.prox2d.launches, "eg2d": B.eg2d.launches,
-            "hess2d": B.hess2d.launches}
+    return {"prox2d": P.prox2d, "eg2d": B.eg2d, "hess2d": B.hess2d, "prox3d": P3.prox3d}
+
+
+def counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def zero_counts():
-    from mmadmm_tpu_torch.ops import be2d as B
-    from mmadmm_tpu_torch.ops import prox2d as P
-
-    P.prox2d.launches = B.eg2d.launches = B.hess2d.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
-def drive(label, cfg, integ):
-    """One main path at Shoulder-320: ``(infos, trace, launch counts)``,
-    the counts set to 0 just before the run and read just after."""
+def drive(label, cfg, integ, cap=STEP_CAP):
+    """One main path: ``(infos, trace, launch counts)``, the counts set to
+    0 just before the run and read just after."""
     from mmadmm_tpu_torch.integrators.run_loop import run
 
     infos = []
@@ -254,7 +308,7 @@ def drive(label, cfg, integ):
     torch.cuda.synchronize()
     zero_counts()
     last[0] = time.perf_counter()
-    state, trace, steps = run(integ, state, cap=STEP_CAP, dt_tol=cfg.dt_tol, on_step=on_step)
+    state, trace, steps = run(integ, state, cap=cap, dt_tol=cfg.dt_tol, on_step=on_step)
     torch.cuda.synchronize()
     launched = counts()
     ih = trace[:steps]
@@ -294,6 +348,28 @@ def card_vs_cpu(method):
         f"(Ih rtol {rtol}): {[round(i.ih, 9) for i in runs[0]]}")
 
 
+def card_vs_cpu_3d():
+    """3D MM-ADMM at SquareGrid nx=4 (mon_type 1), SMALL_STEPS steps on the
+    card (K4) and on the CPU (its plain version, held to the JAX package by
+    tests/test_torch_soa3d_square.py): the same ADMM iteration counts and
+    Ih within rel 1e-5 (PyTorch's CPU sqrt need not be correctly rounded;
+    the card's is, like the kernel's)."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        _, _, integ = box3d("SquareGrid", 1, 4, device)
+        state, infos = integ.init_state(), []
+        for _ in range(SMALL_STEPS):
+            state, info = integ.step(state)
+            infos.append(info)
+        runs.append(infos)
+    for k, (a, b) in enumerate(zip(*runs)):
+        if not math.isclose(a.ih, b.ih, rel_tol=1e-5) or a.n_iters != b.n_iters:
+            raise AssertionError(f"3D MM-ADMM step {k}: card {a} vs cpu {b}")
+    say(f"3D MM-ADMM at SquareGrid nx=4: card and CPU agree over {SMALL_STEPS} steps "
+        f"(Ih rtol 1e-5, the same n_iters {[i.n_iters for i in runs[0]]}): "
+        f"{[round(i.ih, 9) for i in runs[0]]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -301,6 +377,7 @@ def main() -> int:
     from mmadmm_tpu_torch import cuda_build
     from mmadmm_tpu_torch.ops import be2d as B
     from mmadmm_tpu_torch.ops import prox2d as P
+    from mmadmm_tpu_torch.ops import prox3d as P3
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -312,11 +389,12 @@ def main() -> int:
 
     # ---- build ---------------------------------------------------------------
     t = time.perf_counter()
-    cuda_build.build(["prox2d", "be2d"])
+    cuda_build.build(["prox2d", "be2d", "prox3d"])
     P.library()
     B.library()
-    say(f"build: prox2d and be2d together in {time.perf_counter() - t:.2f} s")
-    for name in ("prox2d", "be2d"):
+    P3.library()
+    say(f"build: prox2d, be2d and prox3d together in {time.perf_counter() - t:.2f} s")
+    for name in ("prox2d", "be2d", "prox3d"):
         for line in cuda_build.ptxas_report(name).splitlines():
             say(f"ptxas {name}: {line.strip()}")
 
@@ -334,26 +412,49 @@ def main() -> int:
     cfg_b, _, be = shoulder(320, 2)
     be_in = be_inputs(euler)
     k2_err, k3_err = compare_be("K2/K3 vs plain, Shoulder-320 step 0", *be_in)
+    _, _, small3 = box3d("SquareGrid", 1, 4)
+    compare3("K4 vs plain, 3D SquareGrid nx=4", small3)
+    box = {}
+    for label, tt, mon in (("3D Shoulder-40", "Shoulder", 0), ("3D SquareGrid-40", "SquareGrid", 1)):
+        t = time.perf_counter()
+        cfg3, mesh3, integ3 = box3d(tt, mon, 40)
+        grid = "constant grid" if mesh3.grid.constant else "48-wide cell table"
+        say(f"{label} set-up: {mesh3.n_pnts} nodes, {mesh3.n_elements} live tets, "
+            f"{integ3.NFd} slots, {grid} ({time.perf_counter() - t:.2f} s)")
+        err, inputs3 = compare3(f"K4 vs plain, {label} step 0", integ3)
+        box[label] = (cfg3, integ3, err, inputs3)
 
     # ---- main paths -----------------------------------------------------------
     infos, ih, launched = drive("MM-ADMM", cfg, integ)
     iters = sum(i.n_iters for i in infos)
-    expect("MM-ADMM", launched, {"prox2d": iters, "eg2d": 0, "hess2d": 0})
+    expect("MM-ADMM", launched, {"prox2d": iters, "eg2d": 0, "hess2d": 0, "prox3d": 0})
     say(f"MM-ADMM: K1 launches {launched['prox2d']} = ADMM iterations {iters}; "
         f"step-0 Ih {ih[0]:.6f} beside the reference's recorded Monitor1320 initial Ih "
         f"{MONITOR1320_IH0} (information: dt/rho may differ from its JSON)")
     infos_e, _, launched_e = drive("Euler", cfg_e, euler)
-    expect("Euler", launched_e, {"prox2d": 0, "eg2d": len(infos_e), "hess2d": 0})
+    expect("Euler", launched_e, {"prox2d": 0, "eg2d": len(infos_e), "hess2d": 0, "prox3d": 0})
     say(f"Euler: K2 launches {launched_e['eg2d']} = steps {len(infos_e)}")
     infos_b, _, launched_b = drive("backward Euler", cfg_b, be)
     newton = sum(i.n_newton for i in infos_b)
     expect("backward Euler", launched_b, {
-        "prox2d": 0, "eg2d": newton + BE_EG_PER_STEP * len(infos_b), "hess2d": len(infos_b)})
+        "prox2d": 0, "eg2d": newton + BE_EG_PER_STEP * len(infos_b), "hess2d": len(infos_b),
+        "prox3d": 0})
     say(f"backward Euler: K3 launches {launched_b['hess2d']} = steps {len(infos_b)}; "
         f"K2 launches {launched_b['eg2d']} = Newton iterations {newton} + "
         f"{BE_EG_PER_STEP} x {len(infos_b)} steps")
     card_vs_cpu(1)
     card_vs_cpu(2)
+    launched3 = {}
+    for label, (cfg3, integ3, _, _) in box.items():
+        t = time.perf_counter()
+        infos3, ih3, launched3[label] = drive(f"3D MM-ADMM {label}", cfg3, integ3, STEP_CAP_3D)
+        wall = time.perf_counter() - t
+        iters3 = sum(i.n_iters for i in infos3)
+        expect(label, launched3[label], {"prox2d": 0, "eg2d": 0, "hess2d": 0, "prox3d": iters3})
+        say(f"3D MM-ADMM {label}: K4 launches {launched3[label]['prox3d']} = ADMM iterations "
+            f"{iters3} over {len(infos3)} steps ({iters3 / len(infos3):.2f} per step), "
+            f"{1e3 * wall / len(infos3):.1f} ms per step; Ih trace {[round(float(v), 9) for v in ih3]}")
+    card_vs_cpu_3d()
 
     # ---- timing --------------------------------------------------------------
     z, dxpu, free, cells = inputs
@@ -389,9 +490,28 @@ def main() -> int:
         time_kernel(lambda: B.hess2d(zb, cb, eh)),
         time_plain(lambda: B.hess2d_plain(zb, cb, eh)),
         bound(lambda: B.hess2d_plain(zb, cb, eh), n * (6 + 48 + 21)))
-    say(f"launches by path: MM-ADMM {launched}, Euler {launched_e}, backward Euler {launched_b}")
+    ptimes = {}
+    for label, (_, integ3, err, (z3, d3, f3, c3)) in box.items():
+        a3 = (integ3.mesh.ehat_np.reshape(-1), integ3.w, integ3.prox_tol, integ3.prox_max_iters)
+        ptimes[label] = (err, time_kernel(lambda: P3.prox3d(z3, d3, f3, c3, *a3)),
+                         time_plain(lambda: P3.prox3d_plain(z3, d3, f3, c3, *a3)))
+        say(f"K4 at {label} step 0: {ptimes[label][1]:.4f} ms (median of 20); plain "
+            f"{ptimes[label][2]:.1f} ms")
+    # K4's row: the 3D Shoulder-40 step-0 inputs (672,000 live tets in 768,000 slots)
+    _, integ3, _, (z3, d3, f3, c3) = box["3D Shoulder-40"]
+    a3 = (integ3.mesh.ehat_np.reshape(-1), integ3.w, integ3.prox_tol, integ3.prox_max_iters)
+    stats3 = {}
+    err3, ms3, plain3 = ptimes["3D Shoulder-40"]
+    row("prox3d", "mmadmm_tpu_torch/csrc/prox3d.cu", "mmadmm_tpu/ops/prox_pallas3d.py:263",
+        sum(v["prox3d"] for v in launched3.values()), err3, ms3, plain3,
+        bound(lambda: P3.prox3d_plain(z3, d3, f3, c3, *a3, stats=stats3),
+              z3.shape[1] * (12 + 12 + 12 + 216 + 12 + 1)))
+    say(f"K4 step-0 work at 3D Shoulder-40: {stats3['element_sweeps']} element-sweeps in "
+        f"{stats3['sweeps']} sweeps")
+    say(f"launches by path: MM-ADMM {launched}, Euler {launched_e}, backward Euler {launched_b}, "
+        f"3D MM-ADMM {launched3}")
     print(json.dumps({"kernels": rows}), flush=True)
-    say("all phases passed")
+    say(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

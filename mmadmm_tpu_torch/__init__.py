@@ -3,15 +3,19 @@ mesh adaptation).
 
 The JAX package ``mmadmm_tpu`` is the reference; this package imports
 neither JAX nor anything of it. Its entry points run on the CUDA card
-unless the caller passes ``device="cpu"``. It runs on the 2D stencil
-engine, through ``problems.build_problem`` and ``integrators.run_loop.run``:
+unless the caller passes ``device="cpu"``. It runs on the 2D and 3D
+stencil engines, through ``problems.build_problem`` and
+``integrators.run_loop.run``:
 
 * MM-ADMM (method 0): ``integrators.admm_grid2d.GridADMM2D`` ->
   ``ops.prox2d.prox2d`` (kernel K1, ``csrc/prox2d.cu``);
 * explicit Euler (method 1): ``integrators.euler.EulerIntegrator`` ->
   ``ops.be2d.eg2d`` (kernel K2, ``csrc/be2d.cu``);
 * backward Euler (method 2): ``integrators.backward_euler.
-  BackwardEulerIntegrator`` -> K2 and ``ops.be2d.hess2d`` (kernel K3).
+  BackwardEulerIntegrator`` -> K2 and ``ops.be2d.hess2d`` (kernel K3);
+* 3D MM-ADMM (method 0 on 3D SquareGrid and Shoulder box meshes):
+  ``integrators.admm_soa.SoAADMM3D`` -> ``ops.prox3d.prox3d`` (kernel K4,
+  ``csrc/prox3d.cu``).
 """
 
 from .config import ExperimentConfig, load_experiment_config

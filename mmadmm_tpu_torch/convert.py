@@ -3,16 +3,21 @@
 There are no weights here: the state is the mesh. These functions take the
 JAX package's arrays, as NumPy, and load them into a port integrator built
 from the same config, so that both packages start from the same bits:
-``GridADMM2D`` constants and state, and the Euler and backward-Euler
-state (``EulerState`` / ``BackwardEulerState``). The tests use them;
-nothing here imports JAX.
+``GridADMM2D`` constants and state, the Euler and backward-Euler state
+(``EulerState`` / ``BackwardEulerState``), and ``SoAADMM3D`` constants
+and state. The tests use them; nothing here imports JAX.
 
-Array names follow the JAX package: the integrator's constants
+Array names follow the JAX package. 2D: the integrator's constants
 ``swap_k, alive_k [4, ny, nx]``, ``valid_t [T, 8, 128]``,
 ``free_t [6, T, 8, 128]``, the grid's ``cell_table`` and ``axes``, the
 mesh's ``ehat``, and the state's ``x, x_prev [NP, 2]`` and
 ``u [6, T, 8, 128]`` (the tile layout is the port's ``[C, NFd]`` in the
-same memory order).
+same memory order). 3D (``SoAADMM3D``'s ``_consts``): ``swap_t, alive_t
+[12, ncell]``, ``free_chunks [C, 12, S]``, ``valid [NFp]``, ``t_node
+[NP]``, the grid's ``cell_table``, ``axes`` and ``sym6``, the mesh's
+``ehat``, and the state's ``x, x_prev [3, NP]`` and ``u [C, 12, S]``.
+The JAX engine pads the ``NFd`` dense slots to ``NFp = C S`` with clones
+of the first slots, masked out by ``valid``; the port drops them.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from .integrators.admm_grid2d import Grid2DState, GridADMM2D
+from .integrators.admm_soa import SoA3DState, SoAADMM3D
 from .integrators.euler import EulerState
 
 
@@ -31,22 +37,34 @@ def _t(a, like: torch.Tensor, shape=None):
     return t.reshape(shape if shape is not None else like.shape)
 
 
+def _slots(a, nfd: int) -> np.ndarray:
+    """The JAX engine's chunked ``[C, 12, S]`` as ``[12, NFd]``."""
+    a = np.asarray(a)
+    return a.transpose(1, 0, 2).reshape(12, -1)[:, :nfd]
+
+
+def _load_grid(mesh, arrays: dict, dim: int) -> None:
+    grid = mesh.grid
+    if "cell_table" in arrays and grid.cell_table is not None:
+        grid.cell_table = _t(arrays["cell_table"], grid.cell_table)
+    if "sym6" in arrays and grid.sym6 is not None:
+        grid.sym6 = _t(arrays["sym6"], grid.sym6)
+    if "axes" in arrays:
+        grid.axes = tuple(_t(a, ax) for a, ax in zip(arrays["axes"], grid.axes))
+    if "ehat" in arrays:
+        mesh.ehat_np = np.asarray(arrays["ehat"], dtype=np.float64).reshape(dim, dim)
+        mesh.ehat = _t(mesh.ehat_np, mesh.ehat)
+
+
 def load_grid2d_consts(integ: GridADMM2D, arrays: dict) -> None:
     """Replace the integrator's and its mesh's constants by ``arrays``
     (any subset of ``swap_k, alive_k, valid_t, free_t, cell_table, axes,
     ehat``)."""
-    grid = integ.mesh.grid
     for key, attr in (("swap_k", "swap_k"), ("alive_k", "alive_k"),
                       ("valid_t", "valid"), ("free_t", "free")):
         if key in arrays:
             setattr(integ, attr, _t(arrays[key], getattr(integ, attr)))
-    if "cell_table" in arrays:
-        grid.cell_table = _t(arrays["cell_table"], grid.cell_table)
-    if "axes" in arrays:
-        grid.axes = tuple(_t(a, ax) for a, ax in zip(arrays["axes"], grid.axes))
-    if "ehat" in arrays:
-        integ.mesh.ehat_np = np.asarray(arrays["ehat"], dtype=np.float64).reshape(2, 2)
-        integ.mesh.ehat = _t(integ.mesh.ehat_np, integ.mesh.ehat)
+    _load_grid(integ.mesh, arrays, 2)
 
 
 def load_grid2d_state(integ: GridADMM2D, arrays: dict) -> Grid2DState:
@@ -72,3 +90,34 @@ def load_euler_state(integ, arrays: dict) -> EulerState:
     x = _t(arrays["x"], like)
     x_prev = _t(arrays["x_prev"], like) if "x_prev" in arrays else x
     return EulerState(x=x, x_prev=x_prev, steps=int(arrays.get("steps", 0)))
+
+
+def load_soa3d_consts(integ: SoAADMM3D, arrays: dict) -> None:
+    """Replace the integrator's and its mesh's constants by ``arrays``
+    (any subset of ``swap_t, alive_t, free_chunks, valid, t_node,
+    cell_table, axes, sym6, ehat``). A constant grid keeps no cell table
+    (the JAX package's bounds table equals the axes), a 48-wide one no
+    ``sym6``."""
+    for key in ("swap_t", "alive_t", "t_node"):
+        if key in arrays:
+            setattr(integ, key, _t(arrays[key], getattr(integ, key)))
+    if "free_chunks" in arrays:
+        integ.free = _t(_slots(arrays["free_chunks"], integ.NFd), integ.free)
+    if "valid" in arrays:
+        integ.valid = _t(np.asarray(arrays["valid"])[:integ.NFd], integ.valid)
+    _load_grid(integ.mesh, arrays, 3)
+
+
+def load_soa3d_state(integ: SoAADMM3D, arrays: dict) -> SoA3DState:
+    """A port state from ``x, x_prev [3, NP], u [C, 12, S]`` and,
+    optionally, the step counters ``steps, ih_last, rose, rises``."""
+    like = integ.x0
+    return SoA3DState(
+        x=_t(arrays["x"], like),
+        x_prev=_t(arrays["x_prev"], like),
+        u=_t(_slots(arrays["u"], integ.NFd), like, (12, integ.NFd)),
+        steps=int(arrays.get("steps", 0)),
+        ih_last=float(arrays.get("ih_last", math.inf)),
+        rose=bool(arrays.get("rose", False)),
+        rises=int(arrays.get("rises", 0)),
+    )

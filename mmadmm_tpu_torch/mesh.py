@@ -1,7 +1,8 @@
-"""MovingMesh: mesh state and its operators on one device (port of the 2D
-path of ``mmadmm_tpu/mesh.py``; reference ``Mesh<D>``, ``src/Mesh.h``).
+"""MovingMesh: mesh state and its operators on one device (port of
+``mmadmm_tpu/mesh.py`` without computational meshes; reference
+``Mesh<D>``, ``src/Mesh.h``), D = 2 or 3.
 
-* ``X [NP, 2]`` node positions, ``F [NF, 3]`` connectivity (reoriented
+* ``X [NP, D]`` node positions, ``F [NF, D+1]`` connectivity (reoriented
   to positive orientation, ``Mesh.cpp:244-260``), ``mask [NP]`` NodeType,
 * the reference's sparse operators (``M = tau I``, ``Dmat``, ``W = w I``;
   ``Mesh.cpp:677-753``) as a scalar ``tau``, a gather / degree-padded sum
@@ -13,8 +14,9 @@ Reference quirk kept: the JSON ``w`` is overridden by
 ``w = 0.5 sqrt(rho)`` (``Mesh.cpp:451``).
 
 The prox follows the device of the tensors: the engines call
-``ops.prox2d.prox2d``, which launches kernel K1 on a CUDA tensor and runs
-its plain PyTorch version on a CPU tensor.
+``ops.prox2d.prox2d`` (2D) or ``ops.prox3d.prox3d`` (3D), which launch
+kernel K1 or K4 on a CUDA tensor and run the plain PyTorch version on a
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -49,8 +51,7 @@ class MovingMesh:
         X = np.asarray(X, dtype=np.float64)
         F = np.asarray(F, dtype=np.int32)
         mask = np.asarray(mask, dtype=np.int8)
-        if X.shape[1] != 2:
-            raise NotImplementedError("3D meshes are ROADMAP item A13")
+        self.dim = D = X.shape[1]
         self.device = device = resolve_device(device)
         self.dtype = dtype
         self.n_pnts = X.shape[0]
@@ -68,25 +69,25 @@ class MovingMesh:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
 
         self._X_np, self._F_np = X, F
-        fixed_v = mask[F] == NodeType.BOUNDARY_FIXED  # [NF, 3]
-        self._elem_free_np = np.repeat(~fixed_v[:, :, None], 2, axis=2).astype(np.float64)
+        fixed_v = mask[F] == NodeType.BOUNDARY_FIXED  # [NF, D+1]
+        self._elem_free_np = np.repeat(~fixed_v[:, :, None], D, axis=2).astype(np.float64)
         self.X0 = t(X)
         self.F = t(F, torch.int64)
         self.deg = t(deg)
         self.dense_idx = t(dense_idx, torch.int64)
-        self.elem_free = t(self._elem_free_np)  # [NF, 3, 2], 1.0 where movable
+        self.elem_free = t(self._elem_free_np)  # [NF, D+1, D], 1.0 where movable
         # [NP, 1], 1.0 at INTERIOR nodes: explicit and backward Euler mask
         # the assembled node gradient with it (Mesh::eulerStepMod)
         self.interior_nodes = t((mask == NodeType.INTERIOR).astype(np.float64)[:, None])
-        self.ehat_np = huang.reference_ehat(self.n_elements)  # float64
+        self.ehat_np = huang.reference_ehat(D, self.n_elements)  # float64
         self.ehat = t(self.ehat_np)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """D x (Mesh::buildDMatrix semantics): ``[NP, 2] -> [NF, 3, 2]``."""
+        """D x (Mesh::buildDMatrix semantics): ``[NP, D] -> [NF, D+1, D]``."""
         return gather_elements(x, self.F)
 
     def scatter_add(self, vals: torch.Tensor) -> torch.Tensor:
-        """D^T y: ``[NF, 3, 2] -> [NP, 2]``."""
+        """D^T y: ``[NF, D+1, D] -> [NP, D]``."""
         return scatter_add_dense(vals, self.dense_idx)
 
     def energy_of_z(self, z: torch.Tensor) -> torch.Tensor:
@@ -99,7 +100,7 @@ class MovingMesh:
         return self.energy_of_z(self.gather(x))
 
     def gradient(self, x: torch.Tensor):
-        """``(Ih, grad [NP, 2])`` for the ADMM predictor
+        """``(Ih, grad [NP, D])`` for the ADMM predictor
         (``Mesh::eulerGrad``, Mesh.cpp:583-624): BOUNDARY_FIXED vertex
         components are zeroed per element before the scatter to nodes."""
         z = self.gather(x)

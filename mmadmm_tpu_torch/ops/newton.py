@@ -1,0 +1,233 @@
+"""The prox's damped-Newton sweep on channel lists, shared by the plain
+versions of kernels K1 (``ops/prox2d.py``) and K4 (``ops/prox3d.py``).
+
+Port of the dimension-generic parts of
+``mmadmm_tpu/ops/prox_pallas2d.py``: ``make_newton_sweeps`` (one sweep:
+gradient, Hessian, ``ldlt_c``, the ``-g/w^2`` fallback, 5 backtracking
+trials, the retire rules) and the forward-mode rules the Pallas kernels
+get from ``jax.jvp``. An element's state is a list of ``n`` channel
+tensors ``[N]`` (``n = 6`` in 2D, 12 in 3D).
+
+Every operation is written so that the CUDA kernels (``csrc/*.cu``,
+built with ``--fmad=false``) can repeat it bit for bit: the same order of
+operations, IEEE division and square root, and f32 constants rounded as
+JAX rounds them (a Python float that meets an f32 tile is cast to f32
+first).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+F32 = np.float32
+DET_FLOOR = 1e-30
+DIAG_FLOOR = 1e-12
+LEVENBERG = 1e-9
+ALPHAS_BT = (0.0625, 0.125, 0.25, 0.5, 1.0)  # small -> large
+EPS_STALL = float(F32(10.0 * np.finfo(np.float32).eps))
+
+
+def f32(v: float) -> float:
+    """A Python float rounded to float32, as JAX casts it."""
+    return float(F32(v))
+
+
+class Dual:
+    """Forward-mode dual number over tensors: value ``v [N]`` and
+    tangents ``d [K, N]`` (K directions at once). The derivative rules are
+    JAX's jvp rules (``lax.mul``, ``lax.div``, ``sqrt``, ``max``,
+    ``abs``), and the CUDA kernels apply the same ones."""
+
+    __slots__ = ("v", "d")
+
+    def __init__(self, v, d):
+        self.v = v
+        self.d = d
+
+    def __add__(self, o):
+        if isinstance(o, Dual):
+            return Dual(self.v + o.v, self.d + o.d)
+        return Dual(self.v + o, self.d)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        if isinstance(o, Dual):
+            return Dual(self.v - o.v, self.d - o.d)
+        return Dual(self.v - o, self.d)
+
+    def __rsub__(self, o):
+        return Dual(o - self.v, -self.d)
+
+    def __neg__(self):
+        return Dual(-self.v, -self.d)
+
+    def __mul__(self, o):
+        if isinstance(o, Dual):
+            return Dual(self.v * o.v, self.d * o.v + self.v * o.d)
+        return Dual(self.v * o, self.d * o)
+
+    def __rmul__(self, o):
+        return Dual(o * self.v, o * self.d)
+
+    def __truediv__(self, o):
+        if isinstance(o, Dual):
+            r = 1.0 / (o.v * o.v)
+            return Dual(self.v / o.v, self.d / o.v + (-o.d * self.v) * r)
+        return Dual(self.v / o, self.d / o)
+
+    def __rtruediv__(self, o):
+        r = 1.0 / (self.v * self.v)
+        return Dual(o / self.v, (-self.d * o) * r)
+
+
+def sqrt(x):
+    if isinstance(x, Dual):
+        s = torch.sqrt(x.v)
+        return Dual(s, x.d * (0.5 / s))
+    return torch.sqrt(x)
+
+
+def max_floor(x, c):
+    """``max(x, c)`` for a constant c; NaN propagates."""
+    if isinstance(x, Dual):
+        f = torch.where(x.v > c, 1.0, torch.where(x.v == c, 0.5, 0.0))
+        return Dual(torch.clamp_min(x.v, c), x.d * f)
+    return torch.clamp_min(x, c)
+
+
+def absolute(x):
+    if isinstance(x, Dual):
+        return Dual(torch.abs(x.v), torch.where(x.v >= 0, x.d, -x.d))
+    return torch.abs(x)
+
+
+def hessian(grad_fn, z, free):
+    """Lower triangle ``H[i][j]`` (i >= j) of the derivative of
+    ``grad_fn(z) -> (grads, ...)``, from one dual pass carrying all
+    ``n`` directions. Fixed coordinates (``free`` 0) get identity rows
+    and columns, every diagonal the Levenberg term (``hess_c``)."""
+    n, m = len(z), z[0].shape[0]
+    eye = torch.eye(n, dtype=z[0].dtype, device=z[0].device)
+    dg = grad_fn([Dual(z[i], eye[i][:, None].expand(n, m)) for i in range(n)])[0]
+    H = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            h = dg[i].d[j] * free[i] * free[j]
+            if i == j:
+                h = h + (1.0 - free[i]) + LEVENBERG
+            H[i][j] = h
+    return H
+
+
+def ldlt_c(H, b):
+    """Unrolled LDL^T solve of ``H x = b`` (lower triangle of H read)."""
+    n = len(b)
+    L = [[None] * n for _ in range(n)]
+    D = [None] * n
+    for j in range(n):
+        d = H[j][j]
+        for k in range(j):
+            d = d - L[j][k] * L[j][k] * D[k]
+        d = torch.where(torch.abs(d) < DIAG_FLOOR, DIAG_FLOOR, d)
+        D[j] = d
+        for i in range(j + 1, n):
+            s = H[i][j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k] * D[k]
+            L[i][j] = s / d
+    zv = [None] * n
+    for i in range(n):
+        s = b[i]
+        for k in range(i):
+            s = s - L[i][k] * zv[k]
+        zv[i] = s
+    y = [zv[i] / D[i] for i in range(n)]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s
+    return x
+
+
+def rmax(xs):
+    return functools.reduce(torch.maximum, xs)
+
+
+def newton_sweep(not_first, zc, grad_fn, hess_fn, energy_fn, edet_fn, inv_w2, tol):
+    """One sweep over elements that are all active (``make_newton_sweeps``'s
+    ``one_iter``). ``grad_fn(z) -> (grads, ih, e_reg)``, ``hess_fn(z) ->
+    H``, ``energy_fn(z) -> e_reg``, ``edet_fn(z)``. Returns ``(z_new,
+    still_active)``."""
+    n = len(zc)
+    g, _, e0 = grad_fn(zc)
+    gnorm = torch.abs(g[0])
+    for i in range(1, n):
+        gnorm = gnorm + torch.abs(g[i])
+    p = ldlt_c(hess_fn(zc), [-g[i] for i in range(n)])
+    finite = functools.reduce(torch.logical_and, [torch.isfinite(pi) for pi in p])
+    p = [torch.where(finite, p[i], -g[i] * inv_w2) for i in range(n)]
+
+    det0 = edet_fn(zc)
+    det_floor = torch.clamp_max(det0, 0.0)
+    alpha = torch.zeros_like(zc[0])
+    for a in ALPHAS_BT:
+        zt = [zc[i] + a * p[i] for i in range(n)]
+        e_a = energy_fn(zt)
+        ok = torch.isfinite(e_a) & (e_a <= e0) & (edet_fn(zt) > det_floor)
+        alpha = torch.where(ok, a, alpha)
+    step_inf = alpha * rmax([torch.abs(pi) for pi in p])
+    zmax = rmax([torch.abs(zi) for zi in zc])
+    stalled = step_inf <= EPS_STALL * (1.0 + zmax)
+    if not_first:
+        active_now = ~(gnorm < tol)
+    else:
+        active_now = torch.ones_like(stalled)
+    z_new = [torch.where(active_now, zc[i] + alpha * p[i], zc[i]) for i in range(n)]
+    return z_new, active_now & ~stalled
+
+
+def run_sweeps(z, max_iters, sweep, stats=None):
+    """Up to ``max_iters`` sweeps of the columns of ``z [n, N]`` that are
+    still active; an element's result does not depend on any other
+    element, so only those are swept. ``sweep(not_first, sub, zc)`` sweeps
+    the columns ``sub`` at ``zc`` and returns ``(z_new, keep)``. Returns
+    the final ``z``; ``stats``, if given, receives ``sweeps`` and
+    ``element_sweeps``."""
+    out = z.clone()
+    idx = torch.arange(z.shape[1], device=z.device)
+    sweeps = element_sweeps = 0
+    for it in range(int(max_iters)):
+        if idx.numel() == 0:
+            break
+        sub = idx if idx.numel() < z.shape[1] else slice(None)
+        z_new, keep = sweep(it > 0, sub, list(out[:, sub]))
+        out[:, sub] = torch.stack(z_new)
+        sweeps += 1
+        element_sweeps += idx.numel()
+        idx = idx[keep]
+    if stats is not None:
+        stats.update(sweeps=sweeps, element_sweeps=element_sweeps)
+    return out
+
+
+def consts(w: float):
+    """f32 prox constants ``(w^2, w^2/2, 1/w^2)`` as the JAX kernels
+    round them."""
+    return f32(w * w), f32(0.5 * w * w), f32(1.0 / (w * w))
+
+
+def check(name, t, rows, n, device):
+    """Raise unless ``t`` is a contiguous float32 ``[rows, n]`` tensor on
+    ``device``."""
+    if t.device != device or t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32 on {device}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != (rows, n):
+        raise ValueError(f"{name}: expected shape {(rows, n)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

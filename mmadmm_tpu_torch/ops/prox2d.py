@@ -31,99 +31,25 @@ kernel built with ``--fmad=false`` can agree with it bit for bit.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ..cuda_build import load_library
+from .newton import F32, DET_FLOOR, absolute, f32, hessian, ldlt_c, max_floor, newton_sweep, run_sweeps, sqrt
+from .newton import check as _check
+from .newton import consts as _consts
 
-_DET_FLOOR = 1e-30
-_DIAG_FLOOR = 1e-12
-_LEVENBERG = 1e-9
-_ALPHAS_BT = (0.0625, 0.125, 0.25, 0.5, 1.0)  # small -> large
 ROW_W = 16
 
 # float32 constants, rounded exactly as the JAX kernel rounds them (a
 # Python float meets an f32 tile there, so it is cast to f32 first)
-_F32 = np.float32
-_THIRD = float(_F32(1.0 / 3.0))
-_C_D32 = _F32(2.0) * np.sqrt(_F32(2.0))  # 2^1.5 in f32
-_K_G2 = float(_F32(1.0 / 3.0) * _C_D32)  # third * c_d32
-_K_DGDDET = float(_F32(1.5 * (1.0 / 3.0)) * _C_D32)  # 1.5 * third * c_d32
-_K_SM2A = float(_F32(0.5 * (1.0 / 3.0)))  # (0.5 * third)
-_K_SM2B = float(_F32((0.5 - 1.0 / 3.0) * (1.0 - 1.5)) * _C_D32)
-_EPS_STALL = float(_F32(10.0 * np.finfo(np.float32).eps))
-
-
-class _Dual:
-    """Forward-mode dual number over tensors: value ``v [N]`` and
-    tangents ``d [K, N]`` (K directions at once). The derivative rules are
-    JAX's jvp rules (``lax.mul``, ``lax.div``, ``sqrt``, ``max``,
-    ``abs``), and ``csrc/prox2d.cu`` applies the same ones."""
-
-    __slots__ = ("v", "d")
-
-    def __init__(self, v, d):
-        self.v = v
-        self.d = d
-
-    def __add__(self, o):
-        if isinstance(o, _Dual):
-            return _Dual(self.v + o.v, self.d + o.d)
-        return _Dual(self.v + o, self.d)
-
-    __radd__ = __add__
-
-    def __sub__(self, o):
-        if isinstance(o, _Dual):
-            return _Dual(self.v - o.v, self.d - o.d)
-        return _Dual(self.v - o, self.d)
-
-    def __rsub__(self, o):
-        return _Dual(o - self.v, -self.d)
-
-    def __neg__(self):
-        return _Dual(-self.v, -self.d)
-
-    def __mul__(self, o):
-        if isinstance(o, _Dual):
-            return _Dual(self.v * o.v, self.d * o.v + self.v * o.d)
-        return _Dual(self.v * o, self.d * o)
-
-    def __rmul__(self, o):
-        return _Dual(o * self.v, o * self.d)
-
-    def __truediv__(self, o):
-        if isinstance(o, _Dual):
-            r = 1.0 / (o.v * o.v)
-            return _Dual(self.v / o.v, self.d / o.v + (-o.d * self.v) * r)
-        return _Dual(self.v / o, self.d / o)
-
-    def __rtruediv__(self, o):
-        r = 1.0 / (self.v * self.v)
-        return _Dual(o / self.v, (-self.d * o) * r)
-
-
-def _sqrt(x):
-    if isinstance(x, _Dual):
-        s = torch.sqrt(x.v)
-        return _Dual(s, x.d * (0.5 / s))
-    return torch.sqrt(x)
-
-
-def _max_floor(x, c):
-    """``max(x, c)`` for a constant c; NaN propagates."""
-    if isinstance(x, _Dual):
-        f = torch.where(x.v > c, 1.0, torch.where(x.v == c, 0.5, 0.0))
-        return _Dual(torch.clamp_min(x.v, c), x.d * f)
-    return torch.clamp_min(x, c)
-
-
-def _abs(x):
-    if isinstance(x, _Dual):
-        return _Dual(torch.abs(x.v), torch.where(x.v >= 0, x.d, -x.d))
-    return torch.abs(x)
+_THIRD = f32(1.0 / 3.0)
+_C_D32 = F32(2.0) * np.sqrt(F32(2.0))  # 2^1.5 in f32
+_K_G2 = float(F32(1.0 / 3.0) * _C_D32)  # third * c_d32
+_K_DGDDET = float(F32(1.5 * (1.0 / 3.0)) * _C_D32)  # 1.5 * third * c_d32
+_K_SM2A = f32(0.5 * (1.0 / 3.0))  # (0.5 * third)
+_K_SM2B = float(F32((0.5 - 1.0 / 3.0) * (1.0 - 1.5)) * _C_D32)
 
 
 def _sample_m(cell, x, y):
@@ -182,17 +108,17 @@ def _common_c(z, cells, ehat):
     tr = fj00 * mj00 + fj01 * mj10 + fj10 * mj01 + fj11 * mj11
 
     det_minv = mi00 * mi11 - mi01 * mi01
-    det_m = _sqrt(1.0 / _max_floor(det_minv, _DET_FLOOR))
-    tr_c = _max_floor(tr, _DET_FLOOR)
-    det_fj_c = _max_floor(det_fj, _DET_FLOOR)
+    det_m = sqrt(1.0 / max_floor(det_minv, DET_FLOOR))
+    tr_c = max_floor(tr, DET_FLOOR)
+    det_fj_c = max_floor(det_fj, DET_FLOOR)
 
-    sqrt_tr = _sqrt(tr_c)
+    sqrt_tr = sqrt(tr_c)
     tr32 = tr_c * sqrt_tr
-    sqrt_dfj = _sqrt(det_fj_c)
+    sqrt_dfj = sqrt(det_fj_c)
     dfj32 = det_fj_c * sqrt_dfj
-    inv_sqrt_dm = 1.0 / _sqrt(det_m)
+    inv_sqrt_dm = 1.0 / sqrt(det_m)
     G = _THIRD * det_m * tr32 + _K_G2 * dfj32 * inv_sqrt_dm
-    abs_k = _abs(edet * 0.5)
+    abs_k = absolute(edet * 0.5)
     return dict(
         m=m, mi00=mi00, mi01=mi01, mi11=mi11,
         ei00=ei00, ei01=ei01, ei10=ei10, ei11=ei11,
@@ -286,96 +212,11 @@ def hess_c(z, cells, ehat, dxpu, w2, half_w2, free):
     ``grad_c``, from one dual pass carrying all 6 directions. Fixed
     coordinates get identity rows and columns, and every diagonal the
     Levenberg term."""
-    n = z[0].shape[0]
-    eye = torch.eye(6, dtype=z[0].dtype, device=z[0].device)
-    zd = [_Dual(z[i], eye[i][:, None].expand(6, n)) for i in range(6)]
-    dg, _, _ = grad_c(zd, cells, ehat, dxpu, w2, half_w2, free)
-    H = [[None] * 6 for _ in range(6)]
-    for i in range(6):
-        for j in range(i + 1):
-            h = dg[i].d[j] * free[i] * free[j]
-            if i == j:
-                h = h + (1.0 - free[i]) + _LEVENBERG
-            H[i][j] = h
-    return H
-
-
-def ldlt_c(H, b):
-    """Unrolled LDL^T solve of ``H x = b`` (lower triangle of H read)."""
-    n = len(b)
-    L = [[None] * n for _ in range(n)]
-    D = [None] * n
-    for j in range(n):
-        d = H[j][j]
-        for k in range(j):
-            d = d - L[j][k] * L[j][k] * D[k]
-        d = torch.where(torch.abs(d) < _DIAG_FLOOR, _DIAG_FLOOR, d)
-        D[j] = d
-        for i in range(j + 1, n):
-            s = H[i][j]
-            for k in range(j):
-                s = s - L[i][k] * L[j][k] * D[k]
-            L[i][j] = s / d
-    zv = [None] * n
-    for i in range(n):
-        s = b[i]
-        for k in range(i):
-            s = s - L[i][k] * zv[k]
-        zv[i] = s
-    y = [zv[i] / D[i] for i in range(n)]
-    x = [None] * n
-    for i in reversed(range(n)):
-        s = y[i]
-        for k in range(i + 1, n):
-            s = s - L[k][i] * x[k]
-        x[i] = s
-    return x
+    return hessian(lambda zz: grad_c(zz, cells, ehat, dxpu, w2, half_w2, free), z, free)
 
 
 def _edet_c(z):
     return (z[2] - z[0]) * (z[5] - z[1]) - (z[4] - z[0]) * (z[3] - z[1])
-
-
-def _rmax(xs):
-    return functools.reduce(torch.maximum, xs)
-
-
-def _sweep(not_first, zc, dxpu, free, cells, ehat, consts, tol):
-    """One Newton sweep over elements that are all active. Returns
-    ``(z_new[6], still_active)``."""
-    w2, half_w2, inv_w2 = consts
-    g, _, e0 = grad_c(zc, cells, ehat, dxpu, w2, half_w2, free)
-    gnorm = torch.abs(g[0])
-    for i in range(1, 6):
-        gnorm = gnorm + torch.abs(g[i])
-    H = hess_c(zc, cells, ehat, dxpu, w2, half_w2, free)
-    p = ldlt_c(H, [-g[i] for i in range(6)])
-    finite = functools.reduce(torch.logical_and, [torch.isfinite(pi) for pi in p])
-    p = [torch.where(finite, p[i], -g[i] * inv_w2) for i in range(6)]
-
-    det0 = _edet_c(zc)
-    det_floor = torch.clamp_max(det0, 0.0)
-    alpha = torch.zeros_like(zc[0])
-    for a in _ALPHAS_BT:
-        zt = [zc[i] + a * p[i] for i in range(6)]
-        _, e_a = energy_c(zt, cells, ehat, dxpu, half_w2)
-        ok = torch.isfinite(e_a) & (e_a <= e0) & (_edet_c(zt) > det_floor)
-        alpha = torch.where(ok, a, alpha)
-    step_inf = alpha * _rmax([torch.abs(pi) for pi in p])
-    zmax = _rmax([torch.abs(zi) for zi in zc])
-    stalled = step_inf <= _EPS_STALL * (1.0 + zmax)
-    if not_first:
-        active_now = ~(gnorm < tol)
-    else:
-        active_now = torch.ones_like(stalled)
-    z_new = [torch.where(active_now, zc[i] + alpha * p[i], zc[i]) for i in range(6)]
-    return z_new, active_now & ~stalled
-
-
-def _consts(w: float):
-    """f32 prox constants ``(w^2, w^2/2, 1/w^2)`` as the JAX kernel
-    rounds them."""
-    return (float(_F32(w * w)), float(_F32(0.5 * w * w)), float(_F32(1.0 / (w * w))))
 
 
 def prox2d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
@@ -384,37 +225,25 @@ def prox2d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
     other element). Returns ``(z_out [6, N], ih0 [N])``; ``stats``, if
     given, receives ``sweeps`` and ``element_sweeps``."""
     ehat = tuple(float(v) for v in ehat)
-    consts = _consts(w)
-    tol = float(_F32(tol))
-    cell_rows = lambda c: [[c[v * ROW_W + k] for k in range(ROW_W)] for v in range(3)]  # noqa: E731
-    ih0, _ = energy_c(list(z), cell_rows(cells), ehat)
-    out = z.clone()
-    idx = torch.arange(z.shape[1], device=z.device)
-    sweeps = element_sweeps = 0
-    for it in range(int(max_iters)):
-        if idx.numel() == 0:
-            break
-        sub = idx if idx.numel() < z.shape[1] else slice(None)
-        z_new, keep = _sweep(
-            it > 0, list(out[:, sub]), list(dxpu[:, sub]), list(free[:, sub]),
-            cell_rows(cells[:, sub]), ehat, consts, tol,
+    w2, half_w2, inv_w2 = _consts(w)
+    tol = f32(tol)
+
+    def rows(c):
+        return [[c[v * ROW_W + k] for k in range(ROW_W)] for v in range(3)]
+
+    ih0, _ = energy_c(list(z), rows(cells), ehat)
+
+    def sweep(not_first, sub, zc):
+        d, fr, c = list(dxpu[:, sub]), list(free[:, sub]), rows(cells[:, sub])
+        return newton_sweep(
+            not_first, zc,
+            lambda zz: grad_c(zz, c, ehat, d, w2, half_w2, fr),
+            lambda zz: hess_c(zz, c, ehat, d, w2, half_w2, fr),
+            lambda zz: energy_c(zz, c, ehat, d, half_w2)[1],
+            _edet_c, inv_w2, tol,
         )
-        out[:, sub] = torch.stack(z_new)
-        sweeps += 1
-        element_sweeps += idx.numel()
-        idx = idx[keep]
-    if stats is not None:
-        stats.update(sweeps=sweeps, element_sweeps=element_sweeps)
-    return out, ih0
 
-
-def _check(name, t, rows, n, device):
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32 on {device}, got {t.dtype} on {t.device}")
-    if tuple(t.shape) != (rows, n):
-        raise ValueError(f"{name}: expected shape {(rows, n)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    return run_sweeps(z, max_iters, sweep, stats), ih0
 
 
 def prox2d(z, dxpu, free, cells, ehat, w, tol, max_iters):

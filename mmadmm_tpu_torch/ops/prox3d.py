@@ -1,0 +1,302 @@
+"""The 3D ADMM prox z-update: kernel K4 and its plain PyTorch version.
+
+Port of ``mmadmm_tpu/ops/prox_pallas3d.py::make_prox_pallas3d`` with
+``chord=False, comp_mesh=False`` (the component-form Pallas kernel:
+``_sample_m3``, ``_common_c3``, ``energy_c3``, ``grad_c3``, ``hess_c3``
+and the shared ``make_newton_sweeps``). For every tetrahedron it runs up
+to ``max_iters`` damped-Newton sweeps on ``I_h(z) + 0.5 w^2 |dxpu - z|^2``,
+each with the analytic Huang gradient masked by ``free``, the 12x12
+Hessian as the forward derivative of that gradient (identity plus a 1e-9
+Levenberg term on fixed coordinates), an unrolled LDL^T solve with the
+``-g/w^2`` fallback and 5 backtracking trials (``ops/newton.py``). The
+unregularized energy at the input z comes out as ``ih0``.
+
+Layout: channel-major ``[C, N]`` float32 tensors: ``z, dxpu, free
+[12, N]`` (channel ``v*3 + d``) and ``cells [216, N]``: per vertex,
+vertex-major, its cell's 8 corners as ``(m00, m01, m02, m11, m12, m22)``
+and then ``x0, x1, y0, y1, z0, z1`` (``ops/monitor_grid.py::
+cell_rows216``).
+
+``prox3d`` is the entry point. On a CPU tensor it runs ``prox3d_plain``;
+on a CUDA tensor it launches the CUDA kernel ``csrc/prox3d.cu`` or
+raises. The plain version repeats the kernel's arithmetic operation by
+operation, so the kernel built with ``--fmad=false`` can agree with it
+bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..cuda_build import load_library
+from .newton import (DET_FLOOR, Dual, absolute, check, consts, f32, hessian, max_floor,
+                     newton_sweep, run_sweeps, sqrt)
+
+ROW_W3 = 54  # per vertex: 48 corner entries + x0, x1, y0, y1, z0, z1
+_SYM_W = (1.0, 2.0, 2.0, 1.0, 2.0, 1.0)  # contraction weights of the sym pairs
+
+# d = 3, p = 3/2, theta = 1/3 (AdaptationFunctional.cpp:210-220). Python
+# floats and their products are rounded to f32 where they meet a tile, as
+# in the JAX kernel (``prox_pallas3d.py:143, :173, :182-184``).
+_D_DP2 = 3.0 ** 2.25  # d^(d p / 2)
+_THIRD = 1.0 / 3.0
+K_THIRD = f32(_THIRD)
+K_G2 = f32(_THIRD * _D_DP2)
+K_DGDDET = f32(1.5 * _THIRD * _D_DP2)
+K_SM2A = f32(0.5 * _THIRD)
+K_SM2B = f32((0.5 - _THIRD) * (1.0 - 1.5) * _D_DP2)
+
+
+def _div(x, c: float):
+    """``x / c`` for a Python float c, as an IEEE division: PyTorch turns
+    a division of a CUDA tensor by a Python scalar into a multiply by its
+    reciprocal, which the kernel does not do."""
+    def q(t):
+        return t / torch.full((), c, dtype=t.dtype, device=t.device)
+
+    if isinstance(x, Dual):
+        return Dual(q(x.v), q(x.d))
+    return q(x)
+
+
+def _sym_to_full(s):
+    return [s[0], s[1], s[2], s[1], s[3], s[4], s[2], s[4], s[5]]
+
+
+def _dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _mm33(A, B):
+    """Row-major 9-list product."""
+    return [_dot3([A[i * 3 + k] for k in range(3)], [B[k * 3 + j] for k in range(3)])
+            for i in range(3) for j in range(3)]
+
+
+def _det33(A):
+    return (A[0] * (A[4] * A[8] - A[5] * A[7])
+            - A[1] * (A[3] * A[8] - A[5] * A[6])
+            + A[2] * (A[3] * A[7] - A[4] * A[6]))
+
+
+def _inv33(A, det):
+    """Adjugate over det, the cofactor layout of ``huang._inv``."""
+    r = 1.0 / det
+    return [
+        (A[4] * A[8] - A[5] * A[7]) * r, (A[2] * A[7] - A[1] * A[8]) * r,
+        (A[1] * A[5] - A[2] * A[4]) * r, (A[5] * A[6] - A[3] * A[8]) * r,
+        (A[0] * A[8] - A[2] * A[6]) * r, (A[2] * A[3] - A[0] * A[5]) * r,
+        (A[3] * A[7] - A[4] * A[6]) * r, (A[1] * A[6] - A[0] * A[7]) * r,
+        (A[0] * A[4] - A[1] * A[3]) * r,
+    ]
+
+
+def _sample_m3(cell, x, y, z):
+    """Trilinear monitor sample ``(m00, m01, m02, m11, m12, m22)`` from
+    one vertex's 54 cell channels."""
+    xd = (x - cell[48]) / (cell[49] - cell[48])
+    yd = (y - cell[50]) / (cell[51] - cell[50])
+    zd = (z - cell[52]) / (cell[53] - cell[52])
+    wts = [
+        (1 - xd) * (1 - yd) * (1 - zd), xd * (1 - yd) * (1 - zd),
+        (1 - xd) * yd * (1 - zd), xd * yd * (1 - zd),
+        (1 - xd) * (1 - yd) * zd, xd * (1 - yd) * zd,
+        (1 - xd) * yd * zd, xd * yd * zd,
+    ]
+    out = []
+    for e in range(6):
+        s = wts[0] * cell[e]
+        for c in range(1, 8):
+            s = s + wts[c] * cell[c * 6 + e]
+        out.append(s)
+    return out
+
+
+def _q225(t):
+    """t^2.25 as t t t^(1/4)."""
+    return t * t * sqrt(sqrt(t))
+
+
+def _q125(t):
+    return t * sqrt(sqrt(t))
+
+
+def _common_c3(z, cells, ehat):
+    """Terms shared by energy and gradient. ``z``: 12 channels
+    (vertex-major); ``cells``: 4 lists of 54 channels; ``ehat``: 9 floats
+    (row-major 3x3)."""
+    m = [_sample_m3(cells[v], z[3 * v], z[3 * v + 1], z[3 * v + 2]) for v in range(4)]
+    ms_full = _sym_to_full([m[0][e] + m[1][e] + m[2][e] + m[3][e] for e in range(6)])
+    mi = [v * 0.25 for v in _inv33(ms_full, _det33(ms_full))]  # inv(m_sum) / (D+1)
+
+    E = [z[3 * (j + 1) + d] - z[d] for d in range(3) for j in range(3)]  # E[d][j]
+    edet = _det33(E)
+    ei = _inv33(E, edet)
+    fj = _mm33(ehat, ei)
+    det_fj = _det33(fj)
+
+    mj = [_dot3(mi[3 * a:3 * a + 3], fj[3 * b:3 * b + 3])  # minv @ fj^T
+          for a in range(3) for b in range(3)]
+    tr = fj[0] * mj[0]
+    for i in range(3):
+        for j in range(3):
+            if i or j:
+                tr = tr + fj[i * 3 + j] * mj[j * 3 + i]
+
+    det_m = sqrt(1.0 / max_floor(_det33(mi), DET_FLOOR))
+    tr_c = max_floor(tr, DET_FLOOR)
+    det_fj_c = max_floor(det_fj, DET_FLOOR)
+    inv_sqrt_dm = 1.0 / sqrt(det_m)
+    sqrt_dfj = sqrt(det_fj_c)
+    dfj32 = det_fj_c * sqrt_dfj
+    G = K_THIRD * det_m * _q225(tr_c) + K_G2 * dfj32 * inv_sqrt_dm
+    return dict(m=m, mi=mi, ei=ei, fj=fj, mj=mj, tr=tr_c, det_m=det_m, det_fj=det_fj_c,
+                G=G, abs_k=absolute(_div(edet, 6.0)), inv_sqrt_dm=inv_sqrt_dm,
+                sqrt_dfj=sqrt_dfj, dfj32=dfj32)
+
+
+def _reg(z, dxpu):
+    """``sum_i (dxpu_i - z_i)^2`` in channel order."""
+    d = dxpu[0] - z[0]
+    s = d * d
+    for i in range(1, 12):
+        d = dxpu[i] - z[i]
+        s = s + d * d
+    return s
+
+
+def energy_c3(z, cells, ehat, dxpu=None, half_w2=None):
+    """``(ih_unregularized, e_regularized)``."""
+    t = _common_c3(z, cells, ehat)
+    ih = t["abs_k"] * t["G"]
+    if dxpu is None:
+        return ih, ih
+    return ih, ih + half_w2 * _reg(z, dxpu)
+
+
+def grad_c3(z, cells, ehat, dxpu, w2, half_w2, free):
+    """``(grads[12], ih_unreg, e_reg)``; the reference's analytic gradient
+    (``AdaptationFunctional.cpp:232-271``) plus the prox term, masked by
+    ``free``."""
+    t = _common_c3(z, cells, ehat)
+    G, det_m, tr, det_fj = t["G"], t["det_m"], t["tr"], t["det_fj"]
+    mi, ei, fj, mj = t["mi"], t["ei"], t["fj"], t["mj"]
+
+    s_j = 1.5 * det_m * _q125(tr)  # dGdJ = d p theta det_m tr^(dp2-1) minv_jt
+    dj = [s_j * v for v in mj]
+    dgddet = K_DGDDET * t["inv_sqrt_dm"] * t["sqrt_dfj"]
+
+    A = _mm33(fj, mi)  # B = (fj minv)^T (fj minv)
+    B = [_dot3([A[i], A[3 + i], A[6 + i]], [A[j], A[3 + j], A[6 + j]])
+         for i in range(3) for j in range(3)]
+    s_m1 = -0.5 * s_j
+    s_m2 = K_SM2A * det_m * _q225(tr) + (K_SM2B * t["inv_sqrt_dm"] * t["dfj32"])
+    dgdm = [s_m1 * B[i] + s_m2 * mi[i] for i in range(9)]
+    dgdm_sym = [dgdm[0], dgdm[1], dgdm[2], dgdm[4], dgdm[5], dgdm[8]]
+
+    m = t["m"]
+    traces = []
+    for j in range(3):
+        dm = [m[j + 1][e] - m[0][e] for e in range(6)]
+        s = _SYM_W[0] * dm[0] * dgdm_sym[0]
+        for e in range(1, 6):
+            s = s + _SYM_W[e] * dm[e] * dgdm_sym[e]
+        traces.append(s)
+    bc = [_dot3(traces, [ei[k], ei[3 + k], ei[6 + k]]) for k in range(3)]
+
+    c1 = -G + dgddet * det_fj
+    qf = _mm33(_mm33(ei, dj), fj)
+    v_loc = [c1 * ei[j * 3 + k] + qf[j * 3 + k] - bc[k] * 0.25
+             for j in range(3) for k in range(3)]
+
+    abs_k = t["abs_k"]
+    grads = [(v_loc[k] + v_loc[3 + k] + v_loc[6 + k] + bc[k]) * abs_k for k in range(3)]
+    grads += [-v_loc[i] * abs_k for i in range(9)]
+    ih = abs_k * G
+    e_reg = ih + half_w2 * _reg(z, dxpu)
+    grads = [(grads[i] + w2 * (z[i] - dxpu[i])) * free[i] for i in range(12)]
+    return grads, ih, e_reg
+
+
+def hess_c3(z, cells, ehat, dxpu, w2, half_w2, free):
+    """Lower triangle ``H[i][j]`` (i >= j) of the 12x12 derivative of
+    ``grad_c3`` (``hess_c3``, ``prox_pallas3d.py:230-250``)."""
+    return hessian(lambda zz: grad_c3(zz, cells, ehat, dxpu, w2, half_w2, free), z, free)
+
+
+def edet_c3(z):
+    E = [z[3 * (j + 1) + d] - z[d] for d in range(3) for j in range(3)]
+    return _det33(E)
+
+
+def _rows(cells):
+    return [[cells[v * ROW_W3 + k] for k in range(ROW_W3)] for v in range(4)]
+
+
+def prox3d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
+    """Plain PyTorch K4 on ``[C, N]`` channel tensors, sweeping only the
+    elements still active. Returns ``(z_out [12, N], ih0 [N])``;
+    ``stats``, if given, receives ``sweeps`` and ``element_sweeps``."""
+    ehat = tuple(float(v) for v in ehat)
+    w2, half_w2, inv_w2 = consts(w)
+    tol = f32(tol)
+    ih0, _ = energy_c3(list(z), _rows(cells), ehat)
+
+    def sweep(not_first, sub, zc):
+        d, fr, c = list(dxpu[:, sub]), list(free[:, sub]), _rows(cells[:, sub])
+        return newton_sweep(
+            not_first, zc,
+            lambda zz: grad_c3(zz, c, ehat, d, w2, half_w2, fr),
+            lambda zz: hess_c3(zz, c, ehat, d, w2, half_w2, fr),
+            lambda zz: energy_c3(zz, c, ehat, d, half_w2)[1],
+            edet_c3, inv_w2, tol,
+        )
+
+    return run_sweeps(z, max_iters, sweep, stats), ih0
+
+
+def prox3d(z, dxpu, free, cells, ehat, w, tol, max_iters):
+    """K4: the 3D prox z-update on ``[C, N]`` float32 channel tensors.
+
+    A CPU tensor goes to ``prox3d_plain``. A CUDA tensor launches the
+    kernel from ``csrc/prox3d.cu`` on the current stream (built at first
+    use) and counts the launch in ``prox3d.launches``."""
+    n = z.shape[1]
+    for name, t, rows in (("z", z, 12), ("dxpu", dxpu, 12), ("free", free, 12),
+                          ("cells", cells, 4 * ROW_W3)):
+        check(name, t, rows, n, z.device)
+    if z.device.type == "cpu":
+        return prox3d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters)
+    if z.device.type != "cuda":
+        raise ValueError(f"prox3d runs on cpu or cuda, not {z.device}")
+    lib = library()
+    zout = torch.empty_like(z)
+    ih0 = torch.empty(n, dtype=z.dtype, device=z.device)
+    k = (ctypes.c_float * 18)(*ehat, *consts(w), tol, K_THIRD, K_G2, K_DGDDET, K_SM2A, K_SM2B)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    rc = lib.mm_prox3d(
+        z.data_ptr(), dxpu.data_ptr(), free.data_ptr(), cells.data_ptr(),
+        zout.data_ptr(), ih0.data_ptr(), n, k, int(max_iters), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"prox3d kernel launch failed: CUDA error {rc}")
+    prox3d.launches += 1
+    return zout, ih0
+
+
+prox3d.launches = 0
+
+# mm_prox3d(z, dxpu, free, cells, zout, ih0, n, consts[18], max_iters,
+#           stream) in csrc/prox3d.cu
+_SIGNATURES = {"mm_prox3d": (
+    [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float),
+                             ctypes.c_int, ctypes.c_void_p],
+    ctypes.c_int,
+)}
+
+
+def library() -> ctypes.CDLL:
+    """K4's library, built from ``csrc/prox3d.cu`` at first use."""
+    return load_library("prox3d", _SIGNATURES)

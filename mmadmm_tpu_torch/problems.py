@@ -2,12 +2,13 @@
 ``mmadmm_tpu/problems.py``; reference ``main.cpp:142-782``).
 
 The port runs MM-ADMM (method 0), explicit Euler (method 1) and backward
-Euler (method 2) on the 2D stencil engine. Every other route raises
-``NotImplementedError`` naming the ROADMAP item that ports it. The JAX
-package also gates the stencil engine on mesh size (and, for Euler and
-backward Euler, on environment switches), to choose between it and the
-compact element-major engines; the port has only the stencil engine, so
-it takes every mesh that fits it.
+Euler (method 2) on the 2D stencil engine, and MM-ADMM on the 3D stencil
+engine (the JAX package's ``SoAADMM3D`` in stencil mode). Every other
+route raises ``NotImplementedError`` naming the ROADMAP item that ports
+it. The JAX package also gates the stencil engines on mesh size (and, for
+Euler and backward Euler, on environment switches), to choose between
+them and the compact element-major engines; the port has only the stencil
+engines, so it takes every mesh that fits them.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from .geometry.shoulder import make_shoulder_mesh
 from .mesh import MovingMesh
 from .monitors import get_monitor
 from .ops.stencil2d import dense_layout
+from .ops.stencil3d import dense_layout_3d
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -46,8 +48,9 @@ def build_problem(cfg: ExperimentConfig, device=None):
     unless the caller asks for the CPU)."""
     if cfg.method not in (0, 1, 2):
         raise ValueError(f"unknown method {cfg.method}")
-    if cfg.dim != 2:
-        raise NotImplementedError("3D meshes are ROADMAP item A13")
+    if cfg.dim == 3 and cfg.method != 0:
+        item = "A11" if cfg.method == 1 else "A12"
+        raise NotImplementedError(f"3D method {cfg.method} is ROADMAP item {item}")
     if cfg.comp_mesh:
         raise NotImplementedError("computational meshes are ROADMAP item A14")
     if cfg.n_devices > 1:
@@ -57,6 +60,8 @@ def build_problem(cfg: ExperimentConfig, device=None):
         X, F, mask, get_monitor(cfg.dim, cfg.mon_type),
         rho=cfg.rho, tau=cfg.tau, dtype=_DTYPES[cfg.dtype], device=device,
     )
+    if cfg.dim == 3:
+        return mesh, _soa3d(cfg, mesh)
     if cfg.method == 1:
         from .integrators.euler import EulerIntegrator
 
@@ -80,3 +85,22 @@ def build_problem(cfg: ExperimentConfig, device=None):
         prox_max_iters=cfg.prox_newton_iters, grad_use=cfg.grad_use,
     )
     return mesh, integ
+
+
+def _soa3d(cfg: ExperimentConfig, mesh: MovingMesh):
+    """The 3D stencil engine, or ``NotImplementedError`` for a mesh off
+    its gate (``problems.py:93-127`` in the JAX package, without the size
+    threshold; the monitor grid is constant or 48-wide, since
+    ``build_monitor_grid`` builds no other 3D grid)."""
+    if dense_layout_3d(cfg.nx, cfg.ny, cfg.nz, mesh) is None:
+        raise NotImplementedError(
+            "meshes off the stencil engine's gate run on the stock ADMM path "
+            "(ROADMAP item A10)"
+        )
+    from .integrators.admm_soa import SoAADMM3D
+
+    return SoAADMM3D(
+        mesh, cfg.dt, cfg.nx, cfg.ny, cfg.nz,
+        admm_iters=cfg.admm_iter, tol=cfg.step_tol,
+        prox_max_iters=cfg.prox_newton_iters, grad_use=cfg.grad_use,
+    )

@@ -1,15 +1,17 @@
-"""Where a Shoulder-320 step spends its time on the card, for each method.
+"""Where a step spends its time on the card, for each path.
 
     python3 -m mmadmm_tpu_torch.profile_step
 
-For MM-ADMM (method 0), explicit Euler (1) and backward Euler (2) in
-turn: runs 5 steps of Shoulder-320, then traces 5 more with
+For MM-ADMM (method 0), explicit Euler (1) and backward Euler (2) at
+Shoulder-320, then 3D MM-ADMM at 3D Shoulder-40 (the identity monitor,
+768,000 tet slots), in turn: runs 5 steps, then traces 5 more with
 ``torch.profiler`` (CPU and CUDA activities) and prints wall ms per step
 (host clock, ending in ``torch.cuda.synchronize()``), the device's busy
 share (the sum of kernel times over the wall time; kernels do not overlap
 on the one stream the port uses), the time of each of the port's kernels
-(K1 ``prox2d``, K2 ``eg2d``, K3 ``hess2d``), the number of kernel launches
-per step, and the kernels with the most device time. Needs a CUDA card.
+(K1 ``prox2d``, K2 ``eg2d``, K3 ``hess2d``, K4 ``prox3d``), the number of
+kernel launches per step, and the kernels with the most device time.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -23,13 +25,19 @@ from . import ExperimentConfig, build_problem
 
 WARM = 5
 STEPS = 5
-NAMES = {0: "MM-ADMM", 1: "explicit Euler", 2: "backward Euler"}
-KERNELS = ("prox2d", "eg2d", "hess2d")  # matched as "<name>_kernel"
+KERNELS = ("prox2d", "eg2d", "hess2d", "prox3d")  # matched as "<name>_kernel"
+_2D = dict(test_type="Shoulder", dim=2, mon_type=1, nx=320, ny=320)
+RUNS = {
+    "MM-ADMM": dict(_2D, method=0),
+    "explicit Euler": dict(_2D, method=1),
+    "backward Euler": dict(_2D, method=2),
+    "3D MM-ADMM, 3D Shoulder-40": dict(test_type="Shoulder", dim=3, mon_type=0, method=0,
+                                       nx=40, ny=40, nz=40),
+}
 
 
-def profile_method(method: int) -> None:
-    cfg = ExperimentConfig(test_type="Shoulder", dim=2, mon_type=1, method=method,
-                           nx=320, ny=320, dt=5e-3, tau=0.1, rho=50.0, dtype="float32")
+def profile_run(name: str) -> None:
+    cfg = ExperimentConfig(**RUNS[name], dt=5e-3, tau=0.1, rho=50.0, dtype="float32")
     _, integ = build_problem(cfg)
     state = integ.init_state()
     for _ in range(WARM):
@@ -48,7 +56,7 @@ def profile_method(method: int) -> None:
     launches = sum(e.count for e in kernels)
     inner = "".join(f", {f} {[getattr(i, f) for i in infos]}" for f in ("n_iters", "n_newton")
                     if hasattr(infos[0], f))
-    print(f"{NAMES[method]} on {torch.cuda.get_device_name(0)}: {STEPS} traced steps "
+    print(f"{name} on {torch.cuda.get_device_name(0)}: {STEPS} traced steps "
           f"after {WARM}{inner}")
     def kernel_ms(name):
         us = sum(e.self_device_time_total for e in kernels if name + "_kernel" in e.key)
@@ -64,8 +72,8 @@ def profile_method(method: int) -> None:
 
 
 def main() -> None:
-    for method in NAMES:
-        profile_method(method)
+    for name in RUNS:
+        profile_run(name)
 
 
 if __name__ == "__main__":

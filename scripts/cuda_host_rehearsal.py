@@ -1,0 +1,160 @@
+"""Run kernels K1 and K4 as host code, thread by thread, against their
+plain PyTorch versions: a rehearsal of their arithmetic where there is no
+card and no ``nvcc``.
+
+    python scripts/cuda_host_rehearsal.py
+
+Compiles ``mmadmm_tpu_torch/csrc/prox2d.cu`` and ``prox3d.cu`` with
+``g++ -ffp-contract=off`` (no fused multiply-add, as ``nvcc --fmad=false``)
+against a stub ``cuda_runtime.h`` that defines ``__device__``, ``__ldg``,
+``threadIdx`` and the like as host code, into a temporary directory, and
+calls each kernel once per element. Their outputs are compared bit for bit
+with ``prox2d_plain`` (Shoulder nx=16) and ``prox3d_plain`` (3D SquareGrid
+and Shoulder nx=4 and SquareGrid nx=6), on the step-0 prox inputs with
+their dual perturbed by a seeded normal. PyTorch's CPU ``sqrt`` need not
+be correctly rounded (the card's is, like the kernels'), so the script
+first prints the share of f32 square roots where it differs from the
+correctly rounded one, then runs the plain versions with a correctly
+rounded square root. Needs ``g++``; runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.getcwd())
+
+from mmadmm_tpu_torch import ExperimentConfig, build_problem  # noqa: E402
+from mmadmm_tpu_torch.cuda_build import CSRC  # noqa: E402
+from mmadmm_tpu_torch.ops import newton as N  # noqa: E402
+from mmadmm_tpu_torch.ops import prox2d as P2  # noqa: E402
+from mmadmm_tpu_torch.ops import prox3d as P3  # noqa: E402
+
+STUB = """#pragma once
+#include <cmath>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __shared__ static
+#define __restrict__
+#define __launch_bounds__(...)
+typedef void* cudaStream_t;
+struct Dim3 { unsigned x, y, z; };
+static Dim3 blockIdx, threadIdx, blockDim;
+template <typename T> T __ldg(const T* p) { return *p; }
+inline int cudaGetLastError() { return 0; }
+using std::isfinite;
+"""
+
+# one host entry per kernel: the launch becomes a loop over the elements
+DRIVERS = {
+    "prox2d": """
+extern "C" int host_prox2d(const float* z, const float* dxpu, const float* fr, const float* cells,
+                           float* zout, float* ih0, long long n, const float* c, int max_iters) {
+  Consts k{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
+  blockDim.x = 128;
+  for (long long e = 0; e < n; ++e) {
+    blockIdx.x = e / 128; threadIdx.x = e % 128;
+    prox2d_kernel(z, dxpu, fr, cells, zout, ih0, n, k, max_iters);
+  }
+  return 0;
+}
+""",
+    "prox3d": """
+extern "C" int host_prox3d(const float* z, const float* dxpu, const float* fr, const float* cells,
+                           float* zout, float* ih0, long long n, const float* c, int max_iters) {
+  Consts3 k;
+  std::memcpy(&k, c, sizeof(k));
+  blockDim.x = kThreads;
+  for (long long e = 0; e < n; ++e) {
+    blockIdx.x = e / kThreads; threadIdx.x = e % kThreads;
+    prox3d_kernel(z, dxpu, fr, cells, zout, ih0, n, k, max_iters);
+  }
+  return 0;
+}
+""",
+}
+
+
+def build(tmp: str) -> dict:
+    with open(os.path.join(tmp, "cuda_runtime.h"), "w") as f:
+        f.write(STUB)
+    for name in os.listdir(CSRC):
+        with open(os.path.join(CSRC, name)) as f:
+            src = f.read()
+        with open(os.path.join(tmp, name), "w") as f:
+            f.write(src)
+    libs = {}
+    for name, driver in DRIVERS.items():
+        with open(os.path.join(CSRC, f"{name}.cu")) as f:
+            src = re.sub(r"<<<[^>]*>>>", "", f.read()) + driver
+        cpp, so = os.path.join(tmp, f"{name}.cpp"), os.path.join(tmp, f"lib{name}.so")
+        with open(cpp, "w") as f:
+            f.write(src)
+        subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fno-fast-math",
+                        "-shared", "-fPIC", "-w", "-I", tmp, cpp, "-o", so], check=True)
+        lib = ctypes.CDLL(so)
+        getattr(lib, f"host_{name}").argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float), ctypes.c_int])
+        libs[name] = lib
+    return libs
+
+
+def correctly_rounded_sqrt(x):
+    """f32 square root through f64, which rounds correctly."""
+    if isinstance(x, N.Dual):
+        s = correctly_rounded_sqrt(x.v)
+        return N.Dual(s, x.d * (0.5 / s))
+    return torch.sqrt(x.double()).float()
+
+
+def main() -> int:
+    a = torch.tensor(np.random.default_rng(0).uniform(0.01, 10.0, 1_000_003).astype(np.float32))
+    differ = float((torch.sqrt(a) != correctly_rounded_sqrt(a)).float().mean())
+    print(f"PyTorch CPU sqrt differs from the correctly rounded f32 sqrt on {100 * differ:.2f} % "
+          f"of 1,000,003 uniform inputs", flush=True)
+    P2.sqrt = P3.sqrt = correctly_rounded_sqrt
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(tmp)
+        for kw in (dict(test_type="Shoulder", dim=2, mon_type=1, nx=16, ny=16),
+                   dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4),
+                   dict(test_type="Shoulder", dim=3, mon_type=0, nx=4, ny=4, nz=4),
+                   dict(test_type="SquareGrid", dim=3, mon_type=1, nx=6, ny=6, nz=6)):
+            _, integ = build_problem(ExperimentConfig(method=0, dt=5e-3, tau=0.1, rho=50.0,
+                                                      dtype="float32", **kw), device="cpu")
+            _, x, z, u = integ.start(integ.init_state())
+            noise = torch.tensor(rng.normal(scale=3e-3, size=tuple(u.shape)), dtype=torch.float32)
+            dxpu = (integ.gather(x) + u + noise).contiguous()
+            z, cells = z.contiguous(), integ.cells(z)
+            ehat = [float(v) for v in integ.mesh.ehat_np.reshape(-1)]
+            args = (z, dxpu, integ.free, cells)
+            if kw["dim"] == 2:
+                name, plain = "prox2d", P2.prox2d_plain
+                k = [*ehat, *N.consts(integ.w), N.f32(integ.prox_tol)]
+            else:
+                name, plain = "prox3d", P3.prox3d_plain
+                k = [*ehat, *N.consts(integ.w), N.f32(integ.prox_tol), P3.K_THIRD, P3.K_G2,
+                     P3.K_DGDDET, P3.K_SM2A, P3.K_SM2B]
+            n = z.shape[1]
+            zo, ih = torch.empty_like(z), torch.empty(n)
+            getattr(libs[name], f"host_{name}")(
+                *[t.data_ptr() for t in (*args, zo, ih)], n, (ctypes.c_float * len(k))(*k),
+                integ.prox_max_iters)
+            zp, ihp = plain(*args, ehat, integ.w, integ.prox_tol, integ.prox_max_iters)
+            same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
+            print(f"{name} at {kw['test_type']} {kw['dim']}D nx={kw['nx']}, {n} slots: host kernel "
+                  f"bit-equal to the plain version on {100 * same:.2f} % of elements", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

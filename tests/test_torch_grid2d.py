@@ -21,7 +21,7 @@ from mmadmm_tpu_torch import ExperimentConfig, build_problem, convert
 from mmadmm_tpu_torch.integrators.admm_grid2d import GridADMM2D
 from mmadmm_tpu_torch.integrators.run_loop import run
 
-STEPS = 3
+STEPS = 12
 KW = dict(test_type="Shoulder", dim=2, mon_type=1, method=0, nx=16, ny=16,
           dt=5e-3, tau=0.1, rho=50.0, dtype="float32")
 
@@ -80,7 +80,7 @@ def test_step_matches_jax(jax_run, port_run, k):
 
 
 def test_final_state_matches_jax(jax_run, port_run):
-    """After 3 steps the mesh agrees to f32 round-off (positions are
+    """After STEPS steps the mesh agrees to f32 round-off (positions are
     O(1); 1e-5 absolute is ~100 f32 ulps of accumulated reordering)."""
     s_j, s_p = jax_run[4], port_run[2]
     np.testing.assert_allclose(s_p.x.numpy(), np.asarray(s_j.x), rtol=0, atol=1e-5)

@@ -10,7 +10,10 @@ regularized energies after the solve within rtol 5e-5. For K2 and K3
 (``csrc/be2d.cu`` vs ``ops/be2d.py::eg2d_plain`` / ``hess2d_plain``),
 those of tests/test_torch_be2d.py: ih within rtol 2e-5, the gradient and
 the Hessian channels within rtol 1e-4 and atol 1e-6 of the slot's
-largest entry."""
+largest entry. For K4 (``csrc/prox3d.cu`` vs ``ops/prox3d.py::
+prox3d_plain``), those of tests/test_prox_pallas3d.py:88-108: ih0 within
+rtol 2e-5, the regularized energies after the solve within rtol 1e-4 and
+atol 1e-6."""
 
 import pytest
 import torch
@@ -19,6 +22,8 @@ from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.integrators.run_loop import run
 from mmadmm_tpu_torch.ops import be2d as B
 from mmadmm_tpu_torch.ops import prox2d as P
+from mmadmm_tpu_torch.ops import prox3d as P3
+from mmadmm_tpu_torch.ops.newton import consts
 
 
 def _card():
@@ -161,3 +166,68 @@ def test_cuda_tensors_never_take_the_plain_k2_k3():
             fn(z.double(), cells, ehat)
         with pytest.raises(ValueError):
             fn(z, cells.cpu(), ehat)
+
+
+def _problem3(test_type="SquareGrid", mon_type=1):
+    return build_problem(ExperimentConfig(
+        test_type=test_type, dim=3, mon_type=mon_type, method=0, nx=4, ny=4, nz=4,
+        dtype="float32"))
+
+
+def _check_pair3(inputs, args, zk, ihk):
+    z, dxpu, free, cells = inputs
+    zp, ihp = P3.prox3d_plain(*inputs, *args)
+    torch.testing.assert_close(ihk, ihp, rtol=2e-5, atol=1e-8)
+    rows = P3._rows(cells)
+    half_w2 = consts(args[1])[1]
+    ek = P3.energy_c3(list(zk), rows, tuple(args[0]), list(dxpu), half_w2)[1]
+    ep = P3.energy_c3(list(zp), rows, tuple(args[0]), list(dxpu), half_w2)[1]
+    torch.testing.assert_close(ek, ep, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("test_type,mon_type", [("SquareGrid", 1), ("Shoulder", 0)])
+def test_k4_matches_plain(test_type, mon_type):
+    _card()
+    _, integ = _problem3(test_type, mon_type)
+    inputs, args = _inputs(integ)
+    before = P3.prox3d.launches
+    zk, ihk = P3.prox3d(*inputs, *args)
+    torch.cuda.synchronize()
+    assert P3.prox3d.launches == before + 1
+    _check_pair3(inputs, args, zk, ihk)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 700])
+def test_k4_ragged_sizes(n):
+    _card()
+    _, integ = _problem3()
+    inputs, args = _inputs(integ)
+    cut = tuple(t[:, :n].contiguous() for t in inputs)
+    zk, ihk = P3.prox3d(*cut, *args)
+    torch.cuda.synchronize()
+    _check_pair3(cut, args, zk, ihk)
+
+
+def test_3d_path_launches_k4_once_per_admm_iteration():
+    _card()
+    _, integ = _problem3("Shoulder", 0)
+    P3.prox3d.launches = P.prox2d.launches = 0
+    iters = []
+    _, trace, steps = run(integ, integ.init_state(), cap=3, dt_tol=0.0,
+                          on_step=lambda k, info: iters.append(info.n_iters))
+    assert P3.prox3d.launches == sum(iters) > 0 and P.prox2d.launches == 0
+    assert trace[steps - 1] < trace[0]
+
+
+def test_cuda_tensors_never_take_the_plain_k4():
+    """A CUDA input of the wrong shape, type or device raises; there is no
+    fallback."""
+    _card()
+    _, integ = _problem3()
+    (z, dxpu, free, cells), args = _inputs(integ)
+    with pytest.raises(ValueError):
+        P3.prox3d(z.double(), dxpu, free, cells, *args)
+    with pytest.raises(ValueError):
+        P3.prox3d(z, dxpu, free, cells[:200].contiguous(), *args)
+    with pytest.raises(ValueError):
+        P3.prox3d(z, dxpu.cpu(), free, cells, *args)

@@ -151,6 +151,7 @@ def test_f64_sums(n):
         float(block_sumsq_f64(jnp.asarray(a))), rel=1e-6)
 
 
+@pytest.mark.parametrize("D", [2, 3])
 @pytest.mark.parametrize("n", [768, 409_600])
-def test_reference_ehat_bit_equal(n):
-    np.testing.assert_array_equal(huang.reference_ehat(n), np.asarray(jhuang.reference_ehat(2, n)))
+def test_reference_ehat_bit_equal(n, D):
+    np.testing.assert_array_equal(huang.reference_ehat(D, n), np.asarray(jhuang.reference_ehat(D, n)))

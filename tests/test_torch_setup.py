@@ -138,7 +138,10 @@ def test_config_loads_like_jax():
     # methods 1 and 2 run on the stencil engine; off its gate they name
     # their own items
     (dict(method=1, nx=8, ny=8), "A11"), (dict(method=2, nx=8, ny=8), "A12"),
-    (dict(dim=3, nz=4), "A13"),
+    # 3D runs MM-ADMM on the SoA stencil engine; the rest of 3D names its item
+    (dict(dim=3, nz=4, method=1), "A11"), (dict(dim=3, nz=4, method=2), "A12"),
+    (dict(dim=3, nz=4, comp_mesh=True), "A14"), (dict(dim=3, nz=4, dtype="float64"), "A10"),
+    (dict(dim=3, nz=4, test_type="LevelSet"), "A10"),
     (dict(comp_mesh=True), "A14"), (dict(n_devices=2), "A15"),
     (dict(test_type="LevelSet"), "A10"), (dict(dtype="float64"), "A10"),
     (dict(nx=8, ny=8), "A10"),  # 4*nx*ny not a multiple of 1024: off the stencil gate
