@@ -6,14 +6,16 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: kernel K1 (``csrc/prox2d.cu``), kernels K2 and K3
-   (``csrc/be2d.cu``) and kernel K4 (``csrc/prox3d.cu``), one ``nvcc`` per
-   source, started together, and their registers and spills
+   (``csrc/be2d.cu``) and kernels K4 and K4' (``csrc/prox3d.cu``), one
+   ``nvcc`` per source, started together, and their registers and spills
    (``-Xptxas -v``);
 3. kernel vs plain: every kernel against its plain PyTorch version on the
    same inputs: K1-K3 at Shoulder nx=16 and on the step-0 inputs of
    Shoulder-320 (409,600 element slots), K4 at 3D SquareGrid nx=4 and on
    the step-0 inputs of 3D Shoulder-40 and 3D SquareGrid-40 (768,000
-   slots each);
+   slots each), K4' on the stock engine's step-0 inputs of 3D CompSquare
+   nx=4 and CompSquare-20 (96,000 tets), K1 through the stock engine's
+   element-major entry on Monitor3320r's (265,004 triangles);
 4. main paths, each through ``problems.build_problem`` and
    ``integrators.run_loop.run`` with the DtTol stop, with every launch
    count set to 0 just before and read just after: at Shoulder-320, at
@@ -21,11 +23,16 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    explicit Euler (method 1; K2 launches = steps) and backward Euler
    (method 2; K3 launches = steps, K2 launches = Newton iterations + 3 per
    step); at 3D Shoulder-40 and 3D SquareGrid-40, at most 20 steps, 3D
-   MM-ADMM (K4 launches = ADMM iterations). The energies must be finite
-   and fall. Euler and backward Euler at Shoulder nx=16 and 3D MM-ADMM at
-   SquareGrid nx=4 must also agree with the port's CPU run (plain
-   versions, held to the JAX package by tests/test_torch_euler_be.py and
-   tests/test_torch_soa3d_*.py);
+   MM-ADMM (K4 launches = ADMM iterations); on the stock element-major
+   engine, 3D CompSquare-20 (at most 30 steps) and CompSquare-40 (at most
+   10) on their computational meshes (K4' launches = ADMM iterations) and
+   Monitor3320r as shipped, in float32 (at most 20 steps; K1 launches =
+   ADMM iterations), each with its step-0 energy within rtol 1e-6 of the
+   JAX package's. The energies must be finite and fall. Euler and
+   backward Euler at Shoulder nx=16 and 3D MM-ADMM at SquareGrid nx=4 and
+   CompSquare nx=4 must also agree with the port's CPU run (plain
+   versions, held to the JAX package by tests/test_torch_euler_be.py,
+   tests/test_torch_soa3d_*.py and tests/test_torch_admm_stock.py);
 5. timing: each kernel alone (median of 20 launches, CUDA events), its
    plain version once, and its bound; one JSON line ``{"kernels": [...]}``.
 
@@ -50,8 +57,14 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 STEP_CAP = 30
 STEP_CAP_3D = 20
+STOCK_CAPS = {"3D CompSquare-20": 30, "3D CompSquare-40": 10, "Monitor3320r": 20}
 SMALL_STEPS = 4  # card-vs-CPU checks at nx=16 (2D) and nx=4 (3D)
 MONITOR1320_IH0 = 0.845393  # BASELINE.md:34, the reference's recorded Ih at step 0
+# The JAX package's step-0 energy of the stock engine's configurations:
+# mmadmm_tpu MovingMesh.energy(X0) in float32 (f64 sum), computed once with
+# JAX 0.9.0 on the CPU by scripts/stock_jax_gap.py; the step-0 I_h is the
+# energy of the initial mesh, so it needs no prox.
+JAX_STEP0_IH = {"3D CompSquare-20": 0.2558352160267532, "Monitor3320r": 0.17139660514658317}
 # eg2d launches of one backward-Euler step beyond its Newton iterations:
 # the explicit-Euler guess, the residual F0 and the post-step energy
 BE_EG_PER_STEP = 3
@@ -85,12 +98,59 @@ def box3d(test_type: str, mon_type: int, n: int, device: str = "cuda"):
     return cfg, mesh, integ
 
 
+def comp_square(n: int, device: str = "cuda"):
+    """3D MM-ADMM on the stock engine: an n^3 SquareGrid box mesh on its
+    computational mesh, MonType 5, rho 10 (the 3DMonitor3 family as the
+    JAX package's tests set it, tests/test_prox_pallas3d.py:137-143)."""
+    from mmadmm_tpu_torch import ExperimentConfig, build_problem
+
+    cfg = ExperimentConfig(
+        test_type="SquareGrid", dim=3, mon_type=5, method=0, comp_mesh=True, nx=n, ny=n,
+        nz=n, dt=5e-3, tau=0.1, rho=10.0, dtype="float32",
+    )
+    mesh, integ = build_problem(cfg, device=device)
+    return cfg, mesh, integ
+
+
+def monitor3320r(device: str = "cuda"):
+    """``Experiments/InputFiles/Monitor3320r.json`` as shipped, in float32."""
+    import os
+
+    from mmadmm_tpu_torch import build_problem, load_experiment_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_experiment_config(os.path.join(here, "Experiments", "InputFiles",
+                                              "Monitor3320r.json"), method=0)
+    cfg.dtype = "float32"
+    mesh, integ = build_problem(cfg, device=device)
+    return cfg, mesh, integ
+
+
 def prox_inputs(integ):
     """The inputs of the first prox call (K1 or K4) of step 0."""
     state = integ.init_state()
     _, x, z, u = integ.start(state)
     dxpu = (integ.gather(x) + u).contiguous()
     return z.contiguous(), dxpu, integ.free, integ.cells(z)
+
+
+def stock_inputs(integ):
+    """The stock engine's first prox call of step 0, as the element-major
+    entry hands it to its kernel: ``(z, dxpu, free, cells)`` channel tensors,
+    and on a computational mesh also ``ehat_e [9, NF]``."""
+    from mmadmm_tpu_torch.ops.monitor_grid import element_cell_rows
+
+    _, x, z, u = integ.start(integ.init_state())
+    dxpu = integ.gather(x) + u
+    nf = z.shape[0]
+
+    def ch(a):
+        return a.reshape(nf, -1).T.contiguous()
+
+    args = (ch(z), ch(dxpu), ch(integ.free), element_cell_rows(integ.mesh.grid, z))
+    if integ.mesh.comp_mesh:
+        args += (ch(integ.mesh.elem_ehat),)
+    return args
 
 
 def be_inputs(integ):
@@ -131,13 +191,14 @@ def check_slots(name, a, b, rtol, atol_frac):
     return float(err.max())
 
 
-def compare(label, integ):
-    """K1 against its plain version on the first prox inputs of step 0.
-    Bands of tests/test_prox_pallas2d.py:95-119: ih0 within rtol 2e-5,
-    the regularized energies after the solve within rtol 5e-5."""
+def compare(label, integ, inputs=None):
+    """K1 against its plain version on the first prox inputs of step 0
+    (``inputs``, default the stencil engine's). Bands of
+    tests/test_prox_pallas2d.py:95-119: ih0 within rtol 2e-5, the
+    regularized energies after the solve within rtol 5e-5."""
     from mmadmm_tpu_torch.ops import prox2d as P
 
-    z, dxpu, free, cells = prox_inputs(integ)
+    z, dxpu, free, cells = prox_inputs(integ) if inputs is None else inputs
     ehat = integ.mesh.ehat_np.reshape(-1)
     args = (ehat, integ.w, integ.prox_tol, integ.prox_max_iters)
     zk, ihk = P.prox2d(z, dxpu, free, cells, *args)
@@ -187,6 +248,39 @@ def compare3(label, integ):
         f"max |ih0 err| {err_ih:.3e}, max |energy err| {err_e:.3e}, max |z' err| {err_z:.3e}, "
         f"bit-equal (z', ih0) {100 * same:.2f}% of elements; plain version {plain_s:.2f} s")
     return max(err_ih, err_z), (z, dxpu, free, cells)
+
+
+def compare4c(label, integ):
+    """K4' against its plain version on the stock engine's first prox
+    inputs of step 0. Bands of tests/test_torch_prox3d_chord.py: ih0 within
+    rtol 2e-5, the regularized energies after the solve within rtol 1e-4
+    (atol 1e-6). The two perform the same float operations in the same
+    order (the host rehearsal, scripts/cuda_host_rehearsal.py, agrees bit
+    for bit), so they are expected to agree bit for bit."""
+    from mmadmm_tpu_torch.ops import prox3d as P3
+    from mmadmm_tpu_torch.ops.newton import consts
+
+    inputs = stock_inputs(integ)
+    z, dxpu, free, cells, eh = inputs
+    args = (integ.w, integ.prox_tol, integ.prox_max_iters)
+    zk, ihk = P3.prox3d_chord_comp(*inputs, *args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    zp, ihp = P3.prox3d_chord_comp_plain(*inputs, *args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    rows = P3._rows(cells)
+    half_w2 = consts(integ.w)[1]
+    e_k = P3.energy_c3(list(zk), rows, list(eh), list(dxpu), half_w2)[1]
+    e_p = P3.energy_c3(list(zp), rows, list(eh), list(dxpu), half_w2)[1]
+    err_ih = check_close(f"{label} ih0", ihk, ihp, 2e-5, 1e-8)
+    err_e = check_close(f"{label} regularized energy", e_k, e_p, 1e-4, 1e-6)
+    err_z = float((zk - zp).abs().max())
+    same = float(((zk == zp).all(0) & (ihk == ihp)).float().mean())
+    say(f"{label}: {z.shape[1]} tets; within bands (ih0 rtol 2e-5, energy rtol 1e-4); "
+        f"max |ih0 err| {err_ih:.3e}, max |energy err| {err_e:.3e}, max |z' err| {err_z:.3e}, "
+        f"bit-equal (z', ih0) {100 * same:.2f}% of elements; plain version {plain_s:.2f} s")
+    return max(err_ih, err_z), inputs
 
 
 def compare_be(label, z, cells, ehat):
@@ -275,7 +369,8 @@ def _wrappers():
     from mmadmm_tpu_torch.ops import prox2d as P
     from mmadmm_tpu_torch.ops import prox3d as P3
 
-    return {"prox2d": P.prox2d, "eg2d": B.eg2d, "hess2d": B.hess2d, "prox3d": P3.prox3d}
+    return {"prox2d": P.prox2d, "eg2d": B.eg2d, "hess2d": B.hess2d, "prox3d": P3.prox3d,
+            "prox3d_chord_comp": P3.prox3d_chord_comp}
 
 
 def counts():
@@ -323,6 +418,9 @@ def drive(label, cfg, integ, cap=STEP_CAP):
 
 
 def expect(label, launched, want):
+    """The launch counts of a path: ``want`` for the kernels it names, 0 for
+    every other kernel."""
+    want = {name: want.get(name, 0) for name in launched}
     if launched != want or not any(want.values()):
         raise AssertionError(f"{label}: launches {launched}, expected {want}")
 
@@ -348,15 +446,17 @@ def card_vs_cpu(method):
         f"(Ih rtol {rtol}): {[round(i.ih, 9) for i in runs[0]]}")
 
 
-def card_vs_cpu_3d():
-    """3D MM-ADMM at SquareGrid nx=4 (mon_type 1), SMALL_STEPS steps on the
-    card (K4) and on the CPU (its plain version, held to the JAX package by
-    tests/test_torch_soa3d_square.py): the same ADMM iteration counts and
-    Ih within rel 1e-5 (PyTorch's CPU sqrt need not be correctly rounded;
-    the card's is, like the kernel's)."""
+def card_vs_cpu_3d(label, make):
+    """3D MM-ADMM at nx=4, SMALL_STEPS steps on the card (the kernel) and
+    on the CPU (its plain version): the same ADMM iteration counts and Ih
+    within rel 1e-5 (PyTorch's CPU sqrt need not be correctly rounded; the
+    card's is, like the kernel's). ``make(device)`` builds the integrator:
+    SquareGrid nx=4 on the 3D stencil engine (K4; held to the JAX package
+    by tests/test_torch_soa3d_square.py), CompSquare nx=4 on the stock
+    engine (K4'; tests/test_torch_admm_stock.py)."""
     runs = []
     for device in ("cuda", "cpu"):
-        _, _, integ = box3d("SquareGrid", 1, 4, device)
+        integ = make(device)
         state, infos = integ.init_state(), []
         for _ in range(SMALL_STEPS):
             state, info = integ.step(state)
@@ -364,8 +464,8 @@ def card_vs_cpu_3d():
         runs.append(infos)
     for k, (a, b) in enumerate(zip(*runs)):
         if not math.isclose(a.ih, b.ih, rel_tol=1e-5) or a.n_iters != b.n_iters:
-            raise AssertionError(f"3D MM-ADMM step {k}: card {a} vs cpu {b}")
-    say(f"3D MM-ADMM at SquareGrid nx=4: card and CPU agree over {SMALL_STEPS} steps "
+            raise AssertionError(f"{label} step {k}: card {a} vs cpu {b}")
+    say(f"{label}: card and CPU agree over {SMALL_STEPS} steps "
         f"(Ih rtol 1e-5, the same n_iters {[i.n_iters for i in runs[0]]}): "
         f"{[round(i.ih, 9) for i in runs[0]]}")
 
@@ -393,7 +493,8 @@ def main() -> int:
     P.library()
     B.library()
     P3.library()
-    say(f"build: prox2d, be2d and prox3d together in {time.perf_counter() - t:.2f} s")
+    say(f"build: prox2d, be2d and prox3d (K4 and K4') together in "
+        f"{time.perf_counter() - t:.2f} s")
     for name in ("prox2d", "be2d", "prox3d"):
         for line in cuda_build.ptxas_report(name).splitlines():
             say(f"ptxas {name}: {line.strip()}")
@@ -423,6 +524,32 @@ def main() -> int:
             f"{integ3.NFd} slots, {grid} ({time.perf_counter() - t:.2f} s)")
         err, inputs3 = compare3(f"K4 vs plain, {label} step 0", integ3)
         box[label] = (cfg3, integ3, err, inputs3)
+    _, _, small_c = comp_square(4)
+    compare4c("K4' vs plain, 3D CompSquare nx=4 (stock engine)", small_c)
+    stock = {}
+    for label, make in (("3D CompSquare-20", lambda: comp_square(20)),
+                        ("3D CompSquare-40", lambda: comp_square(40)),
+                        ("Monitor3320r", monitor3320r)):
+        t = time.perf_counter()
+        cfg_s, mesh_s, integ_s = make()
+        say(f"{label} set-up: {mesh_s.n_pnts} nodes, {mesh_s.n_elements} elements, "
+            f"{type(integ_s).__name__} ({time.perf_counter() - t:.2f} s)")
+        stock[label] = [cfg_s, integ_s, None, None]
+    stock["3D CompSquare-20"][2:] = compare4c("K4' vs plain, 3D CompSquare-20 step 0",
+                                              stock["3D CompSquare-20"][1])
+    m_integ = stock["Monitor3320r"][1]
+    m_in = stock_inputs(m_integ)
+    stock["Monitor3320r"][2:] = compare("K1 vs plain, Monitor3320r step 0 (element-major entry)",
+                                        m_integ, m_in)
+    _, x, z, u = m_integ.start(m_integ.init_state())
+    ze, ihe = P.prox_elements(m_integ.mesh.grid, z, m_integ.gather(x) + u, m_integ.free,
+                              m_integ.mesh.ehat_np.reshape(-1), m_integ.w, m_integ.prox_tol,
+                              m_integ.prox_max_iters)
+    zc, ihc = P.prox2d(*m_in, m_integ.mesh.ehat_np.reshape(-1), m_integ.w, m_integ.prox_tol,
+                       m_integ.prox_max_iters)
+    if not (torch.equal(ze, zc.T.reshape(-1, 3, 2)) and torch.equal(ihe, ihc)):
+        raise AssertionError("K1's element-major entry differs from its channel call")
+    say("K1's element-major entry equals its channel call on Monitor3320r's step-0 inputs")
 
     # ---- main paths -----------------------------------------------------------
     infos, ih, launched = drive("MM-ADMM", cfg, integ)
@@ -454,7 +581,31 @@ def main() -> int:
         say(f"3D MM-ADMM {label}: K4 launches {launched3[label]['prox3d']} = ADMM iterations "
             f"{iters3} over {len(infos3)} steps ({iters3 / len(infos3):.2f} per step), "
             f"{1e3 * wall / len(infos3):.1f} ms per step; Ih trace {[round(float(v), 9) for v in ih3]}")
-    card_vs_cpu_3d()
+    card_vs_cpu_3d("3D MM-ADMM at SquareGrid nx=4 (3D stencil engine, K4)",
+                   lambda device: box3d("SquareGrid", 1, 4, device)[2])
+    launched_s = {}
+    for label, entry in stock.items():
+        cfg_s, integ_s = entry[:2]
+        t = time.perf_counter()
+        infos_s, ih_s, launched_s[label] = drive(f"stock {label}", cfg_s, integ_s,
+                                                 STOCK_CAPS[label])
+        wall = time.perf_counter() - t
+        iters_s = [i.n_iters for i in infos_s]
+        kernel = "prox2d" if integ_s.mesh.dim == 2 else "prox3d_chord_comp"
+        expect(label, launched_s[label], {kernel: sum(iters_s)})
+        say(f"stock {label}: {kernel} launches {launched_s[label][kernel]} = ADMM iterations "
+            f"{sum(iters_s)} over {len(infos_s)} steps (per step {iters_s}), "
+            f"{1e3 * wall / len(infos_s):.1f} ms per step; Ih trace "
+            f"{[round(float(v), 9) for v in ih_s]}")
+        if label in JAX_STEP0_IH:
+            ref, ih0 = JAX_STEP0_IH[label], float(ih_s[0])
+            if not math.isclose(ih0, ref, rel_tol=1e-6):
+                raise AssertionError(f"{label}: step-0 Ih {ih0!r} vs the JAX package's "
+                                     f"{ref!r}, outside rtol 1e-6")
+            say(f"stock {label}: step-0 Ih {ih0!r} within rtol 1e-6 of the JAX package's "
+                f"{ref!r} (rel {abs(ih0 / ref - 1):.2e})")
+    card_vs_cpu_3d("3D MM-ADMM at CompSquare nx=4 (stock engine, K4')",
+                   lambda device: comp_square(4, device)[2])
 
     # ---- timing --------------------------------------------------------------
     z, dxpu, free, cells = inputs
@@ -474,7 +625,7 @@ def main() -> int:
 
     n = z.shape[1]
     row("prox2d", "mmadmm_tpu_torch/csrc/prox2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:573",
-        launched["prox2d"], k1_err,
+        launched["prox2d"] + launched_s["Monitor3320r"]["prox2d"], k1_err,
         time_kernel(lambda: P.prox2d(z, dxpu, free, cells, *args)),
         time_plain(lambda: P.prox2d_plain(z, dxpu, free, cells, *args)),
         bound(lambda: P.prox2d_plain(z, dxpu, free, cells, *args, stats=stats),
@@ -508,8 +659,41 @@ def main() -> int:
               z3.shape[1] * (12 + 12 + 12 + 216 + 12 + 1)))
     say(f"K4 step-0 work at 3D Shoulder-40: {stats3['element_sweeps']} element-sweeps in "
         f"{stats3['sweeps']} sweeps")
+    # K1 on Monitor3320r's step-0 inputs, through the stock engine's entry
+    m_integ, m_err, m_in = stock["Monitor3320r"][1:]
+    m_args = (m_integ.mesh.ehat_np.reshape(-1), m_integ.w, m_integ.prox_tol,
+              m_integ.prox_max_iters)
+    stats_m = {}
+    m_ms = time_kernel(lambda: P.prox2d(*m_in, *m_args))
+    m_plain = time_plain(lambda: P.prox2d_plain(*m_in, *m_args))
+    m_bound = bound(lambda: P.prox2d_plain(*m_in, *m_args, stats=stats_m),
+                    m_in[0].shape[1] * (6 + 6 + 6 + 48 + 6 + 1))
+    say(f"K1 at Monitor3320r step 0 ({m_in[0].shape[1]} triangles): {m_ms:.4f} ms (median of "
+        f"20); plain {m_plain:.1f} ms; bound {m_bound[0]:.4f} ms by {m_bound[1]} "
+        f"({m_bound[2]:.4e} operations, {m_bound[3]} bytes); {stats_m['element_sweeps']} "
+        f"element-sweeps in {stats_m['sweeps']} sweeps")
+    # K4' at CompSquare-40 step 0, then its row on CompSquare-20's step-0 inputs
+    c40 = stock_inputs(stock["3D CompSquare-40"][1])
+    i40 = stock["3D CompSquare-40"][1]
+    a40 = (i40.w, i40.prox_tol, i40.prox_max_iters)
+    say(f"K4' at 3D CompSquare-40 step 0 ({c40[0].shape[1]} tets): "
+        f"{time_kernel(lambda: P3.prox3d_chord_comp(*c40, *a40)):.4f} ms (median of 20); "
+        f"plain {time_plain(lambda: P3.prox3d_chord_comp_plain(*c40, *a40)):.1f} ms")
+    del c40
+    i20, err20, c20 = stock["3D CompSquare-20"][1:]
+    a20 = (i20.w, i20.prox_tol, i20.prox_max_iters)
+    stats4 = {}
+    row("prox3d_chord_comp", "mmadmm_tpu_torch/csrc/prox3d.cu",
+        "mmadmm_tpu/ops/prox_pallas3d.py:418",
+        sum(launched_s[k]["prox3d_chord_comp"] for k in ("3D CompSquare-20", "3D CompSquare-40")),
+        err20, time_kernel(lambda: P3.prox3d_chord_comp(*c20, *a20)),
+        time_plain(lambda: P3.prox3d_chord_comp_plain(*c20, *a20)),
+        bound(lambda: P3.prox3d_chord_comp_plain(*c20, *a20, stats=stats4),
+              c20[0].shape[1] * (12 + 12 + 12 + 216 + 9 + 12 + 1)))
+    say(f"K4' step-0 work at 3D CompSquare-20: {stats4['element_sweeps']} element-sweeps in "
+        f"{stats4['sweeps']} sweeps")
     say(f"launches by path: MM-ADMM {launched}, Euler {launched_e}, backward Euler {launched_b}, "
-        f"3D MM-ADMM {launched3}")
+        f"3D MM-ADMM {launched3}, stock engine {launched_s}")
     print(json.dumps({"kernels": rows}), flush=True)
     say(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {

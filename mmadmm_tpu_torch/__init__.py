@@ -4,8 +4,8 @@ mesh adaptation).
 The JAX package ``mmadmm_tpu`` is the reference; this package imports
 neither JAX nor anything of it. Its entry points run on the CUDA card
 unless the caller passes ``device="cpu"``. It runs on the 2D and 3D
-stencil engines, through ``problems.build_problem`` and
-``integrators.run_loop.run``:
+stencil engines and the stock element-major engine, through
+``problems.build_problem`` and ``integrators.run_loop.run``:
 
 * MM-ADMM (method 0): ``integrators.admm_grid2d.GridADMM2D`` ->
   ``ops.prox2d.prox2d`` (kernel K1, ``csrc/prox2d.cu``);
@@ -15,7 +15,11 @@ stencil engines, through ``problems.build_problem`` and
   BackwardEulerIntegrator`` -> K2 and ``ops.be2d.hess2d`` (kernel K3);
 * 3D MM-ADMM (method 0 on 3D SquareGrid and Shoulder box meshes):
   ``integrators.admm_soa.SoAADMM3D`` -> ``ops.prox3d.prox3d`` (kernel K4,
-  ``csrc/prox3d.cu``).
+  ``csrc/prox3d.cu``);
+* MM-ADMM on every other float32 mesh (FromFile, 2D off the stencil
+  gate, 3D computational meshes): ``integrators.admm.ADMMIntegrator`` ->
+  ``ops.prox2d.prox_elements`` (K1) or ``ops.prox3d.prox_elements``
+  (K4' on a computational mesh, ``csrc/prox3d.cu``; K4 otherwise).
 """
 
 from .config import ExperimentConfig, load_experiment_config

@@ -9,9 +9,12 @@ Reference quirks kept on purpose (see ``MovingMesh``):
   * ``Method`` in the JSON is clobbered by the CLI argument
     (``main.cpp:809``).
 
-The port has no prox-backend field: the prox follows the device of the
-mesh's tensors (the CUDA kernel on the card, the plain PyTorch version on
-the CPU).
+``prox_backend``: ``"auto"`` (the default) and ``"pallas"`` both take the
+kernel route, the prox kernels K1, K4 and K4' (on the card; their plain
+PyTorch versions on the CPU). This is what the JAX package's speed entry
+runs (``bench.py:182-193``); the JAX package's own ``"auto"`` takes its
+generic vmap prox unless ``MMADMM_PROX`` says otherwise. ``"vmap"``, the
+generic prox, is not ported (``problems.build_problem`` raises).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ class ExperimentConfig:
     base_dir: str = "."
     dtype: str = "float64"  # compute dtype; energy and residual sums are f64
     prox_newton_iters: int = 50  # reference BFGS cap (Mesh.cpp:968)
+    prox_backend: str = "auto"  # "auto" or "pallas": the kernels; "vmap": not ported
     step_tol: float = 1e-3  # ADMM primal/dual tol (main.cpp:184)
     n_devices: int = 1
 

@@ -4,8 +4,9 @@ There are no weights here: the state is the mesh. These functions take the
 JAX package's arrays, as NumPy, and load them into a port integrator built
 from the same config, so that both packages start from the same bits:
 ``GridADMM2D`` constants and state, the Euler and backward-Euler state
-(``EulerState`` / ``BackwardEulerState``), and ``SoAADMM3D`` constants
-and state. The tests use them; nothing here imports JAX.
+(``EulerState`` / ``BackwardEulerState``), ``SoAADMM3D`` constants and
+state, and the stock ``ADMMIntegrator``'s state. The tests use them;
+nothing here imports JAX.
 
 Array names follow the JAX package. 2D: the integrator's constants
 ``swap_k, alive_k [4, ny, nx]``, ``valid_t [T, 8, 128]``,
@@ -17,7 +18,10 @@ same memory order). 3D (``SoAADMM3D``'s ``_consts``): ``swap_t, alive_t
 [NP]``, the grid's ``cell_table``, ``axes`` and ``sym6``, the mesh's
 ``ehat``, and the state's ``x, x_prev [3, NP]`` and ``u [C, 12, S]``.
 The JAX engine pads the ``NFd`` dense slots to ``NFp = C S`` with clones
-of the first slots, masked out by ``valid``; the port drops them.
+of the first slots, masked out by ``valid``; the port drops them. Stock
+(``ADMMState``): ``x, x_prev [NP, D]``, ``u_bar [NF, D+1, D]`` and the
+step counters; its chord Jacobian ``J`` and ``j_fresh`` are dead under the
+kernel backend and have no counterpart.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import math
 import numpy as np
 import torch
 
+from .integrators.admm import ADMMIntegrator, ADMMState
 from .integrators.admm_grid2d import Grid2DState, GridADMM2D
 from .integrators.admm_soa import SoA3DState, SoAADMM3D
 from .integrators.euler import EulerState
@@ -116,6 +121,23 @@ def load_soa3d_state(integ: SoAADMM3D, arrays: dict) -> SoA3DState:
         x=_t(arrays["x"], like),
         x_prev=_t(arrays["x_prev"], like),
         u=_t(_slots(arrays["u"], integ.NFd), like, (12, integ.NFd)),
+        steps=int(arrays.get("steps", 0)),
+        ih_last=float(arrays.get("ih_last", math.inf)),
+        rose=bool(arrays.get("rose", False)),
+        rises=int(arrays.get("rises", 0)),
+    )
+
+
+def load_admm_state(integ: ADMMIntegrator, arrays: dict) -> ADMMState:
+    """A port state for the stock engine from the JAX ``ADMMState``'s
+    ``x, x_prev [NP, D], u_bar [NF, D+1, D]`` and, optionally, ``steps,
+    ih_last, rose, rises``."""
+    like = integ.mesh.X0
+    D = integ.mesh.dim
+    return ADMMState(
+        x=_t(arrays["x"], like),
+        x_prev=_t(arrays["x_prev"], like),
+        u=_t(arrays["u_bar"], like, (integ.mesh.n_elements, D + 1, D)),
         steps=int(arrays.get("steps", 0)),
         ih_last=float(arrays.get("ih_last", math.inf)),
         rose=bool(arrays.get("rose", False)),

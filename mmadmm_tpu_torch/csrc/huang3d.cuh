@@ -1,7 +1,8 @@
-// The 3D Huang functional on one tetrahedron, for kernel K4 (prox3d.cu), on
-// values or dual numbers (dual.cuh): the trilinear monitor sample from a
-// vertex's 54 cell channels, the terms shared by energy and gradient, the
-// energy and the analytic gradient.
+// The 3D Huang functional on one tetrahedron, for kernels K4 and K4'
+// (prox3d.cu), on values or dual numbers (dual.cuh): the trilinear monitor
+// sample from a vertex's 54 cell channels, the terms shared by energy and
+// gradient, the energy and the analytic gradient. Ehat (row-major 3x3) is an
+// argument: K4 passes the constant reference one, K4' each element's own.
 //
 // Port of the component math of mmadmm_tpu/ops/prox_pallas3d.py
 // (_sample_m3, _common_c3, energy_c3, grad_c3). ops/prox3d.py repeats these
@@ -14,10 +15,14 @@
 
 namespace {
 
-// Ehat and the f32 constants, rounded on the host exactly as ops/prox3d.py
-// rounds them (the order in which mm_prox3d receives them)
+// K4's constant Ehat, row-major
+struct Ehat3 {
+  float h[9];
+};
+
+// The f32 constants, rounded on the host exactly as ops/prox3d.py rounds
+// them (ops/prox3d.py::_consts3, in this order)
 struct Consts3 {
-  float h[9];  // Ehat, row-major
   float w2, half_w2, inv_w2, tol;
   float k_third, k_g2, k_dgddet, k_sm2a, k_sm2b;
 };
@@ -101,8 +106,8 @@ struct Common3 {
 };
 
 template <typename T>
-__device__ __forceinline__ void common3(const T* z, const Cells& cells, const Consts3& k,
-                                        Common3<T>& t) {
+__device__ __forceinline__ void common3(const T* z, const Cells& cells, const float* h,
+                                        const Consts3& k, Common3<T>& t) {
 #pragma unroll
   for (int v = 0; v < 4; ++v) sample_m3(cells, v, z[3 * v], z[3 * v + 1], z[3 * v + 2], t.m[v]);
   T ms[6];
@@ -120,7 +125,7 @@ __device__ __forceinline__ void common3(const T* z, const Cells& cells, const Co
     for (int j = 0; j < 3; ++j) E[d * 3 + j] = z[3 * (j + 1) + d] - z[d];
   T edet = det33(E);
   inv33(E, edet, t.ei);
-  mm33(k.h, t.ei, t.fj);
+  mm33(h, t.ei, t.fj);
   T det_fj = det33(t.fj);
 
 #pragma unroll
@@ -159,25 +164,26 @@ __device__ __forceinline__ T reg3(const T* z, const float* dxpu) {
 }
 
 __device__ __forceinline__ float energy3_unreg(const float* z, const Cells& cells,
-                                               const Consts3& k) {
+                                               const float* h, const Consts3& k) {
   Common3<float> t;
-  common3(z, cells, k, t);
+  common3(z, cells, h, k, t);
   return t.abs_k * t.G;
 }
 
 // the regularized energy at z
-__device__ __forceinline__ float energy3(const float* z, const Cells& cells, const float* dxpu,
-                                         const Consts3& k) {
-  return energy3_unreg(z, cells, k) + k.half_w2 * reg3(z, dxpu);
+__device__ __forceinline__ float energy3(const float* z, const Cells& cells, const float* h,
+                                         const float* dxpu, const Consts3& k) {
+  return energy3_unreg(z, cells, h, k) + k.half_w2 * reg3(z, dxpu);
 }
 
 // masked regularized gradient into g, the unregularized energy into ih;
 // returns the regularized energy
 template <typename T>
-__device__ __forceinline__ T grad3(const T* z, const Cells& cells, const float* dxpu,
-                                   const float* fr, const Consts3& k, T* g, T& ih) {
+__device__ __forceinline__ T grad3(const T* z, const Cells& cells, const float* h,
+                                   const float* dxpu, const float* fr, const Consts3& k, T* g,
+                                   T& ih) {
   Common3<T> t;
-  common3(z, cells, k, t);
+  common3(z, cells, h, k, t);
   T s_j = 1.5f * t.det_m * q125(t.tr);
   T dj[9];
 #pragma unroll

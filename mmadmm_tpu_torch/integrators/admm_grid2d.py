@@ -13,11 +13,7 @@ sums and the residuals).
 Reorientation swaps (v1 <-> v2 on negative-det triangles) come from the
 mesh's actual F, so the prox inputs equal those of the compact path.
 
-Each step is the reference's MM-ADMM step (``MeshIntegrator.cpp``): an
-energy-guarded predictor, then at most ``admm_iters`` iterations of
-prox z-update (kernel K1), dual update and the diagonal x-update, with the
-primal and dual residual stop. Control flow runs on the host: one
-synchronisation per ADMM iteration reads both residuals.
+Each step is ``admm_base.ADMMBase``'s MM-ADMM step, its prox kernel K1.
 """
 
 from __future__ import annotations
@@ -32,8 +28,8 @@ from ..geometry.topology import node_degrees
 from ..mesh import MovingMesh
 from ..ops.monitor_grid import cell_rows48
 from ..ops.prox2d import prox2d
-from ..ops.reductions import sum_f64, sumsq_f64
 from ..ops.stencil2d import make_stencil_ops, match_dense
+from .admm_base import ADMMBase
 
 
 class Grid2DState(NamedTuple):
@@ -46,70 +42,7 @@ class Grid2DState(NamedTuple):
     rises: int
 
 
-class StepInfo(NamedTuple):
-    ih: float  # energy at the first prox call of the step (f64 sum)
-    primal: float
-    dual: float
-    n_iters: int  # ADMM iterations, one K1 launch each
-
-
-class StencilADMM:
-    """The MM-ADMM step of the stencil engines (``GridADMM2D`` here,
-    ``admm_soa.SoAADMM3D`` in 3D), on the engine's ``gather``, ``scatter``,
-    ``x_update``, ``prox`` and ``euler_grad`` and its ``tau``, ``dt``,
-    ``tol``, ``admm_iters``, ``grad_use`` and per-slot ``valid``."""
-
-    def predict(self, state):
-        """The energy-guarded predictor ``x_bar``: explicit Euler in the
-        first three steps, after two rises in a row it holds x, after one
-        rise Euler, else linear extrapolation (``admm_grid2d.py:250-269``,
-        ``admm_soa.py:743-759``)."""
-        x = state.x
-        if self.grad_use or state.steps <= 2 or (state.rose and state.rises < 2):
-            return x - (self.dt / self.tau) * self.euler_grad(x)
-        if state.rose:
-            return x
-        return 2.0 * x - state.x_prev
-
-    def start(self, state):
-        """Predictor and the first x-update: ``(x_bar, x, z, u)``."""
-        x_bar = self.predict(state)
-        z = self.gather(state.x if state.steps == 0 else x_bar)
-        u = torch.zeros_like(state.u) if state.steps == 0 else state.u
-        return x_bar, self.x_update(x_bar, z, u), z, u
-
-    def step(self, state):
-        """One MM-ADMM step: ``(state, StepInfo)``."""
-        x_bar, x, z, u = self.start(state)
-        gx = self.gather(x)
-        valid = self.valid
-        ih_start = None
-        primal = dual = 0.0
-        n = 0
-        for i in range(self.admm_iters):
-            dxpu = gx + u
-            z_prev = z
-            z, ih0 = self.prox(z, dxpu)
-            if i == 0:
-                ih_start = sum_f64(torch.where(valid > 0, ih0, 0.0))
-            u = dxpu - z
-            x = self.x_update(x_bar, z, u)
-            gx = self.gather(x)
-            res = torch.stack([sumsq_f64((gx - z) * valid), sumsq_f64((z - z_prev) * valid)])
-            primal, dual = torch.sqrt(res).tolist()
-            n = i + 1
-            if primal < self.tol and dual < self.tol:
-                break
-        ih = float(ih_start) if ih_start is not None else 0.0
-        rose = ih > state.ih_last
-        new_state = state._replace(
-            x=x, x_prev=state.x, u=u, steps=state.steps + 1, ih_last=ih,
-            rose=rose, rises=state.rises + 1 if rose else 0,
-        )
-        return new_state, StepInfo(ih=ih, primal=primal, dual=dual, n_iters=n)
-
-
-class GridADMM2D(StencilADMM):
+class GridADMM2D(ADMMBase):
     """Single-device MM-ADMM integrator on the stencil engine."""
 
     def __init__(

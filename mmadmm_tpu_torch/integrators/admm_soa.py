@@ -35,7 +35,7 @@ from ..ops import huang
 from ..ops.monitor_grid import cell_rows216, gather_cell
 from ..ops.prox3d import prox3d
 from ..ops.stencil3d import make_stencil_ops_3d, match_dense_3d
-from .admm_grid2d import StencilADMM
+from .admm_base import ADMMBase
 
 
 class SoA3DState(NamedTuple):
@@ -48,9 +48,9 @@ class SoA3DState(NamedTuple):
     rises: int
 
 
-class SoAADMM3D(StencilADMM):
+class SoAADMM3D(ADMMBase):
     """Single-device MM-ADMM integrator on the 3D stencil engine; the step
-    is ``StencilADMM``'s."""
+    is ``ADMMBase``'s."""
 
     def __init__(
         self,

@@ -180,6 +180,16 @@ def cell_rows48(grid: MonitorGrid, z_ch: torch.Tensor) -> torch.Tensor:
     return torch.cat(rows).contiguous()
 
 
+def element_cell_rows(grid: MonitorGrid, z: torch.Tensor) -> torch.Tensor:
+    """The prox kernels' cell channels for element-major vertex positions
+    ``z [NF, D+1, D]``: ``cell_rows48``'s ``[48, NF]`` in 2D,
+    ``cell_rows216``'s ``[216, NF]`` in 3D, vertex-major (the JAX
+    element-major entries, ``prox_pallas2d.py:705-709`` and
+    ``prox_pallas3d.py:441-462``)."""
+    z_ch = z.reshape(z.shape[0], -1).T
+    return (cell_rows48 if grid.dim == 2 else cell_rows216)(grid, z_ch)
+
+
 def _cells_3d(grid: MonitorGrid, pts: torch.Tensor):
     """``(vals48 [..., 48] or None for a constant grid, bounds [..., 6])``
     of the 3D cells holding ``pts [..., 3]``: the corner entries from the

@@ -1,11 +1,14 @@
-"""The prox's damped-Newton sweep on channel lists, shared by the plain
-versions of kernels K1 (``ops/prox2d.py``) and K4 (``ops/prox3d.py``).
+"""The prox's damped-Newton and chord sweeps on channel lists, shared by
+the plain versions of kernels K1 (``ops/prox2d.py``), K4 and K4'
+(``ops/prox3d.py``).
 
 Port of the dimension-generic parts of
 ``mmadmm_tpu/ops/prox_pallas2d.py``: ``make_newton_sweeps`` (one sweep:
 gradient, Hessian, ``ldlt_c``, the ``-g/w^2`` fallback, 5 backtracking
-trials, the retire rules) and the forward-mode rules the Pallas kernels
-get from ``jax.jvp``. An element's state is a list of ``n`` channel
+trials, the retire rules), ``make_chord_sweeps`` (the Hessian cached
+across sweeps, one trial at the cached step, a refresh only where it is
+rejected) and the forward-mode rules the Pallas kernels get from
+``jax.jvp``. An element's state is a list of ``n`` channel
 tensors ``[N]`` (``n = 6`` in 2D, 12 in 3D).
 
 Every operation is written so that the CUDA kernels (``csrc/*.cu``,
@@ -159,6 +162,46 @@ def rmax(xs):
     return functools.reduce(torch.maximum, xs)
 
 
+def _solve(H, g, inv_w2):
+    """The step ``-H^{-1} g``, or ``-g/w^2`` where it is not finite."""
+    n = len(g)
+    p = ldlt_c(H, [-g[i] for i in range(n)])
+    finite = functools.reduce(torch.logical_and, [torch.isfinite(pi) for pi in p])
+    return [torch.where(finite, p[i], -g[i] * inv_w2) for i in range(n)]
+
+
+def _trial_ok(energy_fn, edet_fn, zt, e0, det_floor):
+    e_a = energy_fn(zt)
+    return torch.isfinite(e_a) & (e_a <= e0) & (edet_fn(zt) > det_floor)
+
+
+def _backtrack(zc, p, energy_fn, edet_fn, e0, det_floor):
+    """The largest of ``ALPHAS_BT`` whose trial is accepted, 0 if none."""
+    alpha = torch.zeros_like(zc[0])
+    for a in ALPHAS_BT:
+        ok = _trial_ok(energy_fn, edet_fn, [zc[i] + a * p[i] for i in range(len(zc))],
+                       e0, det_floor)
+        alpha = torch.where(ok, a, alpha)
+    return alpha
+
+
+def _retire(not_first, gnorm, step_inf, zc, tol):
+    """``(active_now, stalled)``: an element retires on ``gnorm < tol``
+    from the second sweep on, before it moves, or after a stalled move."""
+    zmax = rmax([torch.abs(zi) for zi in zc])
+    stalled = step_inf <= EPS_STALL * (1.0 + zmax)
+    if not_first:
+        return ~(gnorm < tol), stalled
+    return torch.ones_like(stalled), stalled
+
+
+def _gnorm(g):
+    gnorm = torch.abs(g[0])
+    for i in range(1, len(g)):
+        gnorm = gnorm + torch.abs(g[i])
+    return gnorm
+
+
 def newton_sweep(not_first, zc, grad_fn, hess_fn, energy_fn, edet_fn, inv_w2, tol):
     """One sweep over elements that are all active (``make_newton_sweeps``'s
     ``one_iter``). ``grad_fn(z) -> (grads, ih, e_reg)``, ``hess_fn(z) ->
@@ -166,39 +209,81 @@ def newton_sweep(not_first, zc, grad_fn, hess_fn, energy_fn, edet_fn, inv_w2, to
     still_active)``."""
     n = len(zc)
     g, _, e0 = grad_fn(zc)
-    gnorm = torch.abs(g[0])
-    for i in range(1, n):
-        gnorm = gnorm + torch.abs(g[i])
-    p = ldlt_c(hess_fn(zc), [-g[i] for i in range(n)])
-    finite = functools.reduce(torch.logical_and, [torch.isfinite(pi) for pi in p])
-    p = [torch.where(finite, p[i], -g[i] * inv_w2) for i in range(n)]
-
-    det0 = edet_fn(zc)
-    det_floor = torch.clamp_max(det0, 0.0)
-    alpha = torch.zeros_like(zc[0])
-    for a in ALPHAS_BT:
-        zt = [zc[i] + a * p[i] for i in range(n)]
-        e_a = energy_fn(zt)
-        ok = torch.isfinite(e_a) & (e_a <= e0) & (edet_fn(zt) > det_floor)
-        alpha = torch.where(ok, a, alpha)
+    gnorm = _gnorm(g)
+    p = _solve(hess_fn(zc), g, inv_w2)
+    det_floor = torch.clamp_max(edet_fn(zc), 0.0)
+    alpha = _backtrack(zc, p, energy_fn, edet_fn, e0, det_floor)
     step_inf = alpha * rmax([torch.abs(pi) for pi in p])
-    zmax = rmax([torch.abs(zi) for zi in zc])
-    stalled = step_inf <= EPS_STALL * (1.0 + zmax)
-    if not_first:
-        active_now = ~(gnorm < tol)
-    else:
-        active_now = torch.ones_like(stalled)
+    active_now, stalled = _retire(not_first, gnorm, step_inf, zc, tol)
     z_new = [torch.where(active_now, zc[i] + alpha * p[i], zc[i]) for i in range(n)]
     return z_new, active_now & ~stalled
 
 
-def run_sweeps(z, max_iters, sweep, stats=None):
+def tri_index(n):
+    """``(i, j)`` of the lower triangle of an n x n matrix, row by row:
+    the order of the cached Hessian's entries (``prox_pallas3d.py:298``)."""
+    return [(i, j) for i in range(n) for j in range(i + 1)]
+
+
+def chord_sweep(not_first, zc, Hc, fns, edet_fn, inv_w2, tol):
+    """One chord sweep over elements that are all active
+    (``make_chord_sweeps``'s ``one_iter``). ``Hc [n(n+1)/2, N]`` is the
+    cached lower triangle of each element's Hessian (``tri_index`` order);
+    ``fns(rows) -> (grad_fn, hess_fn, energy_fn)`` gives the element
+    functions on the columns ``rows`` of ``zc`` (``slice(None)`` for all).
+
+    The step is the cached Hessian's, with one trial at alpha 1. Where the
+    trial is rejected, the element refreshes: its Hessian at ``zc``
+    replaces the cached one, and the step is the new solve's, backtracked
+    over ``ALPHAS_BT``. Only those elements compute a Hessian (the JAX
+    kernel computes it for every lane of a tile with any such element, and
+    keeps the cached one where the trial passed, ``h_write(H2, ok1)``:
+    the same results). An element that retires on its gradient norm does
+    not move and is never swept again, so it needs no refresh.
+    Returns ``(z_new, still_active, Hc_new)``."""
+    n = len(zc)
+    tri = tri_index(n)
+    grad_fn, _, energy_fn = fns(slice(None))
+    g, _, e0 = grad_fn(zc)
+    gnorm = _gnorm(g)
+    det_floor = torch.clamp_max(edet_fn(zc), 0.0)
+
+    def square(h):
+        H = [[None] * n for _ in range(n)]
+        for t, (i, j) in enumerate(tri):
+            H[i][j] = h[t]
+        return H
+
+    p = _solve(square(Hc), g, inv_w2)
+    ok1 = _trial_ok(energy_fn, edet_fn, [zc[i] + p[i] for i in range(n)], e0, det_floor)
+    step = torch.stack([torch.where(ok1, p[i], 0.0) for i in range(n)])
+    if not_first:
+        ok1 = ok1 | (gnorm < tol)
+    rows = torch.nonzero(~ok1).squeeze(1)
+    Hc = Hc.clone()
+    if rows.numel():
+        _, hess_fn, energy_r = fns(rows)
+        zr = [zi[rows] for zi in zc]
+        H2 = hess_fn(zr)
+        p2 = _solve(H2, [gi[rows] for gi in g], inv_w2)
+        alpha = _backtrack(zr, p2, energy_r, edet_fn, e0[rows], det_floor[rows])
+        step[:, rows] = torch.stack([alpha * pi for pi in p2])
+        Hc[:, rows] = torch.stack([H2[i][j] for i, j in tri])
+    step_inf = rmax([torch.abs(s) for s in step])
+    active_now, stalled = _retire(not_first, gnorm, step_inf, zc, tol)
+    z_new = [torch.where(active_now, zc[i] + step[i], zc[i]) for i in range(n)]
+    return z_new, active_now & ~stalled, Hc
+
+
+def run_sweeps(z, max_iters, sweep, stats=None, carry=None):
     """Up to ``max_iters`` sweeps of the columns of ``z [n, N]`` that are
     still active; an element's result does not depend on any other
     element, so only those are swept. ``sweep(not_first, sub, zc)`` sweeps
-    the columns ``sub`` at ``zc`` and returns ``(z_new, keep)``. Returns
-    the final ``z``; ``stats``, if given, receives ``sweeps`` and
-    ``element_sweeps``."""
+    the columns ``sub`` at ``zc`` and returns ``(z_new, keep)``; with a
+    per-element ``carry [m, N]`` (the chord sweep's cached Hessian),
+    ``sweep(not_first, sub, zc, carry[:, sub])`` returns ``(z_new, keep,
+    carry_new)``. Returns the final ``z``; ``stats``, if given, receives
+    ``sweeps`` and ``element_sweeps``."""
     out = z.clone()
     idx = torch.arange(z.shape[1], device=z.device)
     sweeps = element_sweeps = 0
@@ -206,7 +291,10 @@ def run_sweeps(z, max_iters, sweep, stats=None):
         if idx.numel() == 0:
             break
         sub = idx if idx.numel() < z.shape[1] else slice(None)
-        z_new, keep = sweep(it > 0, sub, list(out[:, sub]))
+        if carry is None:
+            z_new, keep = sweep(it > 0, sub, list(out[:, sub]))
+        else:
+            z_new, keep, carry[:, sub] = sweep(it > 0, sub, list(out[:, sub]), carry[:, sub])
         out[:, sub] = torch.stack(z_new)
         sweeps += 1
         element_sweeps += idx.numel()

@@ -21,9 +21,10 @@ Layout: channel-major ``[C, N]`` float32 tensors (the JAX kernel's
 ``z, dxpu, free [6, N]`` (channel ``v*2 + d``), ``cells [48, N]`` (three
 16-wide cell-table rows, vertex-major).
 
-``prox2d`` is the entry point. On a CPU tensor it runs ``prox2d_plain``;
-on a CUDA tensor it launches the CUDA kernel ``csrc/prox2d.cu`` or
-raises. The plain version repeats the kernel's arithmetic operation by
+``prox2d`` is the entry point on channel tensors, ``prox_elements`` the
+element-major one of the stock engine. On a CPU tensor they run
+``prox2d_plain``; on a CUDA tensor they launch the CUDA kernel
+``csrc/prox2d.cu`` or raise. The plain version repeats the kernel's arithmetic operation by
 operation (the Hessian through the same forward-mode dual numbers), so the
 kernel built with ``--fmad=false`` can agree with it bit for bit.
 """
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..cuda_build import load_library
+from .monitor_grid import element_cell_rows
 from .newton import F32, DET_FLOOR, absolute, f32, hessian, ldlt_c, max_floor, newton_sweep, run_sweeps, sqrt
 from .newton import check as _check
 from .newton import consts as _consts
@@ -278,6 +280,21 @@ def prox2d(z, dxpu, free, cells, ehat, w, tol, max_iters):
 
 
 prox2d.launches = 0
+
+
+def prox_elements(grid, z, dxpu, free, ehat, w, tol, max_iters):
+    """K1's element-major entry, for the stock engine
+    (``prox_pallas2d.py:698-721``): ``z, dxpu, free [NF, 3, 2]`` to
+    channels, the 48-channel cell fetch at z, ``prox2d``, and back.
+    Returns ``(z' [NF, 3, 2], ih0 [NF])``."""
+    nf = z.shape[0]
+
+    def ch(a):
+        return a.reshape(nf, 6).T.contiguous()
+
+    zo, ih0 = prox2d(ch(z), ch(dxpu), ch(free), element_cell_rows(grid, z), ehat, w, tol,
+                     max_iters)
+    return zo.T.reshape(nf, 3, 2), ih0
 
 # mm_prox2d(z, dxpu, free, cells, zout, ih0, n, h00, h01, h10, h11, w2,
 #           half_w2, inv_w2, tol, max_iters, stream) in csrc/prox2d.cu

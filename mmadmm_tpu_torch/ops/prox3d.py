@@ -1,7 +1,8 @@
-"""The 3D ADMM prox z-update: kernel K4 and its plain PyTorch version.
+"""The 3D ADMM prox z-update: kernels K4 and K4' and their plain PyTorch
+versions.
 
-Port of ``mmadmm_tpu/ops/prox_pallas3d.py::make_prox_pallas3d`` with
-``chord=False, comp_mesh=False`` (the component-form Pallas kernel:
+K4 is the port of ``mmadmm_tpu/ops/prox_pallas3d.py::make_prox_pallas3d``
+with ``chord=False, comp_mesh=False`` (the component-form Pallas kernel:
 ``_sample_m3``, ``_common_c3``, ``energy_c3``, ``grad_c3``, ``hess_c3``
 and the shared ``make_newton_sweeps``). For every tetrahedron it runs up
 to ``max_iters`` damped-Newton sweeps on ``I_h(z) + 0.5 w^2 |dxpu - z|^2``,
@@ -17,11 +18,22 @@ vertex-major, its cell's 8 corners as ``(m00, m01, m02, m11, m12, m22)``
 and then ``x0, x1, y0, y1, z0, z1`` (``ops/monitor_grid.py::
 cell_rows216``).
 
-``prox3d`` is the entry point. On a CPU tensor it runs ``prox3d_plain``;
-on a CUDA tensor it launches the CUDA kernel ``csrc/prox3d.cu`` or
-raises. The plain version repeats the kernel's arithmetic operation by
-operation, so the kernel built with ``--fmad=false`` can agree with it
-bit for bit.
+K4' is the same call site with ``chord=True, comp_mesh=True``, the prox
+of every 3D computational-mesh run (``mesh.py:174-192`` in the JAX
+package): the per-element xi-mesh Ehat comes in as 9 more channels
+``ehat_e [9, N]`` (row-major, ``[d, j] = xi_{j+1, d} - xi_{0, d}``), and
+the sweeps are chord sweeps (``ops/newton.py::chord_sweep``, the JAX
+package's ``make_chord_sweeps``): one full Hessian per element at entry,
+cached; each sweep tries the cached Hessian's step at alpha 1 and only
+elements that reject it rebuild the Hessian and backtrack.
+
+``prox3d`` (K4) and ``prox3d_chord_comp`` (K4') are the entry points on
+channel tensors, ``prox_elements`` the element-major one of the stock
+engine. On a CPU tensor they run ``prox3d_plain`` or
+``prox3d_chord_comp_plain``; on a CUDA tensor they launch the CUDA kernel
+from ``csrc/prox3d.cu`` or raise. The plain versions repeat the kernels'
+arithmetic operation by operation, so the kernels built with
+``--fmad=false`` can agree with them bit for bit.
 """
 
 from __future__ import annotations
@@ -31,8 +43,9 @@ import ctypes
 import torch
 
 from ..cuda_build import load_library
-from .newton import (DET_FLOOR, Dual, absolute, check, consts, f32, hessian, max_floor,
-                     newton_sweep, run_sweeps, sqrt)
+from .monitor_grid import element_cell_rows
+from .newton import (DET_FLOOR, Dual, absolute, check, chord_sweep, consts, f32, hessian,
+                     max_floor, newton_sweep, run_sweeps, sqrt, tri_index)
 
 ROW_W3 = 54  # per vertex: 48 corner entries + x0, x1, y0, y1, z0, z1
 _SYM_W = (1.0, 2.0, 2.0, 1.0, 2.0, 1.0)  # contraction weights of the sym pairs
@@ -126,7 +139,7 @@ def _q125(t):
 def _common_c3(z, cells, ehat):
     """Terms shared by energy and gradient. ``z``: 12 channels
     (vertex-major); ``cells``: 4 lists of 54 channels; ``ehat``: 9 floats
-    (row-major 3x3)."""
+    (row-major 3x3), or 9 channels (one Ehat per element)."""
     m = [_sample_m3(cells[v], z[3 * v], z[3 * v + 1], z[3 * v + 2]) for v in range(4)]
     ms_full = _sym_to_full([m[0][e] + m[1][e] + m[2][e] + m[3][e] for e in range(6)])
     mi = [v * 0.25 for v in _inv33(ms_full, _det33(ms_full))]  # inv(m_sum) / (D+1)
@@ -274,7 +287,7 @@ def prox3d(z, dxpu, free, cells, ehat, w, tol, max_iters):
     lib = library()
     zout = torch.empty_like(z)
     ih0 = torch.empty(n, dtype=z.dtype, device=z.device)
-    k = (ctypes.c_float * 18)(*ehat, *consts(w), tol, K_THIRD, K_G2, K_DGDDET, K_SM2A, K_SM2B)
+    k = (ctypes.c_float * 18)(*ehat, *_consts3(w, tol))
     stream = torch.cuda.current_stream(z.device).cuda_stream
     rc = lib.mm_prox3d(
         z.data_ptr(), dxpu.data_ptr(), free.data_ptr(), cells.data_ptr(),
@@ -288,15 +301,120 @@ def prox3d(z, dxpu, free, cells, ehat, w, tol, max_iters):
 
 prox3d.launches = 0
 
+
+def _consts3(w, tol):
+    """The f32 constants of ``Consts3`` in ``csrc/huang3d.cuh``, in order."""
+    return (*consts(w), tol, K_THIRD, K_G2, K_DGDDET, K_SM2A, K_SM2B)
+
+
+def _cols(sub, rows):
+    """The columns ``rows`` of the columns ``sub`` (each an index tensor or
+    ``slice(None)``)."""
+    if isinstance(sub, slice):
+        return rows
+    return sub if isinstance(rows, slice) else sub[rows]
+
+
+def prox3d_chord_comp_plain(z, dxpu, free, cells, ehat_e, w, tol, max_iters, stats=None):
+    """Plain PyTorch K4' on ``[C, N]`` channel tensors: one Hessian per
+    element at the input z, then up to ``max_iters`` chord sweeps of the
+    elements still active, each computing a Hessian only where its cached
+    step is rejected. Returns ``(z_out [12, N], ih0 [N])``; ``stats``, if
+    given, receives ``sweeps`` and ``element_sweeps``."""
+    w2, half_w2, inv_w2 = consts(w)
+    tol = f32(tol)
+    ih0, _ = energy_c3(list(z), _rows(cells), list(ehat_e))
+
+    def fns(cols):
+        d, fr, c, eh = (list(dxpu[:, cols]), list(free[:, cols]), _rows(cells[:, cols]),
+                        list(ehat_e[:, cols]))
+        return (lambda zz: grad_c3(zz, c, eh, d, w2, half_w2, fr),
+                lambda zz: hess_c3(zz, c, eh, d, w2, half_w2, fr),
+                lambda zz: energy_c3(zz, c, eh, d, half_w2)[1])
+
+    H0 = fns(slice(None))[1](list(z))
+    hc = torch.stack([H0[i][j] for i, j in tri_index(12)])
+    del H0
+
+    def sweep(not_first, sub, zc, h):
+        return chord_sweep(not_first, zc, h, lambda rows: fns(_cols(sub, rows)), edet_c3,
+                           inv_w2, tol)
+
+    return run_sweeps(z, max_iters, sweep, stats, carry=hc), ih0
+
+
+def prox3d_chord_comp(z, dxpu, free, cells, ehat_e, w, tol, max_iters):
+    """K4': the 3D chord prox on a computational mesh, on ``[C, N]``
+    float32 channel tensors (``ehat_e [9, N]`` the per-element Ehat).
+
+    A CPU tensor goes to ``prox3d_chord_comp_plain``. A CUDA tensor
+    launches the kernel from ``csrc/prox3d.cu`` on the current stream
+    (built at first use) and counts the launch in
+    ``prox3d_chord_comp.launches``."""
+    n = z.shape[1]
+    for name, t, rows in (("z", z, 12), ("dxpu", dxpu, 12), ("free", free, 12),
+                          ("cells", cells, 4 * ROW_W3), ("ehat_e", ehat_e, 9)):
+        check(name, t, rows, n, z.device)
+    if z.device.type == "cpu":
+        return prox3d_chord_comp_plain(z, dxpu, free, cells, ehat_e, w, tol, max_iters)
+    if z.device.type != "cuda":
+        raise ValueError(f"prox3d_chord_comp runs on cpu or cuda, not {z.device}")
+    lib = library()
+    zout = torch.empty_like(z)
+    ih0 = torch.empty(n, dtype=z.dtype, device=z.device)
+    k = (ctypes.c_float * 9)(*_consts3(w, tol))
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    rc = lib.mm_prox3d_chord_comp(
+        z.data_ptr(), dxpu.data_ptr(), free.data_ptr(), cells.data_ptr(), ehat_e.data_ptr(),
+        zout.data_ptr(), ih0.data_ptr(), n, k, int(max_iters), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"prox3d_chord_comp kernel launch failed: CUDA error {rc}")
+    prox3d_chord_comp.launches += 1
+    return zout, ih0
+
+
+prox3d_chord_comp.launches = 0
+
+
+def prox_elements(grid, z, xi, dxpu, free, w, tol, max_iters, ehat=None):
+    """The element-major entry of the stock engine
+    (``prox_pallas3d.py:464-487``): ``z, dxpu, free [NF, 4, 3]`` to
+    channels, the cell fetch at z, the kernel, and back. On a
+    computational mesh ``xi [NF, 4, 3]`` gives each element's Ehat and the
+    kernel is K4'; else ``xi`` is None and K4 runs with the constant
+    ``ehat`` (9 floats). Returns ``(z' [NF, 4, 3], ih0 [NF])``."""
+    nf = z.shape[0]
+
+    def ch(a):
+        return a.reshape(nf, 12).T.contiguous()
+
+    args = (ch(z), ch(dxpu), ch(free), element_cell_rows(grid, z))
+    if xi is None:
+        zo, ih0 = prox3d(*args, ehat, w, tol, max_iters)
+    else:
+        eh = (xi[:, 1:] - xi[:, :1]).transpose(1, 2).reshape(nf, 9).T.contiguous()
+        zo, ih0 = prox3d_chord_comp(*args, eh, w, tol, max_iters)
+    return zo.T.reshape(nf, 4, 3), ih0
+
+
 # mm_prox3d(z, dxpu, free, cells, zout, ih0, n, consts[18], max_iters,
-#           stream) in csrc/prox3d.cu
-_SIGNATURES = {"mm_prox3d": (
-    [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float),
-                             ctypes.c_int, ctypes.c_void_p],
-    ctypes.c_int,
-)}
+#           stream) and mm_prox3d_chord_comp(z, dxpu, free, cells, ehat,
+#           zout, ih0, n, consts[9], max_iters, stream) in csrc/prox3d.cu
+_SIGNATURES = {
+    "mm_prox3d": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float),
+                                 ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "mm_prox3d_chord_comp": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float),
+                                 ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
 
 
 def library() -> ctypes.CDLL:
-    """K4's library, built from ``csrc/prox3d.cu`` at first use."""
+    """K4's and K4''s library, built from ``csrc/prox3d.cu`` at first use."""
     return load_library("prox3d", _SIGNATURES)

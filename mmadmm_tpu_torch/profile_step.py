@@ -1,21 +1,26 @@
 """Where a step spends its time on the card, for each path.
 
-    python3 -m mmadmm_tpu_torch.profile_step
+    python3 -m mmadmm_tpu_torch.profile_step [NAME ...]
 
 For MM-ADMM (method 0), explicit Euler (1) and backward Euler (2) at
 Shoulder-320, then 3D MM-ADMM at 3D Shoulder-40 (the identity monitor,
-768,000 tet slots), in turn: runs 5 steps, then traces 5 more with
+768,000 tet slots) on the 3D stencil engine and at 3D CompSquare-20 (a
+computational mesh, 96,000 tets) on the stock engine, in turn (or only
+the runs whose names contain one of the NAMEs): runs 5 steps, then traces
+5 more with
 ``torch.profiler`` (CPU and CUDA activities) and prints wall ms per step
 (host clock, ending in ``torch.cuda.synchronize()``), the device's busy
 share (the sum of kernel times over the wall time; kernels do not overlap
 on the one stream the port uses), the time of each of the port's kernels
-(K1 ``prox2d``, K2 ``eg2d``, K3 ``hess2d``, K4 ``prox3d``), the number of
+(K1 ``prox2d``, K2 ``eg2d``, K3 ``hess2d``, K4 ``prox3d``, K4'
+``prox3d_chord_comp``), the number of
 kernel launches per step, and the kernels with the most device time.
 Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 
 import torch
@@ -25,7 +30,7 @@ from . import ExperimentConfig, build_problem
 
 WARM = 5
 STEPS = 5
-KERNELS = ("prox2d", "eg2d", "hess2d", "prox3d")  # matched as "<name>_kernel"
+KERNELS = ("prox2d", "eg2d", "hess2d", "prox3d", "prox3d_chord_comp")  # "<name>_kernel"
 _2D = dict(test_type="Shoulder", dim=2, mon_type=1, nx=320, ny=320)
 RUNS = {
     "MM-ADMM": dict(_2D, method=0),
@@ -33,11 +38,15 @@ RUNS = {
     "backward Euler": dict(_2D, method=2),
     "3D MM-ADMM, 3D Shoulder-40": dict(test_type="Shoulder", dim=3, mon_type=0, method=0,
                                        nx=40, ny=40, nz=40),
+    "3D MM-ADMM stock, 3D CompSquare-20": dict(test_type="SquareGrid", dim=3, mon_type=5,
+                                               method=0, comp_mesh=True, nx=20, ny=20, nz=20,
+                                               rho=10.0),
 }
 
 
 def profile_run(name: str) -> None:
-    cfg = ExperimentConfig(**RUNS[name], dt=5e-3, tau=0.1, rho=50.0, dtype="float32")
+    cfg = ExperimentConfig(**dict(dict(dt=5e-3, tau=0.1, rho=50.0, dtype="float32"),
+                                  **RUNS[name]))
     _, integ = build_problem(cfg)
     state = integ.init_state()
     for _ in range(WARM):
@@ -73,7 +82,8 @@ def profile_run(name: str) -> None:
 
 def main() -> None:
     for name in RUNS:
-        profile_run(name)
+        if len(sys.argv) < 2 or any(a in name for a in sys.argv[1:]):
+            profile_run(name)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Run kernels K1 and K4 as host code, thread by thread, against their
-plain PyTorch versions: a rehearsal of their arithmetic where there is no
-card and no ``nvcc``.
+"""Run kernels K1, K4 and K4' as host code, thread by thread, against
+their plain PyTorch versions: a rehearsal of their arithmetic where there
+is no card and no ``nvcc``.
 
     python scripts/cuda_host_rehearsal.py
 
@@ -9,13 +9,15 @@ Compiles ``mmadmm_tpu_torch/csrc/prox2d.cu`` and ``prox3d.cu`` with
 against a stub ``cuda_runtime.h`` that defines ``__device__``, ``__ldg``,
 ``threadIdx`` and the like as host code, into a temporary directory, and
 calls each kernel once per element. Their outputs are compared bit for bit
-with ``prox2d_plain`` (Shoulder nx=16) and ``prox3d_plain`` (3D SquareGrid
-and Shoulder nx=4 and SquareGrid nx=6), on the step-0 prox inputs with
-their dual perturbed by a seeded normal. PyTorch's CPU ``sqrt`` need not
-be correctly rounded (the card's is, like the kernels'), so the script
-first prints the share of f32 square roots where it differs from the
-correctly rounded one, then runs the plain versions with a correctly
-rounded square root. Needs ``g++``; runs on the CPU.
+with ``prox2d_plain`` (Shoulder nx=16), ``prox3d_plain`` (3D SquareGrid
+and Shoulder nx=4 and SquareGrid nx=6) and ``prox3d_chord_comp_plain``
+(3D SquareGrid nx=4 and 6 on a computational mesh, mon_type 5, rho 10,
+through the stock engine's element-major blocks), on the step-0 prox
+inputs with their dual perturbed by a seeded normal. PyTorch's CPU
+``sqrt`` need not be correctly rounded (the card's is, like the
+kernels'), so the script first prints the share of f32 square roots where
+it differs from the correctly rounded one, then runs the plain versions
+with a correctly rounded square root. Needs ``g++``; runs on the CPU.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ sys.path.insert(0, os.getcwd())
 
 from mmadmm_tpu_torch import ExperimentConfig, build_problem  # noqa: E402
 from mmadmm_tpu_torch.cuda_build import CSRC  # noqa: E402
+from mmadmm_tpu_torch.ops.monitor_grid import element_cell_rows  # noqa: E402
 from mmadmm_tpu_torch.ops import newton as N  # noqa: E402
 from mmadmm_tpu_torch.ops import prox2d as P2  # noqa: E402
 from mmadmm_tpu_torch.ops import prox3d as P3  # noqa: E402
@@ -71,12 +74,27 @@ extern "C" int host_prox2d(const float* z, const float* dxpu, const float* fr, c
     "prox3d": """
 extern "C" int host_prox3d(const float* z, const float* dxpu, const float* fr, const float* cells,
                            float* zout, float* ih0, long long n, const float* c, int max_iters) {
+  Ehat3 eh;
+  Consts3 k;
+  std::memcpy(&eh, c, sizeof(eh));
+  std::memcpy(&k, c + 9, sizeof(k));
+  blockDim.x = kThreads;
+  for (long long e = 0; e < n; ++e) {
+    blockIdx.x = e / kThreads; threadIdx.x = e % kThreads;
+    prox3d_kernel(z, dxpu, fr, cells, zout, ih0, n, eh, k, max_iters);
+  }
+  return 0;
+}
+
+extern "C" int host_prox3d_chord_comp(const float* z, const float* dxpu, const float* fr,
+                                      const float* cells, const float* ehat, float* zout,
+                                      float* ih0, long long n, const float* c, int max_iters) {
   Consts3 k;
   std::memcpy(&k, c, sizeof(k));
   blockDim.x = kThreads;
   for (long long e = 0; e < n; ++e) {
     blockIdx.x = e / kThreads; threadIdx.x = e % kThreads;
-    prox3d_kernel(z, dxpu, fr, cells, zout, ih0, n, k, max_iters);
+    prox3d_chord_comp_kernel(z, dxpu, fr, cells, ehat, zout, ih0, n, k, max_iters);
   }
   return 0;
 }
@@ -102,8 +120,10 @@ def build(tmp: str) -> dict:
         subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fno-fast-math",
                         "-shared", "-fPIC", "-w", "-I", tmp, cpp, "-o", so], check=True)
         lib = ctypes.CDLL(so)
-        getattr(lib, f"host_{name}").argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float), ctypes.c_int])
+        tail = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+        getattr(lib, f"host_{name}").argtypes = [ctypes.c_void_p] * 6 + tail
+        if name == "prox3d":
+            lib.host_prox3d_chord_comp.argtypes = [ctypes.c_void_p] * 7 + tail
         libs[name] = lib
     return libs
 
@@ -128,30 +148,45 @@ def main() -> int:
         for kw in (dict(test_type="Shoulder", dim=2, mon_type=1, nx=16, ny=16),
                    dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4),
                    dict(test_type="Shoulder", dim=3, mon_type=0, nx=4, ny=4, nz=4),
-                   dict(test_type="SquareGrid", dim=3, mon_type=1, nx=6, ny=6, nz=6)):
-            _, integ = build_problem(ExperimentConfig(method=0, dt=5e-3, tau=0.1, rho=50.0,
-                                                      dtype="float32", **kw), device="cpu")
+                   dict(test_type="SquareGrid", dim=3, mon_type=1, nx=6, ny=6, nz=6),
+                   dict(test_type="SquareGrid", dim=3, mon_type=5, nx=4, ny=4, nz=4,
+                        comp_mesh=True, rho=10.0),
+                   dict(test_type="SquareGrid", dim=3, mon_type=5, nx=6, ny=6, nz=6,
+                        comp_mesh=True, rho=10.0)):
+            kw = dict(dict(method=0, dt=5e-3, tau=0.1, rho=50.0, dtype="float32"), **kw)
+            _, integ = build_problem(ExperimentConfig(**kw), device="cpu")
             _, x, z, u = integ.start(integ.init_state())
             noise = torch.tensor(rng.normal(scale=3e-3, size=tuple(u.shape)), dtype=torch.float32)
-            dxpu = (integ.gather(x) + u + noise).contiguous()
-            z, cells = z.contiguous(), integ.cells(z)
+            dxpu = integ.gather(x) + u + noise
             ehat = [float(v) for v in integ.mesh.ehat_np.reshape(-1)]
-            args = (z, dxpu, integ.free, cells)
-            if kw["dim"] == 2:
-                name, plain = "prox2d", P2.prox2d_plain
-                k = [*ehat, *N.consts(integ.w), N.f32(integ.prox_tol)]
+            consts = [*N.consts(integ.w), N.f32(integ.prox_tol)]
+            if kw.get("comp_mesh"):  # the stock engine: element-major blocks to channels
+                nf = z.shape[0]
+                name, entry, plain = "prox3d", "host_prox3d_chord_comp", P3.prox3d_chord_comp_plain
+                eh = integ.mesh.elem_ehat.reshape(nf, 9).T.contiguous()
+                args = tuple(a.reshape(nf, 12).T.contiguous() for a in (z, dxpu, integ.free))
+                args += (element_cell_rows(integ.mesh.grid, z), eh)
+                k = [*consts, P3.K_THIRD, P3.K_G2, P3.K_DGDDET, P3.K_SM2A, P3.K_SM2B]
+                pargs = ()
+            elif kw["dim"] == 2:
+                name, entry, plain = "prox2d", "host_prox2d", P2.prox2d_plain
+                args = (z.contiguous(), dxpu.contiguous(), integ.free, integ.cells(z))
+                k = [*ehat, *consts]
+                pargs = (ehat,)
             else:
-                name, plain = "prox3d", P3.prox3d_plain
-                k = [*ehat, *N.consts(integ.w), N.f32(integ.prox_tol), P3.K_THIRD, P3.K_G2,
-                     P3.K_DGDDET, P3.K_SM2A, P3.K_SM2B]
-            n = z.shape[1]
-            zo, ih = torch.empty_like(z), torch.empty(n)
-            getattr(libs[name], f"host_{name}")(
+                name, entry, plain = "prox3d", "host_prox3d", P3.prox3d_plain
+                args = (z.contiguous(), dxpu.contiguous(), integ.free, integ.cells(z))
+                k = [*ehat, *consts, P3.K_THIRD, P3.K_G2, P3.K_DGDDET, P3.K_SM2A, P3.K_SM2B]
+                pargs = (ehat,)
+            n = args[0].shape[1]
+            zo, ih = torch.empty_like(args[0]), torch.empty(n)
+            getattr(libs[name], entry)(
                 *[t.data_ptr() for t in (*args, zo, ih)], n, (ctypes.c_float * len(k))(*k),
                 integ.prox_max_iters)
-            zp, ihp = plain(*args, ehat, integ.w, integ.prox_tol, integ.prox_max_iters)
+            zp, ihp = plain(*args, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
             same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
-            print(f"{name} at {kw['test_type']} {kw['dim']}D nx={kw['nx']}, {n} slots: host kernel "
+            label = entry[5:] + (" (computational mesh)" if kw.get("comp_mesh") else "")
+            print(f"{label} at {kw['test_type']} {kw['dim']}D nx={kw['nx']}, {n} slots: host kernel "
                   f"bit-equal to the plain version on {100 * same:.2f} % of elements", flush=True)
     return 0
 

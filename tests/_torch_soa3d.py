@@ -45,6 +45,13 @@ def config(test_type: str, mon_type: int) -> dict:
                 dt=5e-3, tau=0.1, rho=50.0, dtype="float32")
 
 
+def release_jax_memory():
+    """Hand the memory of JAX's compiled programs back to the system."""
+    jax.clear_caches()
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
 @contextlib.contextmanager
 def jax_compile_lock():
     """One interpreted JAX 3D kernel compile at a time across the test
@@ -55,9 +62,7 @@ def jax_compile_lock():
         try:
             yield
         finally:
-            jax.clear_caches()
-            gc.collect()
-            ctypes.CDLL("libc.so.6").malloc_trim(0)
+            release_jax_memory()
             fcntl.flock(f, fcntl.LOCK_UN)
 
 

@@ -13,7 +13,9 @@ the Hessian channels within rtol 1e-4 and atol 1e-6 of the slot's
 largest entry. For K4 (``csrc/prox3d.cu`` vs ``ops/prox3d.py::
 prox3d_plain``), those of tests/test_prox_pallas3d.py:88-108: ih0 within
 rtol 2e-5, the regularized energies after the solve within rtol 1e-4 and
-atol 1e-6."""
+atol 1e-6; the same for K4' (``csrc/prox3d.cu`` vs ``ops/prox3d.py::
+prox3d_chord_comp_plain``, tests/test_torch_prox3d_chord.py), on the
+stock engine's inputs."""
 
 import pytest
 import torch
@@ -231,3 +233,114 @@ def test_cuda_tensors_never_take_the_plain_k4():
         P3.prox3d(z, dxpu, free, cells[:200].contiguous(), *args)
     with pytest.raises(ValueError):
         P3.prox3d(z, dxpu.cpu(), free, cells, *args)
+
+
+def _stock(dim=3, nx=4):
+    """The stock engine: 3D CompSquare (a computational mesh, K4') or 2D
+    SquareGrid nx=8 (off the stencil gate, K1 behind its element-major
+    entry)."""
+    if dim == 3:
+        cfg = ExperimentConfig(test_type="SquareGrid", dim=3, mon_type=5, method=0,
+                               comp_mesh=True, nx=nx, ny=nx, nz=nx, rho=10.0, dtype="float32")
+    else:
+        cfg = ExperimentConfig(test_type="SquareGrid", dim=2, mon_type=5, method=0, nx=8, ny=8,
+                               dt=0.05, rho=5.0, admm_iter=100, dtype="float32")
+    return build_problem(cfg)
+
+
+def _stock_inputs(integ):
+    """The stock engine's first prox call of step 0 as channel tensors, and
+    the element-major blocks it came from."""
+    from mmadmm_tpu_torch.ops.monitor_grid import element_cell_rows
+
+    _, x, z, u = integ.start(integ.init_state())
+    dxpu = integ.gather(x) + u
+    nf = z.shape[0]
+
+    def ch(a):
+        return a.reshape(nf, -1).T.contiguous()
+
+    chans = (ch(z), ch(dxpu), ch(integ.free), element_cell_rows(integ.mesh.grid, z))
+    if integ.mesh.comp_mesh:
+        chans += (ch(integ.mesh.elem_ehat),)
+    return chans, (z, dxpu)
+
+
+def _check_pair4c(inputs, args, zk, ihk):
+    """K4' against its plain version, the bands of
+    tests/test_torch_prox3d_chord.py."""
+    z, dxpu, free, cells, eh = inputs
+    zp, ihp = P3.prox3d_chord_comp_plain(*inputs, *args)
+    torch.testing.assert_close(ihk, ihp, rtol=2e-5, atol=1e-8)
+    rows = P3._rows(cells)
+    half_w2 = consts(args[0])[1]
+    ek = P3.energy_c3(list(zk), rows, list(eh), list(dxpu), half_w2)[1]
+    ep = P3.energy_c3(list(zp), rows, list(eh), list(dxpu), half_w2)[1]
+    torch.testing.assert_close(ek, ep, rtol=1e-4, atol=1e-6)
+
+
+def test_k4c_matches_plain():
+    _card()
+    _, integ = _stock()
+    inputs, _ = _stock_inputs(integ)
+    args = (integ.w, integ.prox_tol, integ.prox_max_iters)
+    before = P3.prox3d_chord_comp.launches
+    zk, ihk = P3.prox3d_chord_comp(*inputs, *args)
+    torch.cuda.synchronize()
+    assert P3.prox3d_chord_comp.launches == before + 1
+    _check_pair4c(inputs, args, zk, ihk)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 700])
+def test_k4c_ragged_sizes(n):
+    _card()
+    _, integ = _stock()
+    inputs, _ = _stock_inputs(integ)
+    args = (integ.w, integ.prox_tol, integ.prox_max_iters)
+    cut = tuple(t[:, :n].contiguous() for t in inputs)
+    zk, ihk = P3.prox3d_chord_comp(*cut, *args)
+    torch.cuda.synchronize()
+    _check_pair4c(cut, args, zk, ihk)
+
+
+def test_k1_element_entry_matches_plain():
+    """K1 behind the stock engine's element-major entry: the entry equals
+    the channel call, which is within K1's bands of its plain version."""
+    _card()
+    _, integ = _stock(dim=2)
+    inputs, (z, dxpu) = _stock_inputs(integ)
+    args = (integ.mesh.ehat_np.reshape(-1), integ.w, integ.prox_tol, integ.prox_max_iters)
+    ze, ihe = P.prox_elements(integ.mesh.grid, z, dxpu, integ.free, *args)
+    zk, ihk = P.prox2d(*inputs, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(ze, zk.T.reshape(-1, 3, 2)) and torch.equal(ihe, ihk)
+    _check_pair(inputs, args, zk, ihk)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_stock_paths_launch_their_kernel_once_per_admm_iteration(dim):
+    _card()
+    _, integ = _stock(dim)
+    for fn in (P.prox2d, P3.prox3d, P3.prox3d_chord_comp):
+        fn.launches = 0
+    iters = []
+    _, trace, steps = run(integ, integ.init_state(), cap=3, dt_tol=0.0,
+                          on_step=lambda k, info: iters.append(info.n_iters))
+    want = {2: (sum(iters), 0, 0), 3: (0, 0, sum(iters))}[dim]
+    assert (P.prox2d.launches, P3.prox3d.launches, P3.prox3d_chord_comp.launches) == want
+    assert sum(iters) > 0 and trace[steps - 1] < trace[0]
+
+
+def test_cuda_tensors_never_take_the_plain_k4c():
+    """A CUDA input of the wrong shape, type or device raises; there is no
+    fallback."""
+    _card()
+    _, integ = _stock()
+    (z, dxpu, free, cells, eh), _ = _stock_inputs(integ)
+    args = (integ.w, integ.prox_tol, integ.prox_max_iters)
+    with pytest.raises(ValueError):
+        P3.prox3d_chord_comp(z.double(), dxpu, free, cells, eh, *args)
+    with pytest.raises(ValueError):
+        P3.prox3d_chord_comp(z, dxpu, free, cells, eh[:6].contiguous(), *args)
+    with pytest.raises(ValueError):
+        P3.prox3d_chord_comp(z, dxpu, free, cells, eh.cpu(), *args)

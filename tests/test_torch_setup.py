@@ -138,19 +138,38 @@ def test_config_loads_like_jax():
     # methods 1 and 2 run on the stencil engine; off its gate they name
     # their own items
     (dict(method=1, nx=8, ny=8), "A11"), (dict(method=2, nx=8, ny=8), "A12"),
-    # 3D runs MM-ADMM on the SoA stencil engine; the rest of 3D names its item
+    # 3D runs MM-ADMM on the SoA stencil engine and, on computational
+    # meshes, on the stock engine; the rest of 3D names its item
     (dict(dim=3, nz=4, method=1), "A11"), (dict(dim=3, nz=4, method=2), "A12"),
-    (dict(dim=3, nz=4, comp_mesh=True), "A14"), (dict(dim=3, nz=4, dtype="float64"), "A10"),
+    (dict(dim=3, nz=4, dtype="float64"), "A10"),
     (dict(dim=3, nz=4, test_type="LevelSet"), "A10"),
     (dict(comp_mesh=True), "A14"), (dict(n_devices=2), "A15"),
     (dict(test_type="LevelSet"), "A10"), (dict(dtype="float64"), "A10"),
-    (dict(nx=8, ny=8), "A10"),  # 4*nx*ny not a multiple of 1024: off the stencil gate
+    (dict(nx=8, ny=8, dtype="float64"), "A10"),  # the stock engine is float32 too
+    (dict(prox_backend="vmap"), "A10"),  # the generic prox
 ])
 def test_unported_routes_name_their_roadmap_item(change, item):
     kw = dict(KW, test_type="Shoulder")
     kw.update(change)
     with pytest.raises(NotImplementedError, match=item):
         build_problem(ExperimentConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("change,engine", [
+    # a 3D computational mesh: the stock engine with K4' (ROADMAP A14, B5)
+    (dict(dim=3, nz=4, comp_mesh=True), "ADMMIntegrator"),
+    # 4*nx*ny not a multiple of 1024: off the stencil gate, the stock engine
+    # with K1 (ROADMAP A10)
+    (dict(nx=8, ny=8), "ADMMIntegrator"),
+    (dict(), "GridADMM2D"), (dict(dim=3, nz=4), "SoAADMM3D"),
+    (dict(prox_backend="pallas"), "GridADMM2D"),
+])
+def test_ported_routes_build_their_engine(change, engine):
+    kw = dict(KW, test_type="Shoulder")
+    kw.update(change)
+    mesh, integ = build_problem(ExperimentConfig(**kw), device="cpu")
+    assert type(integ).__name__ == engine
+    assert mesh.comp_mesh == bool(change.get("comp_mesh"))
 
 
 def test_device_default_is_cuda():
