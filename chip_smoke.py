@@ -6,16 +6,19 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: kernel K1 (``csrc/prox2d.cu``), kernels K2 and K3
-   (``csrc/be2d.cu``) and kernels K4 and K4' (``csrc/prox3d.cu``), one
-   ``nvcc`` per source, started together, and their registers and spills
-   (``-Xptxas -v``);
+   (``csrc/be2d.cu``) and kernels K4, K4' and K4'' (``csrc/prox3d.cu``),
+   one ``nvcc`` per source, started together, and their registers and
+   spills (``-Xptxas -v``);
 3. kernel vs plain: every kernel against its plain PyTorch version on the
    same inputs: K1-K3 at Shoulder nx=16 and on the step-0 inputs of
    Shoulder-320 (409,600 element slots), K4 at 3D SquareGrid nx=4 and on
    the step-0 inputs of 3D Shoulder-40 and 3D SquareGrid-40 (768,000
    slots each), K4' on the stock engine's step-0 inputs of 3D CompSquare
    nx=4 and CompSquare-20 (96,000 tets), K1 through the stock engine's
-   element-major entry on Monitor3320r's (265,004 triangles);
+   element-major entry on Monitor3320r's (265,004 triangles), K4''a and
+   K4''b on the stock engine's step-0 inputs of 3D SquareGrid and
+   CompSquare at nx=4, nx=20 and, in their main paths, nx=40 (768,000
+   tets; bit for bit);
 4. main paths, each through ``problems.build_problem`` and
    ``integrators.run_loop.run`` with the DtTol stop, with every launch
    count set to 0 just before and read just after: at Shoulder-320, at
@@ -33,6 +36,21 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    CompSquare nx=4 must also agree with the port's CPU run (plain
    versions, held to the JAX package by tests/test_torch_euler_be.py,
    tests/test_torch_soa3d_*.py and tests/test_torch_admm_stock.py);
+   then the generic route (``ops/prox.py``, plain PyTorch, no kernel
+   launched), each path with its per-step ms, ``n_iters`` and ``I_h``:
+   Monitor3320r as a user loads it (float64, the carried Jacobian; at most
+   20 steps; steps 0 and 1 against the JAX package's ``I_h`` and counts),
+   3D CompSquare-40 and -20 in float64 (at most 3 and 10 steps; the
+   step-0 ``I_h``, and CompSquare-20's step 1 and counts, against the JAX
+   package's), the LevelSet circle at nx=320 in float64 (dt 1e-6, at most
+   10 steps; ``I_h`` falls at every step; steps 0-3 against the JAX
+   package's) and
+   a 2D computational mesh, SquareGrid-320, in float32 (at most 10 steps);
+   K4''a on 3D SquareGrid-40 with ``prox_chord=True`` and K4''b on 3D
+   CompSquare-40 with ``prox_chord=False``, on the stock engine (at most 10
+   steps each; launches = ADMM iterations); and the generic route on the
+   card against the CPU at 2D SquareGrid nx=8 and 3D CompSquare nx=4 in
+   float64 over 4 steps;
 5. timing: each kernel alone (median of 20 launches, CUDA events), its
    plain version once, and its bound; one JSON line ``{"kernels": [...]}``.
 
@@ -65,6 +83,31 @@ MONITOR1320_IH0 = 0.845393  # BASELINE.md:34, the reference's recorded Ih at ste
 # JAX 0.9.0 on the CPU by scripts/stock_jax_gap.py; the step-0 I_h is the
 # energy of the initial mesh, so it needs no prox.
 JAX_STEP0_IH = {"3D CompSquare-20": 0.2558352160267532, "Monitor3320r": 0.17139660514658317}
+GENERIC_CAPS = {"Monitor3320r float64": 20, "3D CompSquare-40 float64": 3,
+                "3D CompSquare-20 float64": 10, "LevelSet-320 float64": 10,
+                "2D CompSquare-320 float32": 10}
+K4PP_CAP = 10
+# The circle's explicit-Euler predictor is stiff at its near-boundary
+# slivers: at nx=320 the dt of tests/test_harness.py (1e-4, at nx=12)
+# diverges (I_h 1.98 -> 524 at step 1) and 1e-5 rises at step 4; at 1e-6
+# I_h falls at every step (scripts/generic_jax_refs.py)
+LEVELSET_DT = 1e-6
+# The JAX package's values on its default route (float64, the generic vmap
+# prox, the carried Jacobian), computed once with JAX 0.9.0 on the CPU by
+# scripts/generic_jax_refs.py: {path: {step: (I_h, n_iters or None, rtol)}}
+JAX_GENERIC = {
+    "Monitor3320r float64": {0: (0.1713965975485735, 5, 1e-12),
+                             1: (0.1709758503664461, 3, 1e-9)},
+    "3D CompSquare-20 float64": {0: (0.25583523421540666, 3, 1e-12),
+                                 1: (0.25577188530396067, 1, 1e-10)},
+    "3D CompSquare-40 float64": {0: (0.31256179059890715, None, 1e-12)},
+    # steps 1-3 within the float64 band of tests/test_torch_admm_generic.py
+    # (rel 1e-10; the port on the CPU is within 2e-16 of these)
+    "LevelSet-320 float64": {0: (1.9768249645214393, 10, 1e-12),
+                             1: (1.1772788559172092, 10, 1e-10),
+                             2: (1.1750669410812833, 10, 1e-10),
+                             3: (1.1731141592543588, 10, 1e-10)},
+}
 # eg2d launches of one backward-Euler step beyond its Newton iterations:
 # the explicit-Euler guess, the residual F0 and the post-step energy
 BE_EG_PER_STEP = 3
@@ -98,7 +141,7 @@ def box3d(test_type: str, mon_type: int, n: int, device: str = "cuda"):
     return cfg, mesh, integ
 
 
-def comp_square(n: int, device: str = "cuda"):
+def comp_square(n: int, device: str = "cuda", dtype: str = "float32", prox_chord=None):
     """3D MM-ADMM on the stock engine: an n^3 SquareGrid box mesh on its
     computational mesh, MonType 5, rho 10 (the 3DMonitor3 family as the
     JAX package's tests set it, tests/test_prox_pallas3d.py:137-143)."""
@@ -106,14 +149,43 @@ def comp_square(n: int, device: str = "cuda"):
 
     cfg = ExperimentConfig(
         test_type="SquareGrid", dim=3, mon_type=5, method=0, comp_mesh=True, nx=n, ny=n,
-        nz=n, dt=5e-3, tau=0.1, rho=10.0, dtype="float32",
+        nz=n, dt=5e-3, tau=0.1, rho=10.0, dtype=dtype,
     )
+    mesh, integ = build_problem(cfg, device=device, prox_chord=prox_chord)
+    return cfg, mesh, integ
+
+
+def square_chord(n: int, device: str = "cuda"):
+    """3D MM-ADMM on the stock engine with chord sweeps (K4''a): an n^3
+    SquareGrid box mesh with the radial bump (MonType 1)."""
+    from mmadmm_tpu_torch import ExperimentConfig, build_problem
+
+    cfg = ExperimentConfig(
+        test_type="SquareGrid", dim=3, mon_type=1, method=0, nx=n, ny=n, nz=n,
+        dt=5e-3, tau=0.1, rho=50.0, dtype="float32",
+    )
+    mesh, integ = build_problem(cfg, device=device, prox_chord=True)
+    return cfg, mesh, integ
+
+
+def generic(test_type: str, n: int, device: str = "cuda", **kw):
+    """MM-ADMM on the generic route: the LevelSet circle (MonType 0, tau
+    0.1, rho 50 as tests/test_harness.py:161-164, dt ``LEVELSET_DT``) in
+    float64, or a 2D SquareGrid with ``kw`` (a computational mesh: MonType
+    5, rho 10)."""
+    from mmadmm_tpu_torch import ExperimentConfig, build_problem
+
+    base = dict(dim=2, method=0, nx=n, ny=n, dt=5e-3, tau=0.1, rho=50.0)
+    if test_type == "LevelSet":
+        base.update(mon_type=0, dt=LEVELSET_DT)
+    cfg = ExperimentConfig(test_type=test_type, **dict(base, **kw))
     mesh, integ = build_problem(cfg, device=device)
     return cfg, mesh, integ
 
 
-def monitor3320r(device: str = "cuda"):
-    """``Experiments/InputFiles/Monitor3320r.json`` as shipped, in float32."""
+def monitor3320r(device: str = "cuda", as_loaded: bool = False):
+    """``Experiments/InputFiles/Monitor3320r.json`` as shipped: in float32
+    on the kernel route, or ``as_loaded`` (float64, the generic route)."""
     import os
 
     from mmadmm_tpu_torch import build_problem, load_experiment_config
@@ -121,7 +193,8 @@ def monitor3320r(device: str = "cuda"):
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = load_experiment_config(os.path.join(here, "Experiments", "InputFiles",
                                               "Monitor3320r.json"), method=0)
-    cfg.dtype = "float32"
+    if not as_loaded:
+        cfg.dtype = "float32"
     mesh, integ = build_problem(cfg, device=device)
     return cfg, mesh, integ
 
@@ -283,6 +356,47 @@ def compare4c(label, integ):
     return max(err_ih, err_z), inputs
 
 
+def compare4pp(label, integ, variant):
+    """K4''a (``variant`` "chord", a box mesh with the constant Ehat) or
+    K4''b ("comp", each element's Ehat) against its plain version on the
+    stock engine's first prox inputs of step 0: bit for bit (the host
+    rehearsal, scripts/cuda_host_rehearsal.py, agrees bit for bit), and
+    within the bands of tests/test_torch_prox3d_k4pp.py (ih0 rtol 3e-5, the
+    regularized energies rtol 2e-4) if not. Returns ``(max abs error,
+    (kernel, plain, inputs, args))``."""
+    from mmadmm_tpu_torch.ops import prox3d as P3
+    from mmadmm_tpu_torch.ops.newton import consts
+
+    kernel, plain = ((P3.prox3d_chord, P3.prox3d_chord_plain) if variant == "chord"
+                     else (P3.prox3d_comp, P3.prox3d_comp_plain))
+    inputs = stock_inputs(integ)
+    z, dxpu, free, cells = inputs[:4]
+    ehat = list(inputs[4]) if variant == "comp" else tuple(integ.mesh.ehat_np.reshape(-1))
+    args = (integ.w, integ.prox_tol, integ.prox_max_iters)
+    if variant == "chord":
+        args = (integ.mesh.ehat_np.reshape(-1),) + args
+    zk, ihk = kernel(*inputs, *args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    zp, ihp = plain(*inputs, *args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    rows = P3._rows(cells)
+    half_w2 = consts(integ.w)[1]
+    e_k = P3.energy_c3(list(zk), rows, ehat, list(dxpu), half_w2)[1]
+    e_p = P3.energy_c3(list(zp), rows, ehat, list(dxpu), half_w2)[1]
+    err_ih = check_close(f"{label} ih0", ihk, ihp, 3e-5, 1e-7)
+    err_e = check_close(f"{label} regularized energy", e_k, e_p, 2e-4, 1e-6)
+    err_z = float((zk - zp).abs().max())
+    if not (torch.equal(zk, zp) and torch.equal(ihk, ihp)):
+        raise AssertionError(f"{label}: not bit-equal to the plain version "
+                             f"(max |z' err| {err_z:.3e}, max |ih0 err| {err_ih:.3e})")
+    say(f"{label}: {z.shape[1]} tets; bit-equal (z', ih0) on 100.00% of elements (max |ih0 "
+        f"err| {err_ih:.3e}, max |energy err| {err_e:.3e}, max |z' err| {err_z:.3e}); plain "
+        f"version {plain_s:.2f} s")
+    return max(err_ih, err_z), (kernel, plain, inputs, args)
+
+
 def compare_be(label, z, cells, ehat):
     """K2 and K3 against their plain versions. Bands of
     tests/test_torch_be2d.py: ih within rtol 2e-5; g and the 21 Hessian
@@ -370,7 +484,8 @@ def _wrappers():
     from mmadmm_tpu_torch.ops import prox3d as P3
 
     return {"prox2d": P.prox2d, "eg2d": B.eg2d, "hess2d": B.hess2d, "prox3d": P3.prox3d,
-            "prox3d_chord_comp": P3.prox3d_chord_comp}
+            "prox3d_chord_comp": P3.prox3d_chord_comp, "prox3d_chord": P3.prox3d_chord,
+            "prox3d_comp": P3.prox3d_comp}
 
 
 def counts():
@@ -384,7 +499,8 @@ def zero_counts():
 
 def drive(label, cfg, integ, cap=STEP_CAP):
     """One main path: ``(infos, trace, launch counts)``, the counts set to
-    0 just before the run and read just after."""
+    0 just before the run and read just after. Every ``I_h`` must be finite
+    and the last below the first."""
     from mmadmm_tpu_torch.integrators.run_loop import run
 
     infos = []
@@ -418,10 +534,12 @@ def drive(label, cfg, integ, cap=STEP_CAP):
 
 
 def expect(label, launched, want):
-    """The launch counts of a path: ``want`` for the kernels it names, 0 for
-    every other kernel."""
+    """The launch counts of a path: ``want`` for the kernels it names (at
+    least one launch), 0 for every other kernel; an empty ``want`` (the
+    generic route) means no launch at all."""
+    named = bool(want)
     want = {name: want.get(name, 0) for name in launched}
-    if launched != want or not any(want.values()):
+    if launched != want or (named and not any(want.values())):
         raise AssertionError(f"{label}: launches {launched}, expected {want}")
 
 
@@ -470,6 +588,44 @@ def card_vs_cpu_3d(label, make):
         f"{[round(i.ih, 9) for i in runs[0]]}")
 
 
+def card_vs_cpu_generic(label, make):
+    """The generic route, SMALL_STEPS steps on the card and on the CPU: the
+    same ADMM iteration counts, ``I_h`` within rtol 1e-10. ``make(device)``
+    builds the integrator: 2D SquareGrid nx=8 or 3D CompSquare nx=4, both
+    in float64 (held to the JAX package by tests/test_torch_admm_generic.py)."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        integ = make(device)
+        if integ.mesh.prox_backend != "vmap":
+            raise AssertionError(f"{label} took {integ.mesh.prox_backend}")
+        state, infos = integ.init_state(), []
+        for _ in range(SMALL_STEPS):
+            state, info = integ.step(state)
+            infos.append(info)
+        runs.append(infos)
+    for k, (a, b) in enumerate(zip(*runs)):
+        if not math.isclose(a.ih, b.ih, rel_tol=1e-10) or a.n_iters != b.n_iters:
+            raise AssertionError(f"{label} step {k}: card {a} vs cpu {b}")
+    say(f"generic route at {label}: card and CPU agree over {SMALL_STEPS} steps (Ih rtol "
+        f"1e-10, the same n_iters {[i.n_iters for i in runs[0]]}): {[i.ih for i in runs[0]]}")
+
+
+def check_jax(label, infos):
+    """A generic path's ``I_h`` and ADMM counts at the steps the JAX package
+    gave (``JAX_GENERIC``)."""
+    for k, (ref, iters, rtol) in JAX_GENERIC.get(label, {}).items():
+        ih = infos[k].ih
+        if not math.isclose(ih, ref, rel_tol=rtol):
+            raise AssertionError(f"{label} step {k}: Ih {ih!r} vs the JAX package's {ref!r}, "
+                                 f"outside rtol {rtol}")
+        if iters is not None and infos[k].n_iters != iters:
+            raise AssertionError(f"{label} step {k}: {infos[k].n_iters} ADMM iterations, the "
+                                 f"JAX package took {iters}")
+        say(f"{label} step {k}: Ih {ih!r} within rtol {rtol} of the JAX package's {ref!r} "
+            f"(rel {abs(ih / ref - 1):.2e})"
+            + (f", {iters} ADMM iterations as the JAX package" if iters is not None else ""))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -493,7 +649,7 @@ def main() -> int:
     P.library()
     B.library()
     P3.library()
-    say(f"build: prox2d, be2d and prox3d (K4 and K4') together in "
+    say(f"build: prox2d, be2d and prox3d (K4, K4' and K4'') together in "
         f"{time.perf_counter() - t:.2f} s")
     for name in ("prox2d", "be2d", "prox3d"):
         for line in cuda_build.ptxas_report(name).splitlines():
@@ -537,6 +693,13 @@ def main() -> int:
         stock[label] = [cfg_s, integ_s, None, None]
     stock["3D CompSquare-20"][2:] = compare4c("K4' vs plain, 3D CompSquare-20 step 0",
                                               stock["3D CompSquare-20"][1])
+    compare4pp("K4''a vs plain, 3D SquareGrid nx=4 (stock engine, prox_chord=True)",
+               square_chord(4)[2], "chord")
+    compare4pp("K4''b vs plain, 3D CompSquare nx=4 (stock engine, prox_chord=False)",
+               comp_square(4, prox_chord=False)[2], "comp")
+    compare4pp("K4''a vs plain, 3D SquareGrid-20 step 0", square_chord(20)[2], "chord")
+    compare4pp("K4''b vs plain, 3D CompSquare-20 step 0", comp_square(20, prox_chord=False)[2],
+               "comp")
     m_integ = stock["Monitor3320r"][1]
     m_in = stock_inputs(m_integ)
     stock["Monitor3320r"][2:] = compare("K1 vs plain, Monitor3320r step 0 (element-major entry)",
@@ -606,6 +769,70 @@ def main() -> int:
                 f"{ref!r} (rel {abs(ih0 / ref - 1):.2e})")
     card_vs_cpu_3d("3D MM-ADMM at CompSquare nx=4 (stock engine, K4')",
                    lambda device: comp_square(4, device)[2])
+    launched_g = {}
+    for label, make in (
+            ("Monitor3320r float64", lambda: monitor3320r(as_loaded=True)),
+            ("3D CompSquare-40 float64", lambda: comp_square(40, dtype="float64")),
+            ("3D CompSquare-20 float64", lambda: comp_square(20, dtype="float64")),
+            ("LevelSet-320 float64", lambda: generic("LevelSet", 320)),
+            ("2D CompSquare-320 float32", lambda: generic("SquareGrid", 320, mon_type=5,
+                                                          rho=10.0, comp_mesh=True,
+                                                          dtype="float32"))):
+        t = time.perf_counter()
+        cfg_g, mesh_g, integ_g = make()
+        say(f"{label} set-up: {mesh_g.n_pnts} nodes, {mesh_g.n_elements} elements, "
+            f"{type(integ_g).__name__}, prox {mesh_g.prox_backend}, {mesh_g.dtype}, j_carry "
+            f"{integ_g.j_carry}, jac_batch {mesh_g.jac_batch} ({time.perf_counter() - t:.2f} s)")
+        if mesh_g.prox_backend != "vmap" or type(integ_g).__name__ != "ADMMIntegrator":
+            raise AssertionError(f"{label}: not the stock engine on the generic route")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        infos_g, ih_g, launched_g[label] = drive(f"generic {label}", cfg_g, integ_g,
+                                                 GENERIC_CAPS[label])
+        wall = time.perf_counter() - t
+        if label.startswith("LevelSet") and not all(b < a for a, b in zip(ih_g, ih_g[1:])):
+            raise AssertionError(f"{label}: I_h does not fall at every step: {list(ih_g)}")
+        expect(label, launched_g[label], {})
+        say(f"generic {label}: {len(infos_g)} steps, ADMM iterations per step "
+            f"{[i.n_iters for i in infos_g]}, {1e3 * wall / len(infos_g):.1f} ms per step, "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; Ih trace "
+            f"{[float(v) for v in ih_g]}")
+        check_jax(label, infos_g)
+        if label.startswith("Monitor3320r"):  # step 0 again, on warm caches
+            state = integ_g.init_state()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, info = integ_g.step(state)
+            torch.cuda.synchronize()
+            say(f"{label}: step 0 again from the initial state: {1e3 * (time.perf_counter() - t):.1f}"
+                f" ms, Ih {info.ih!r}, {info.n_iters} ADMM iterations")
+        del cfg_g, mesh_g, integ_g
+    card_vs_cpu_generic("2D SquareGrid nx=8, float64",
+                        lambda device: generic("SquareGrid", 8, device, mon_type=1)[2])
+    card_vs_cpu_generic("3D CompSquare nx=4, float64",
+                        lambda device: comp_square(4, device, dtype="float64")[2])
+    launched_k, k4pp = {}, {}
+    for label, make, kernel, variant in (
+            ("K4''a 3D SquareGrid-40", lambda: square_chord(40), "prox3d_chord", "chord"),
+            ("K4''b 3D CompSquare-40", lambda: comp_square(40, prox_chord=False), "prox3d_comp",
+             "comp")):
+        t = time.perf_counter()
+        cfg_k, mesh_k, integ_k = make()
+        say(f"{label} set-up: {mesh_k.n_elements} tets, {type(integ_k).__name__}, prox "
+            f"{mesh_k.prox_backend}, chord {mesh_k.prox_chord} ({time.perf_counter() - t:.2f} s)")
+        # the kernel against its plain version on this path's step-0 inputs,
+        # which also make its row of the kernels line
+        k4pp[kernel] = compare4pp(f"{kernel} vs plain, {label} step 0", integ_k, variant)
+        t = time.perf_counter()
+        infos_k, ih_k, launched_k[label] = drive(f"stock {label}", cfg_k, integ_k, K4PP_CAP)
+        wall = time.perf_counter() - t
+        iters_k = [i.n_iters for i in infos_k]
+        expect(label, launched_k[label], {kernel: sum(iters_k)})
+        say(f"stock {label}: {kernel} launches {launched_k[label][kernel]} = ADMM iterations "
+            f"{sum(iters_k)} over {len(infos_k)} steps (per step {iters_k}), "
+            f"{1e3 * wall / len(infos_k):.1f} ms per step; Ih trace "
+            f"{[round(float(v), 9) for v in ih_k]}")
+        del cfg_k, mesh_k, integ_k
 
     # ---- timing --------------------------------------------------------------
     z, dxpu, free, cells = inputs
@@ -692,8 +919,21 @@ def main() -> int:
               c20[0].shape[1] * (12 + 12 + 12 + 216 + 9 + 12 + 1)))
     say(f"K4' step-0 work at 3D CompSquare-20: {stats4['element_sweeps']} element-sweeps in "
         f"{stats4['sweeps']} sweeps")
+    for name, label in (("prox3d_chord", "K4''a 3D SquareGrid-40"),
+                        ("prox3d_comp", "K4''b 3D CompSquare-40")):
+        err, (kernel, plain, inputs_p, args_p) = k4pp[name]
+        stats_p = {}
+        per_elem = 12 + 12 + 12 + 216 + (9 if name == "prox3d_comp" else 0) + 12 + 1
+        row(name, "mmadmm_tpu_torch/csrc/prox3d.cu", "mmadmm_tpu/ops/prox_pallas3d.py:418",
+            launched_k[label][name], err, time_kernel(lambda: kernel(*inputs_p, *args_p)),
+            time_plain(lambda: plain(*inputs_p, *args_p)),
+            bound(lambda: plain(*inputs_p, *args_p, stats=stats_p),
+                  inputs_p[0].shape[1] * per_elem))
+        say(f"{name} step-0 work at {inputs_p[0].shape[1]} tets: {stats_p['element_sweeps']} "
+            f"element-sweeps in {stats_p['sweeps']} sweeps")
     say(f"launches by path: MM-ADMM {launched}, Euler {launched_e}, backward Euler {launched_b}, "
-        f"3D MM-ADMM {launched3}, stock engine {launched_s}")
+        f"3D MM-ADMM {launched3}, stock engine {launched_s}, generic route {launched_g}, "
+        f"K4'' {launched_k}")
     print(json.dumps({"kernels": rows}), flush=True)
     say(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,16 @@ Reference quirks kept on purpose (see ``MovingMesh``):
   * ``Method`` in the JSON is clobbered by the CLI argument
     (``main.cpp:809``).
 
-``prox_backend``: ``"auto"`` (the default) and ``"pallas"`` both take the
-kernel route, the prox kernels K1, K4 and K4' (on the card; their plain
-PyTorch versions on the CPU). This is what the JAX package's speed entry
-runs (``bench.py:182-193``); the JAX package's own ``"auto"`` takes its
-generic vmap prox unless ``MMADMM_PROX`` says otherwise. ``"vmap"``, the
-generic prox, is not ported (``problems.build_problem`` raises).
+``prox_backend`` (``MovingMesh`` decides it): ``"pallas"`` takes the
+kernel route, the float32 prox kernels K1, K4, K4' and K4'' (on the card;
+their plain PyTorch versions on the CPU), what the JAX package's speed
+entry runs (``bench.py:182-193``); ``"vmap"`` the generic batched prox
+(``ops/prox.py``) in any dtype, on the stock engine. ``"auto"`` (the
+default) takes the kernels where a kernel computes the function and the
+generic prox elsewhere: every float64 run and every 2D computational
+mesh. ``dtype`` defaults to float64, as in the JAX package, so a JSON
+config runs as loaded on the generic route, as the JAX package's own
+``"auto"`` runs it.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ class ExperimentConfig:
     base_dir: str = "."
     dtype: str = "float64"  # compute dtype; energy and residual sums are f64
     prox_newton_iters: int = 50  # reference BFGS cap (Mesh.cpp:968)
-    prox_backend: str = "auto"  # "auto" or "pallas": the kernels; "vmap": not ported
+    prox_backend: str = "auto"  # "pallas": the kernels; "vmap": the generic prox
     step_tol: float = 1e-3  # ADMM primal/dual tol (main.cpp:184)
     n_devices: int = 1
 

@@ -19,9 +19,9 @@ same memory order). 3D (``SoAADMM3D``'s ``_consts``): ``swap_t, alive_t
 ``ehat``, and the state's ``x, x_prev [3, NP]`` and ``u [C, 12, S]``.
 The JAX engine pads the ``NFd`` dense slots to ``NFp = C S`` with clones
 of the first slots, masked out by ``valid``; the port drops them. Stock
-(``ADMMState``): ``x, x_prev [NP, D]``, ``u_bar [NF, D+1, D]`` and the
-step counters; its chord Jacobian ``J`` and ``j_fresh`` are dead under the
-kernel backend and have no counterpart.
+(``ADMMState``): ``x, x_prev [NP, D]``, ``u_bar [NF, D+1, D]``, the step
+counters, and the generic prox's chord Jacobian ``J [NF, n, n]`` (``[NF,
+0, 0]`` without the carry) and its ``j_fresh`` flag.
 """
 
 from __future__ import annotations
@@ -131,9 +131,16 @@ def load_soa3d_state(integ: SoAADMM3D, arrays: dict) -> SoA3DState:
 def load_admm_state(integ: ADMMIntegrator, arrays: dict) -> ADMMState:
     """A port state for the stock engine from the JAX ``ADMMState``'s
     ``x, x_prev [NP, D], u_bar [NF, D+1, D]`` and, optionally, ``steps,
-    ih_last, rose, rises``."""
+    ih_last, rose, rises`` and ``J, j_fresh`` (default: the integrator's
+    own fresh ``J``)."""
     like = integ.mesh.X0
     D = integ.mesh.dim
+    own = integ.init_state()
+    J = own.J
+    if "J" in arrays:
+        J = torch.tensor(np.asarray(arrays["J"]), dtype=like.dtype, device=like.device)
+        if J.shape != own.J.shape:
+            raise ValueError(f"J: expected shape {tuple(own.J.shape)}, got {tuple(J.shape)}")
     return ADMMState(
         x=_t(arrays["x"], like),
         x_prev=_t(arrays["x_prev"], like),
@@ -142,4 +149,6 @@ def load_admm_state(integ: ADMMIntegrator, arrays: dict) -> ADMMState:
         ih_last=float(arrays.get("ih_last", math.inf)),
         rose=bool(arrays.get("rose", False)),
         rises=int(arrays.get("rises", 0)),
+        J=J,
+        j_fresh=bool(arrays.get("j_fresh", True)),
     )

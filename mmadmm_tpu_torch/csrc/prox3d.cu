@@ -1,4 +1,4 @@
-// K4 and K4': the 3D ADMM prox z-update, one thread per tetrahedron.
+// K4, K4' and K4'': the 3D ADMM prox z-update, one thread per tetrahedron.
 //
 // K4 replaces mmadmm_tpu/ops/prox_pallas3d.py::make_prox_pallas3d (:263, its
 // pl.pallas_call at :418) with chord=False, comp_mesh=False. For each
@@ -17,27 +17,34 @@
 // element that rejects it rebuilds the Hessian at its current z, re-solves
 // and backtracks as K4 does (a refresh).
 //
+// K4'' is the same call site with the other two flag combinations, which
+// the JAX package reaches through its MMADMM_PROX_CHORD switch (mesh.py:
+// 183-187) and the port through MovingMesh's prox_chord: K4''a, chord=True,
+// comp_mesh=False (chord sweeps with the constant Ehat), and K4''b,
+// chord=False, comp_mesh=True (Newton sweeps with each element's Ehat).
+//
 // The plain PyTorch versions in ops/prox3d.py (prox3d_plain,
-// prox3d_chord_comp_plain) perform the same operations in the same order;
-// built with --fmad=false each kernel agrees with its plain version bit
-// for bit.
+// prox3d_chord_comp_plain, prox3d_chord_plain, prox3d_comp_plain) perform
+// the same operations in the same order; built with --fmad=false each
+// kernel agrees with its plain version bit for bit.
 //
 // Layout: channel-major [C, n] float32, channel stride n. z, dxpu, free are
 // [12, n] (channel v*3 + d); cells is [216, n]: per vertex, its cell's 8
 // corners as (m00, m01, m02, m11, m12, m22), then x0, x1, y0, y1, z0, z1;
-// K4' also reads ehat [9, n], row-major [d][j] = xi_{j+1, d} - xi_{0, d}.
+// K4' and K4''b also read ehat [9, n], row-major [d][j] = xi_{j+1, d} -
+// xi_{0, d}.
 // Outputs: zout [12, n] and ih0 [n], the unregularized energy at the input.
 //
 // What bounds them on the H100: arithmetic. A K4 element reads 252 floats
 // and writes 13, (3*12 + 216 + 12 + 1) * 4 = 1,060 bytes: 814 MB, 0.243 ms
-// at 3.35 TB/s for the 768,000 slots of a 40^3 box mesh; a K4' element
-// reads 9 more, 1,096 bytes. Each Newton sweep does tens of thousands of
-// float operations (the twelve dual passes of the Hessian take most of
+// at 3.35 TB/s for the 768,000 slots of a 40^3 box mesh; a K4' or K4''b
+// element reads 9 more, 1,096 bytes. Each Newton sweep does tens of
+// thousands of float operations (the twelve dual passes of the Hessian take most of
 // them; the op counter of chip_smoke.py on the plain versions gives the
 // count for the inputs at hand), and elements take 1 to max_iters sweeps. A
 // chord sweep that keeps its cached step costs one gradient, one solve and
-// one trial energy, a few thousand operations; that is what K4' saves on
-// weakly regularized runs (rho = 10 in the 3DMonitor3 family), whose
+// one trial energy, a few thousand operations; that is what chord sweeps
+// save on weakly regularized runs (rho = 10 in the 3DMonitor3 family), whose
 // elements stay active for many sweeps.
 //
 // The design is K1's, simple and right first: one thread per element with
@@ -45,8 +52,8 @@
 // neighbour. Registers cannot hold a 12x12 system beside the dual gradient,
 // so each dual pass writes its Hessian column, the 78-entry lower triangle,
 // to shared memory laid out [78][blockDim] (thread index fastest: no bank
-// conflicts, 39 KB at 128 threads), where it is factored in place. K4'
-// keeps that factored triangle (L and D) across sweeps as its cache: the
+// conflicts, 39 KB at 128 threads), where it is factored in place. The
+// chord sweeps keep that factored triangle (L and D) across sweeps as its cache: the
 // JAX kernel caches H and factors it again every sweep, and factoring the
 // same H gives the same L and D, so solving with the cached factors gives
 // the same bits. A second 78-entry buffer for H itself would cost another
@@ -201,145 +208,150 @@ __device__ __forceinline__ float absmax(const float* v) {
   return m;
 }
 
+// K4, K4' and K4'' are one kernel: kChord selects chord sweeps (K4', K4''a)
+// over Newton sweeps (K4, K4''b), kComp a per-element Ehat read from
+// ehat_in (K4', K4''b) over the constant eh (K4, K4''a). Each sweep keeps
+// its JAX counterpart's order: a Newton sweep (make_newton_sweeps) finds its
+// step and then retires on a small gradient; a chord sweep
+// (make_chord_sweeps) retires before it solves.
+//
+// The chord sweep's refresh: the JAX kernel guards it per tile (pl.when over
+// the tile's max of active & ~ok1) and writes the new Hessian and step only
+// where the cached step was rejected (h_write(H2, keep=ok1), where(ok1, p,
+// alpha p2)). Here the guard is per element, and gives the same results: an
+// element that accepts the cached step keeps its cached Hessian and that
+// step whether or not a neighbour refreshes, and an element the JAX kernel
+// refreshes without needing it is one that is no longer active, which never
+// moves again. An element that retires on its gradient norm does not move
+// either, so it leaves before the solve.
+template <bool kChord, bool kComp>
 __global__ void __launch_bounds__(kThreads) prox3d_kernel(
     const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
     const float* __restrict__ free_in, const float* __restrict__ cells_in,
-    float* __restrict__ zout, float* __restrict__ ih0_out, long long n, Ehat3 eh, Consts3 k,
-    int max_iters) {
+    const float* __restrict__ ehat_in, float* __restrict__ zout, float* __restrict__ ih0_out,
+    long long n, Ehat3 eh, Consts3 k, int max_iters) {
   __shared__ float hess[kTri * kThreads];
   long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  float* H = hess + threadIdx.x;
+  float* H = hess + threadIdx.x;  // chord sweeps: the cached Hessian, factored
   const Cells cells{cells_in + e, n};
-  const float* h = eh.h;
-  float z[12], dxpu[12], fr[12];
+  float z[12], dxpu[12], fr[12], h_e[9];
 #pragma unroll
   for (int c = 0; c < 12; ++c) {
     z[c] = z_in[c * n + e];
     dxpu[c] = dxpu_in[c * n + e];
     fr[c] = free_in[c * n + e];
   }
+  const float* h = eh.h;
+  if constexpr (kComp) {
+#pragma unroll
+    for (int c = 0; c < 9; ++c) h_e[c] = ehat_in[c * n + e];
+    h = h_e;
+  }
 
   ih0_out[e] = energy3_unreg(z, cells, h, k);
+  if constexpr (kChord) {
+    hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
+    factor12(H);
+  }
 
   for (int it = 0; it < max_iters; ++it) {
     // gradient, its norm and the regularized energy at the start
     float g[12];
     float ih;
     float e0 = grad3<float>(z, cells, h, dxpu, fr, k, g, ih);
-    float gnorm = norm1(g);
+    if constexpr (kChord) {
+      // retire on a small gradient from the second sweep on, before moving
+      if (it > 0 && norm1(g) < k.tol) break;
+      float det_floor = floor_of(edet3(z));
 
-    float p[12];
-    hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
-    factor12(H);
-    direction(H, g, k.inv_w2, p);
-
-    float det_floor = floor_of(edet3(z));
-    float alpha = backtrack(z, p, cells, h, dxpu, k, e0, det_floor);
-    float step_inf = alpha * absmax(p);
-    bool stalled = step_inf <= kEpsStall * (1.0f + absmax(z));
-    // retire on a small gradient from the second sweep on, before moving
-    if (it > 0 && gnorm < k.tol) break;
+      // the cached Hessian's step, tried once at alpha 1
+      float p[12], zt[12];
+      direction(H, g, k.inv_w2, p);
 #pragma unroll
-    for (int i = 0; i < 12; ++i) z[i] = z[i] + alpha * p[i];
-    if (stalled) break;
+      for (int i = 0; i < 12; ++i) zt[i] = z[i] + p[i];
+      if (!trial_ok(zt, cells, h, dxpu, k, e0, det_floor)) {
+        // refresh: the Hessian at z replaces the cache, then backtracking
+        hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
+        factor12(H);
+        direction(H, g, k.inv_w2, p);
+        float alpha = backtrack(z, p, cells, h, dxpu, k, e0, det_floor);
+#pragma unroll
+        for (int i = 0; i < 12; ++i) p[i] = alpha * p[i];
+      }
+      bool stalled = absmax(p) <= kEpsStall * (1.0f + absmax(z));
+#pragma unroll
+      for (int i = 0; i < 12; ++i) z[i] = z[i] + p[i];
+      if (stalled) break;
+    } else {
+      float gnorm = norm1(g);
+
+      float p[12];
+      hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
+      factor12(H);
+      direction(H, g, k.inv_w2, p);
+
+      float det_floor = floor_of(edet3(z));
+      float alpha = backtrack(z, p, cells, h, dxpu, k, e0, det_floor);
+      float step_inf = alpha * absmax(p);
+      bool stalled = step_inf <= kEpsStall * (1.0f + absmax(z));
+      // retire on a small gradient from the second sweep on, before moving
+      if (it > 0 && gnorm < k.tol) break;
+#pragma unroll
+      for (int i = 0; i < 12; ++i) z[i] = z[i] + alpha * p[i];
+      if (stalled) break;
+    }
   }
 #pragma unroll
   for (int c = 0; c < 12; ++c) zout[c * n + e] = z[c];
 }
 
-// K4'. The JAX kernel guards its refresh per tile (pl.when over the tile's
-// max of active & ~ok1) and writes the new Hessian and step only where the
-// cached step was rejected (h_write(H2, keep=ok1), where(ok1, p, alpha p2)).
-// Here the guard is per element, and gives the same results: an element
-// that accepts the cached step keeps its cached Hessian and that step
-// whether or not a neighbour refreshes, and an element the JAX kernel
-// refreshes without needing it is one that is no longer active, which never
-// moves again. An element that retires on its gradient norm does not move
-// either, so it leaves before the solve.
-__global__ void __launch_bounds__(kThreads) prox3d_chord_comp_kernel(
-    const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
-    const float* __restrict__ free_in, const float* __restrict__ cells_in,
-    const float* __restrict__ ehat_in, float* __restrict__ zout, float* __restrict__ ih0_out,
-    long long n, Consts3 k, int max_iters) {
-  __shared__ float hess[kTri * kThreads];
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float* H = hess + threadIdx.x;  // the cached Hessian, factored
-  const Cells cells{cells_in + e, n};
-  float z[12], dxpu[12], fr[12], h[9];
-#pragma unroll
-  for (int c = 0; c < 12; ++c) {
-    z[c] = z_in[c * n + e];
-    dxpu[c] = dxpu_in[c * n + e];
-    fr[c] = free_in[c * n + e];
-  }
-#pragma unroll
-  for (int c = 0; c < 9; ++c) h[c] = ehat_in[c * n + e];
-
-  ih0_out[e] = energy3_unreg(z, cells, h, k);
-  hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
-  factor12(H);
-
-  for (int it = 0; it < max_iters; ++it) {
-    float g[12];
-    float ih;
-    float e0 = grad3<float>(z, cells, h, dxpu, fr, k, g, ih);
-    // retire on a small gradient from the second sweep on, before moving
-    if (it > 0 && norm1(g) < k.tol) break;
-    float det_floor = floor_of(edet3(z));
-
-    // the cached Hessian's step, tried once at alpha 1
-    float p[12], zt[12];
-    direction(H, g, k.inv_w2, p);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) zt[i] = z[i] + p[i];
-    if (!trial_ok(zt, cells, h, dxpu, k, e0, det_floor)) {
-      // refresh: the Hessian at z replaces the cache, then backtracking
-      hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
-      factor12(H);
-      direction(H, g, k.inv_w2, p);
-      float alpha = backtrack(z, p, cells, h, dxpu, k, e0, det_floor);
-#pragma unroll
-      for (int i = 0; i < 12; ++i) p[i] = alpha * p[i];
-    }
-    bool stalled = absmax(p) <= kEpsStall * (1.0f + absmax(z));
-#pragma unroll
-    for (int i = 0; i < 12; ++i) z[i] = z[i] + p[i];
-    if (stalled) break;
-  }
-#pragma unroll
-  for (int c = 0; c < 12; ++c) zout[c * n + e] = z[c];
+template <bool kChord, bool kComp>
+int launch(const float* z, const float* dxpu, const float* free_, const float* cells,
+           const float* ehat, float* zout, float* ih0, long long n, const float* consts,
+           int max_iters, void* stream) {
+  if (n <= 0) return 0;
+  Ehat3 eh{};
+  Consts3 k;
+  if constexpr (!kComp) std::memcpy(&eh, consts, sizeof(eh));
+  std::memcpy(&k, consts + (kComp ? 0 : 9), sizeof(k));
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  prox3d_kernel<kChord, kComp><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// consts: 18 floats, Ehat row-major, then the 9 of Consts3 (w^2, w^2/2,
-// 1/w^2, tol, then the five f32 constants of ops/prox3d.py)
+// consts: K4 and K4''a take 18 floats, Ehat row-major, then the 9 of
+// Consts3 (w^2, w^2/2, 1/w^2, tol, then the five f32 constants of
+// ops/prox3d.py); K4' and K4''b take the 9 of Consts3 and ehat [9, n], each
+// element's own Ehat.
 extern "C" int mm_prox3d(const float* z, const float* dxpu, const float* free_,
                          const float* cells, float* zout, float* ih0, long long n,
                          const float* consts, int max_iters, void* stream) {
-  if (n <= 0) return 0;
-  Ehat3 eh;
-  Consts3 k;
-  std::memcpy(&eh, consts, sizeof(eh));
-  std::memcpy(&k, consts + 9, sizeof(k));
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  prox3d_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      z, dxpu, free_, cells, zout, ih0, n, eh, k, max_iters);
-  return (int)cudaGetLastError();
+  return launch<false, false>(z, dxpu, free_, cells, nullptr, zout, ih0, n, consts, max_iters,
+                              stream);
 }
 
-// consts: the 9 floats of Consts3; ehat: [9, n], each element's own Ehat
 extern "C" int mm_prox3d_chord_comp(const float* z, const float* dxpu, const float* free_,
                                     const float* cells, const float* ehat, float* zout,
                                     float* ih0, long long n, const float* consts, int max_iters,
                                     void* stream) {
-  if (n <= 0) return 0;
-  Consts3 k;
-  std::memcpy(&k, consts, sizeof(k));
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  prox3d_chord_comp_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      z, dxpu, free_, cells, ehat, zout, ih0, n, k, max_iters);
-  return (int)cudaGetLastError();
+  return launch<true, true>(z, dxpu, free_, cells, ehat, zout, ih0, n, consts, max_iters,
+                            stream);
+}
+
+extern "C" int mm_prox3d_chord(const float* z, const float* dxpu, const float* free_,
+                               const float* cells, float* zout, float* ih0, long long n,
+                               const float* consts, int max_iters, void* stream) {
+  return launch<true, false>(z, dxpu, free_, cells, nullptr, zout, ih0, n, consts, max_iters,
+                             stream);
+}
+
+extern "C" int mm_prox3d_comp(const float* z, const float* dxpu, const float* free_,
+                              const float* cells, const float* ehat, float* zout, float* ih0,
+                              long long n, const float* consts, int max_iters, void* stream) {
+  return launch<false, true>(z, dxpu, free_, cells, ehat, zout, ih0, n, consts, max_iters,
+                             stream);
 }

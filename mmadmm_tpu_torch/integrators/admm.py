@@ -1,21 +1,29 @@
 """MM-ADMM on the stock element-major engine (port of
-``mmadmm_tpu/integrators/admm.py::ADMMIntegrator``, single device, with
-``prox_backend="pallas"``; reference ``MeshIntegrator<D>``).
+``mmadmm_tpu/integrators/admm.py::ADMMIntegrator``, single device;
+reference ``MeshIntegrator<D>``).
 
 It takes any mesh, structured or not: the per-element state (z, u) is
 element-major ``[NF, D+1, D]``, ``D x`` a gather ``x[F]`` and ``D^T y``
-the degree-padded sum (``ops/scatter.py``). The prox is a kernel behind
-its element-major entry, which fetches the cells at z and moves the
-blocks to channels and back: K1 in 2D (``ops/prox2d.py::prox_elements``),
-K4' on a 3D computational mesh and K4 on any other 3D mesh
-(``ops/prox3d.py::prox_elements``). The predictor's gradient is
-``MovingMesh.gradient``, the batched Huang gradient with the mesh's Ehat
-(per element on a computational mesh).
+the degree-padded sum (``ops/scatter.py``). The prox is the mesh's
+(``MovingMesh.prox_fn``): on the kernel route (``prox_backend="pallas"``)
+a kernel behind its element-major entry, which fetches the cells at z and
+moves the blocks to channels and back (K1 in 2D, K4, K4' or K4'' in 3D);
+on the generic route (``"vmap"``, every float64 run and every 2D
+computational mesh) the batched Newton prox of ``ops/prox.py`` in the
+mesh's dtype. The predictor's gradient is ``MovingMesh.gradient``, the
+batched Huang gradient with the mesh's Ehat (per element on a
+computational mesh).
 
-Each step is ``admm_base.ADMMBase``'s. The JAX state's chord Jacobian
-``J`` and its ``j_fresh`` flag are dead under the kernel backend
-(``admm.py:131-147`` in the JAX package: the kernels build their Hessians
-themselves) and are not carried.
+On the generic route the state carries the prox's chord Jacobian ``J
+[NF, n, n]`` across prox calls and time steps (``admm.py:65-75, :124-160``
+in the JAX package): the first prox call of a run builds it
+(``j_fresh``), and the prox's refreshes keep it current. ``j_carry=None``
+carries it while it takes at most 400 MiB; without the carry each prox
+call builds its own entry Jacobian and ``J`` is an empty ``[NF, 0, 0]``.
+The kernels build their Hessians themselves, so the kernel route never
+carries it (``j_carry=True`` raises there).
+
+Each step is ``admm_base.ADMMBase``'s.
 """
 
 from __future__ import annotations
@@ -26,8 +34,9 @@ from typing import NamedTuple
 import torch
 
 from ..mesh import MovingMesh
-from ..ops import prox2d, prox3d
 from .admm_base import ADMMBase
+
+J_CARRY_MAX_BYTES = 400 * 2**20
 
 
 class ADMMState(NamedTuple):
@@ -38,6 +47,8 @@ class ADMMState(NamedTuple):
     ih_last: float
     rose: bool
     rises: int
+    J: torch.Tensor  # [NF, n, n] the carried chord Jacobian ([NF, 0, 0] without the carry)
+    j_fresh: bool  # J is built anew at the next prox call
 
 
 class ADMMIntegrator(ADMMBase):
@@ -52,12 +63,18 @@ class ADMMIntegrator(ADMMBase):
         tol: float = 1e-3,
         prox_max_iters: int = 50,
         grad_use: bool = False,
+        j_carry: bool | None = None,
     ):
-        if mesh.dtype != torch.float32:
-            raise NotImplementedError(
-                "the prox kernels are float32; float64 runs need the generic "
-                "prox (ROADMAP item A10)"
-            )
+        if mesh.prox_backend == "pallas":
+            if j_carry:
+                raise ValueError("j_carry=True needs the generic prox (prox_backend='vmap'): "
+                                 "the prox kernels build their Hessians themselves")
+            j_carry = False
+        elif j_carry is None:
+            n = mesh.dim * (mesh.dim + 1)
+            itemsize = torch.finfo(mesh.dtype).bits // 8
+            j_carry = mesh.n_elements * n * n * itemsize <= J_CARRY_MAX_BYTES
+        self.j_carry = bool(j_carry)
         self.mesh = mesh
         self.dt = float(dt)
         self.admm_iters = int(admm_iters)
@@ -74,9 +91,21 @@ class ADMMIntegrator(ADMMBase):
     def init_state(self) -> ADMMState:
         x0 = self.mesh.X0
         D = self.mesh.dim
-        u = torch.zeros((self.mesh.n_elements, D + 1, D), dtype=x0.dtype, device=x0.device)
+        nf = self.mesh.n_elements
+        u = torch.zeros((nf, D + 1, D), dtype=x0.dtype, device=x0.device)
+        n = D * (D + 1) if self.j_carry else 0
+        J = torch.zeros((nf, n, n), dtype=x0.dtype, device=x0.device)
         return ADMMState(x=x0, x_prev=x0, u=u, steps=0, ih_last=math.inf, rose=False,
-                         rises=0)
+                         rises=0, J=J, j_fresh=True)
+
+    def step(self, state: ADMMState):
+        """One MM-ADMM step (``ADMMBase.admm``), with the chord Jacobian
+        carried through its prox calls."""
+        if not self.j_carry:
+            new_state, info, _ = self.admm(state)
+            return new_state._replace(j_fresh=False), info
+        new_state, info, (J, _) = self.admm(state, (state.J, state.j_fresh))
+        return new_state._replace(J=J, j_fresh=False), info
 
     # ---- the engine's operators ----------------------------------------
     def gather(self, x):
@@ -93,15 +122,12 @@ class ADMMIntegrator(ADMMBase):
         rhs = self.tau * x_bar + self.dt2w2 * self.scatter(z - u)
         return rhs / self.t_diag[:, None]
 
-    def prox(self, z, dxpu):
-        """The prox kernel on every element: ``(z', ih0)``."""
+    def prox(self, z, dxpu, J_state=None):
+        """The mesh's prox on every element: ``(z', ih0)``, or ``(z', ih0,
+        J)`` with the carried chord Jacobian ``J_state = (J, fresh)``."""
         mesh = self.mesh
-        args = (self.w, self.prox_tol, self.prox_max_iters)
-        if mesh.dim == 2:
-            return prox2d.prox_elements(mesh.grid, z, dxpu, self.free,
-                                        mesh.ehat_np.reshape(-1), *args)
-        return prox3d.prox_elements(mesh.grid, z, mesh.xi, dxpu, self.free, *args,
-                                    ehat=mesh.ehat_np.reshape(-1))
+        args = (mesh.grid, z, mesh.xi, dxpu, self.free, self.prox_tol, self.prox_max_iters)
+        return mesh.prox_fn(*args) if J_state is None else mesh.prox_fn(*args, J_state)
 
     def euler_grad(self, x):
         """The free-masked assembled gradient ``[NP, D]`` for the

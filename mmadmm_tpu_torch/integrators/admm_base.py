@@ -55,6 +55,14 @@ class ADMMBase:
 
     def step(self, state):
         """One MM-ADMM step: ``(state, StepInfo)``."""
+        new_state, info, _ = self.admm(state)
+        return new_state, info
+
+    def admm(self, state, J_state=None):
+        """One MM-ADMM step: ``(state, StepInfo, J_state)``. With
+        ``J_state = (J, fresh)`` each prox call takes the chord Jacobian and
+        hands its updated ``J`` to the next (``prox(z, dxpu, J_state) ->
+        (z', ih0, J)``); the last one is returned."""
         x_bar, x, z, u = self.start(state)
         gx = self.gather(x)
         valid = self.valid
@@ -64,7 +72,11 @@ class ADMMBase:
         for i in range(self.admm_iters):
             dxpu = gx + u
             z_prev = z
-            z, ih0 = self.prox(z, dxpu)
+            if J_state is None:
+                z, ih0 = self.prox(z, dxpu)
+            else:
+                z, ih0, J = self.prox(z, dxpu, J_state)
+                J_state = (J, False)
             if i == 0:
                 ih_start = sum_f64(torch.where(valid.reshape(-1) > 0, ih0, 0.0))
             u = dxpu - z
@@ -81,4 +93,4 @@ class ADMMBase:
             x=x, x_prev=state.x, u=u, steps=state.steps + 1, ih_last=ih,
             rose=rose, rises=state.rises + 1 if rose else 0,
         )
-        return new_state, StepInfo(ih=ih, primal=primal, dual=dual, n_iters=n)
+        return new_state, StepInfo(ih=ih, primal=primal, dual=dual, n_iters=n), J_state

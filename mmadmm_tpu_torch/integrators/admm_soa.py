@@ -71,8 +71,8 @@ class SoAADMM3D(ADMMBase):
             raise ValueError("node layout is not the uncompacted box grid")
         if mesh.dtype != torch.float32:
             raise NotImplementedError(
-                "the prox kernel K4 is float32; float64 runs need the generic "
-                "prox (ROADMAP item A10)"
+                "the prox kernel K4 is float32; float64 runs take the stock engine's "
+                "generic prox, float64 kernels are ROADMAP item A20"
             )
         self.mesh = mesh
         self.dt = float(dt)

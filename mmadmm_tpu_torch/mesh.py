@@ -16,10 +16,20 @@
 Reference quirk kept: the JSON ``w`` is overridden by
 ``w = 0.5 sqrt(rho)`` (``Mesh.cpp:451``).
 
-The prox follows the device of the tensors: the engines call
-``ops.prox2d`` (K1) or ``ops.prox3d`` (K4, and K4' on a computational
-mesh), which launch the kernel on a CUDA tensor and run the plain PyTorch
-version on a CPU tensor.
+The prox (``prox_fn``, chosen as in ``mesh.py:126-203`` of the JAX
+package) is one of two routes, ``prox_backend``:
+
+* ``"pallas"``, the kernels: K1 in 2D (``ops/prox2d.py``); in 3D K4, K4'
+  or K4'' (``ops/prox3d.py``), chosen by the computational mesh and
+  ``prox_chord``. Each launches its CUDA kernel on a CUDA tensor and runs
+  its plain PyTorch version on a CPU tensor. The kernels are float32, and
+  K1 has no computational-mesh mode;
+* ``"vmap"``, the generic batched prox (``ops/prox.py``) in the mesh's
+  dtype, the JAX package's default.
+
+``"auto"`` takes the kernels where a kernel computes the function (float32,
+and not a 2D computational mesh) and the generic prox elsewhere: float64,
+and 2D computational meshes.
 """
 
 from __future__ import annotations
@@ -31,8 +41,9 @@ import torch
 
 from .geometry import topology
 from .geometry.node_type import NodeType
-from .ops import huang
+from .ops import huang, prox2d, prox3d
 from .ops.monitor_grid import build_monitor_grid, gather_cell
+from .ops.prox import make_prox_solver
 from .ops.reductions import sum_f64
 from .ops.scatter import gather_elements, scatter_add_dense
 from .runtime.device import resolve_device
@@ -52,7 +63,17 @@ class MovingMesh:
         Xc: np.ndarray | None = None,
         dtype=torch.float64,
         device=None,
+        prox_backend: str = "auto",
+        prox_chord: bool | None = None,
+        jac_batch: int | None = None,
     ):
+        """``prox_chord``: chord sweeps in the 3D prox kernel (K4' and
+        K4''a) or Newton sweeps (K4 and K4''b); None takes chord sweeps on a
+        computational mesh only (the JAX package's ``MMADMM_PROX_CHORD``,
+        ``mesh.py:183-187``). ``jac_batch``: the slab size of the generic
+        prox's Jacobian builds; None takes the JAX package's rule
+        (``mesh.py:157-166``: 131,072 for 3D meshes of over 300,000
+        elements, else the whole batch), 0 the whole batch."""
         X = np.asarray(X, dtype=np.float64)
         F = np.asarray(F, dtype=np.int32)
         mask = np.asarray(mask, dtype=np.int8)
@@ -97,6 +118,46 @@ class MovingMesh:
         else:
             self.xi = None
             self.elem_ehat = self.ehat
+        self._select_prox(prox_backend, prox_chord, jac_batch)
+
+    def _select_prox(self, backend, chord, jac_batch):
+        """Set ``prox_backend``, ``prox_chord``, ``jac_batch`` and
+        ``prox_fn(grid, z, xi, dxpu, free_mask, tol, max_iters[,
+        J_state])``."""
+        kernels_ok = self.dtype == torch.float32 and not (self.dim == 2 and self.comp_mesh)
+        if backend == "auto":
+            backend = "pallas" if kernels_ok else "vmap"
+        if backend == "pallas" and not kernels_ok:
+            raise ValueError(
+                "prox_backend 'pallas': the prox kernels are float32, and K1 has no "
+                "computational-mesh mode; use 'vmap' or 'auto'"
+            )
+        if backend not in ("pallas", "vmap"):
+            raise ValueError(f"unknown prox_backend {backend!r}")
+        self.prox_backend = backend
+        self.prox_chord = self.comp_mesh if chord is None else bool(chord)
+        w = self.w
+        if jac_batch is None:
+            jac_batch = 131_072 if self.dim == 3 and self.n_elements > 300_000 else 0
+        self.jac_batch = jac_batch or None  # the generic prox's slab (None: the whole batch)
+        if backend == "vmap":
+            self.prox_fn = make_prox_solver(self.ehat, self.comp_mesh, w, self.dim,
+                                            jac_batch=self.jac_batch)
+            return
+        if self.dim == 2:
+            def prox_fn(grid, z, xi, dxpu, free, tol, max_iters):
+                return prox2d.prox_elements(grid, z, dxpu, free, self.ehat_np.reshape(-1), w,
+                                            tol, max_iters)
+        else:
+            def prox_fn(grid, z, xi, dxpu, free, tol, max_iters):
+                return prox3d.prox_elements(grid, z, xi, dxpu, free, w, tol, max_iters,
+                                            ehat=self.ehat_np.reshape(-1),
+                                            chord=self.prox_chord)
+        self.prox_fn = prox_fn
+
+    def prox(self, z, xi, dxpu, free_mask, tol, max_iters):
+        """The prox on every element with this mesh's grid: ``(z', ih0)``."""
+        return self.prox_fn(self.grid, z, xi, dxpu, free_mask, tol, max_iters)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """D x (Mesh::buildDMatrix semantics): ``[NP, D] -> [NF, D+1, D]``."""

@@ -18,6 +18,12 @@ The gradient is the reference's hand-derived formula (:232-271), not the
 autodiff gradient of the sampled energy. ``detFJ`` and the trace are
 clamped to a tiny positive floor so fractional powers never see a
 negative base. Small matrix products are written out as broadcast sums.
+
+The fractional powers (``_pow``) are square roots and products, as the
+prox kernels write them: PyTorch's CPU ``pow`` rounds differently in its
+vectorized and scalar loops, so an element's value would depend on its
+place in the batch (and on how the batch is cut into slabs); its square
+root, and every derivative of these forms, does not.
 """
 
 from __future__ import annotations
@@ -48,6 +54,21 @@ def reference_ehat(D: int, n_elements: int) -> np.ndarray:
     det = abs(float(_det(torch.from_numpy(base))))  # exact for these entries
     base = base * (d_factorial(D) / det) ** (1.0 / D)
     return base / float(n_elements) ** (1.0 / D)
+
+
+def _pow(t, p: float):
+    """``t ** p`` for the functional's exponents, from square roots."""
+    if p == 0.5:
+        return torch.sqrt(t)
+    if p == -0.5:
+        return 1.0 / torch.sqrt(t)
+    if p == 1.5:
+        return t * torch.sqrt(t)
+    if p == 1.25:
+        return t * torch.sqrt(torch.sqrt(t))
+    if p == 2.25:
+        return t * t * torch.sqrt(torch.sqrt(t))
+    raise ValueError(f"no square-root form for the exponent {p}")
 
 
 def _mm(A, B):
@@ -113,9 +134,9 @@ def _common_terms(z, cells, ehat):
     det_fj_c = torch.clamp_min(det_fj, _DET_FLOOR)
 
     dp2 = d * P_EXP / 2.0
-    G = THETA * det_m * tr_c**dp2 + (1.0 - 2.0 * THETA) * d**dp2 * det_m * (
-        det_fj_c / det_m
-    ) ** P_EXP  # :219-220
+    G = THETA * det_m * _pow(tr_c, dp2) + (1.0 - 2.0 * THETA) * d**dp2 * det_m * _pow(
+        det_fj_c / det_m, P_EXP
+    )  # :219-220
     abs_k = torch.abs(edet / d_factorial(D))  # :222
     return dict(
         m_pre=m_pre, minv=minv, einv=einv, fj=fj, fjt=fjt, minv_jt=minv_jt,
@@ -148,17 +169,17 @@ def element_energy_grad(z, cells, ehat, dxpu=None, w=None):
     def s(a):  # per-element scalar -> broadcast over [D, D]
         return a[..., None, None]
 
-    dGdJ = s(d * P_EXP * THETA * det_m * tr ** (dp2 - 1.0)) * minv_jt  # :232
+    dGdJ = s(d * P_EXP * THETA * det_m * _pow(tr, dp2 - 1.0)) * minv_jt  # :232
     dGddet = (
-        P_EXP * (1.0 - 2.0 * THETA) * d**dp2 * det_m ** (1.0 - P_EXP)
-        * det_fj ** (P_EXP - 1.0)
+        P_EXP * (1.0 - 2.0 * THETA) * d**dp2 * _pow(det_m, 1.0 - P_EXP)
+        * _pow(det_fj, P_EXP - 1.0)
     )  # :233
     dGdM = s(
-        -0.5 * THETA * d * P_EXP * det_m * tr ** (dp2 - 1.0)
+        -0.5 * THETA * d * P_EXP * det_m * _pow(tr, dp2 - 1.0)
     ) * _mm(_mm(minv.transpose(-1, -2), fjt), _mm(fj, minv)) + s(
-        0.5 * THETA * det_m * tr**dp2
+        0.5 * THETA * det_m * _pow(tr, dp2)
         + (0.5 - THETA) * (1.0 - P_EXP) * d**dp2
-        * det_m ** (1.0 - P_EXP) * det_fj**P_EXP
+        * _pow(det_m, 1.0 - P_EXP) * _pow(det_fj, P_EXP)
     ) * minv  # :234-236
 
     # basisComb = sum_j einv.row(j) * tr(dGdM (mPre_{j+1} - mPre_0)) (:239-244)

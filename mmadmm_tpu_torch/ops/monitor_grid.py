@@ -118,7 +118,7 @@ def build_monitor_grid_np(X: np.ndarray, monitor, num_smooth: Optional[int] = No
                 and np.array_equal(grid[..., 2], grid[..., 6])
                 and np.array_equal(grid[..., 5], grid[..., 7])):
             raise NotImplementedError(
-                "non-symmetric 3D monitors need the narrow cell path (ROADMAP item A10)"
+                "non-symmetric 3D monitors need the narrow cell path (ROADMAP item A16)"
             )
         return axes, _table_3d(grid), None
     grid = _smooth_grid(mon_vals[nn].reshape(n + 1, n + 1, D * D), num_smooth)

@@ -1,5 +1,5 @@
-"""The 3D ADMM prox z-update: kernels K4 and K4' and their plain PyTorch
-versions.
+"""The 3D ADMM prox z-update: kernels K4, K4' and K4'' and their plain
+PyTorch versions.
 
 K4 is the port of ``mmadmm_tpu/ops/prox_pallas3d.py::make_prox_pallas3d``
 with ``chord=False, comp_mesh=False`` (the component-form Pallas kernel:
@@ -27,11 +27,20 @@ package's ``make_chord_sweeps``): one full Hessian per element at entry,
 cached; each sweep tries the cached Hessian's step at alpha 1 and only
 elements that reject it rebuild the Hessian and backtrack.
 
-``prox3d`` (K4) and ``prox3d_chord_comp`` (K4') are the entry points on
-channel tensors, ``prox_elements`` the element-major one of the stock
-engine. On a CPU tensor they run ``prox3d_plain`` or
-``prox3d_chord_comp_plain``; on a CUDA tensor they launch the CUDA kernel
-from ``csrc/prox3d.cu`` or raise. The plain versions repeat the kernels'
+K4'' is the same call site with the other two flag combinations, which
+the JAX package reaches only through its ``MMADMM_PROX_CHORD`` switch and
+the port through ``MovingMesh``'s ``prox_chord``: K4''a (``chord=True,
+comp_mesh=False``, chord sweeps with the constant Ehat) and K4''b
+(``chord=False, comp_mesh=True``, K4's Newton sweeps with each element's
+Ehat).
+
+``prox3d`` (K4), ``prox3d_chord_comp`` (K4'), ``prox3d_chord`` (K4''a) and
+``prox3d_comp`` (K4''b) are the entry points on channel tensors,
+``prox_elements`` the element-major one of the stock engine. On a CPU
+tensor each runs its plain version (``prox3d_plain``,
+``prox3d_chord_comp_plain``, ``prox3d_chord_plain``,
+``prox3d_comp_plain``); on a CUDA tensor it launches its CUDA kernel from
+``csrc/prox3d.cu`` or raises. The plain versions repeat the kernels'
 arithmetic operation by operation, so the kernels built with
 ``--fmad=false`` can agree with them bit for bit.
 """
@@ -248,63 +257,32 @@ def _rows(cells):
     return [[cells[v * ROW_W3 + k] for k in range(ROW_W3)] for v in range(4)]
 
 
-def prox3d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
-    """Plain PyTorch K4 on ``[C, N]`` channel tensors, sweeping only the
-    elements still active. Returns ``(z_out [12, N], ih0 [N])``;
-    ``stats``, if given, receives ``sweeps`` and ``element_sweeps``."""
-    ehat = tuple(float(v) for v in ehat)
+def _ehat_of(ehat):
+    """``ehat_of(cols)``: the Ehat of the columns ``cols``, the 9 constant
+    floats of a 9-float ``ehat``, or the columns of the channels ``[9, N]``."""
+    if isinstance(ehat, torch.Tensor) and ehat.dim() == 2:
+        return lambda cols: list(ehat[:, cols])
+    const = tuple(float(v) for v in ehat)
+    return lambda cols: const
+
+
+def _newton_plain(z, dxpu, free, cells, ehat_of, w, tol, max_iters, stats):
+    """Up to ``max_iters`` Newton sweeps of the elements still active."""
     w2, half_w2, inv_w2 = consts(w)
     tol = f32(tol)
-    ih0, _ = energy_c3(list(z), _rows(cells), ehat)
+    ih0, _ = energy_c3(list(z), _rows(cells), ehat_of(slice(None)))
 
     def sweep(not_first, sub, zc):
-        d, fr, c = list(dxpu[:, sub]), list(free[:, sub]), _rows(cells[:, sub])
+        d, fr, c, eh = list(dxpu[:, sub]), list(free[:, sub]), _rows(cells[:, sub]), ehat_of(sub)
         return newton_sweep(
             not_first, zc,
-            lambda zz: grad_c3(zz, c, ehat, d, w2, half_w2, fr),
-            lambda zz: hess_c3(zz, c, ehat, d, w2, half_w2, fr),
-            lambda zz: energy_c3(zz, c, ehat, d, half_w2)[1],
+            lambda zz: grad_c3(zz, c, eh, d, w2, half_w2, fr),
+            lambda zz: hess_c3(zz, c, eh, d, w2, half_w2, fr),
+            lambda zz: energy_c3(zz, c, eh, d, half_w2)[1],
             edet_c3, inv_w2, tol,
         )
 
     return run_sweeps(z, max_iters, sweep, stats), ih0
-
-
-def prox3d(z, dxpu, free, cells, ehat, w, tol, max_iters):
-    """K4: the 3D prox z-update on ``[C, N]`` float32 channel tensors.
-
-    A CPU tensor goes to ``prox3d_plain``. A CUDA tensor launches the
-    kernel from ``csrc/prox3d.cu`` on the current stream (built at first
-    use) and counts the launch in ``prox3d.launches``."""
-    n = z.shape[1]
-    for name, t, rows in (("z", z, 12), ("dxpu", dxpu, 12), ("free", free, 12),
-                          ("cells", cells, 4 * ROW_W3)):
-        check(name, t, rows, n, z.device)
-    if z.device.type == "cpu":
-        return prox3d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters)
-    if z.device.type != "cuda":
-        raise ValueError(f"prox3d runs on cpu or cuda, not {z.device}")
-    lib = library()
-    zout = torch.empty_like(z)
-    ih0 = torch.empty(n, dtype=z.dtype, device=z.device)
-    k = (ctypes.c_float * 18)(*ehat, *_consts3(w, tol))
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    rc = lib.mm_prox3d(
-        z.data_ptr(), dxpu.data_ptr(), free.data_ptr(), cells.data_ptr(),
-        zout.data_ptr(), ih0.data_ptr(), n, k, int(max_iters), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"prox3d kernel launch failed: CUDA error {rc}")
-    prox3d.launches += 1
-    return zout, ih0
-
-
-prox3d.launches = 0
-
-
-def _consts3(w, tol):
-    """The f32 constants of ``Consts3`` in ``csrc/huang3d.cuh``, in order."""
-    return (*consts(w), tol, K_THIRD, K_G2, K_DGDDET, K_SM2A, K_SM2B)
 
 
 def _cols(sub, rows):
@@ -315,19 +293,17 @@ def _cols(sub, rows):
     return sub if isinstance(rows, slice) else sub[rows]
 
 
-def prox3d_chord_comp_plain(z, dxpu, free, cells, ehat_e, w, tol, max_iters, stats=None):
-    """Plain PyTorch K4' on ``[C, N]`` channel tensors: one Hessian per
-    element at the input z, then up to ``max_iters`` chord sweeps of the
-    elements still active, each computing a Hessian only where its cached
-    step is rejected. Returns ``(z_out [12, N], ih0 [N])``; ``stats``, if
-    given, receives ``sweeps`` and ``element_sweeps``."""
+def _chord_plain(z, dxpu, free, cells, ehat_of, w, tol, max_iters, stats):
+    """One Hessian per element at the input z, then up to ``max_iters``
+    chord sweeps of the elements still active, each computing a Hessian
+    only where its cached step is rejected."""
     w2, half_w2, inv_w2 = consts(w)
     tol = f32(tol)
-    ih0, _ = energy_c3(list(z), _rows(cells), list(ehat_e))
+    ih0, _ = energy_c3(list(z), _rows(cells), ehat_of(slice(None)))
 
     def fns(cols):
         d, fr, c, eh = (list(dxpu[:, cols]), list(free[:, cols]), _rows(cells[:, cols]),
-                        list(ehat_e[:, cols]))
+                        ehat_of(cols))
         return (lambda zz: grad_c3(zz, c, eh, d, w2, half_w2, fr),
                 lambda zz: hess_c3(zz, c, eh, d, w2, half_w2, fr),
                 lambda zz: energy_c3(zz, c, eh, d, half_w2)[1])
@@ -343,6 +319,83 @@ def prox3d_chord_comp_plain(z, dxpu, free, cells, ehat_e, w, tol, max_iters, sta
     return run_sweeps(z, max_iters, sweep, stats, carry=hc), ih0
 
 
+def prox3d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
+    """Plain PyTorch K4 on ``[C, N]`` channel tensors, sweeping only the
+    elements still active. Returns ``(z_out [12, N], ih0 [N])``;
+    ``stats``, if given, receives ``sweeps`` and ``element_sweeps``."""
+    return _newton_plain(z, dxpu, free, cells, _ehat_of(ehat), w, tol, max_iters, stats)
+
+
+def prox3d_comp_plain(z, dxpu, free, cells, ehat_e, w, tol, max_iters, stats=None):
+    """Plain PyTorch K4''b: K4's Newton sweeps with each element's Ehat
+    (``ehat_e [9, N]``)."""
+    return _newton_plain(z, dxpu, free, cells, _ehat_of(ehat_e), w, tol, max_iters, stats)
+
+
+def prox3d_chord_comp_plain(z, dxpu, free, cells, ehat_e, w, tol, max_iters, stats=None):
+    """Plain PyTorch K4' on ``[C, N]`` channel tensors: chord sweeps with
+    each element's Ehat (``ehat_e [9, N]``). Returns ``(z_out [12, N], ih0
+    [N])``; ``stats``, if given, receives ``sweeps`` and
+    ``element_sweeps``."""
+    return _chord_plain(z, dxpu, free, cells, _ehat_of(ehat_e), w, tol, max_iters, stats)
+
+
+def prox3d_chord_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
+    """Plain PyTorch K4''a: K4''s chord sweeps with the constant Ehat (9
+    floats)."""
+    return _chord_plain(z, dxpu, free, cells, _ehat_of(ehat), w, tol, max_iters, stats)
+
+
+def _consts3(w, tol):
+    """The f32 constants of ``Consts3`` in ``csrc/huang3d.cuh``, in order."""
+    return (*consts(w), tol, K_THIRD, K_G2, K_DGDDET, K_SM2A, K_SM2B)
+
+
+def _launch(entry, plain, z, dxpu, free, cells, ehat, w, tol, max_iters):
+    """Run one of the four variants on ``[C, N]`` float32 channel tensors:
+    ``plain`` on CPU tensors; on CUDA tensors the kernel ``entry`` of
+    ``csrc/prox3d.cu`` on the current stream (built at first use). ``ehat``
+    is 9 floats or the channels ``[9, N]``. Returns ``(z_out, ih0)`` and
+    whether the kernel was launched."""
+    n = z.shape[1]
+    per_element = isinstance(ehat, torch.Tensor) and ehat.dim() == 2
+    checks = [("z", z, 12), ("dxpu", dxpu, 12), ("free", free, 12), ("cells", cells, 4 * ROW_W3)]
+    if per_element:
+        checks.append(("ehat_e", ehat, 9))
+    for name, t, rows in checks:
+        check(name, t, rows, n, z.device)
+    if z.device.type == "cpu":
+        return plain(z, dxpu, free, cells, ehat, w, tol, max_iters), False
+    if z.device.type != "cuda":
+        raise ValueError(f"{entry} runs on cpu or cuda, not {z.device}")
+    lib = library()
+    zout = torch.empty_like(z)
+    ih0 = torch.empty(n, dtype=z.dtype, device=z.device)
+    if per_element:
+        k = (ctypes.c_float * 9)(*_consts3(w, tol))
+        tensors = (z, dxpu, free, cells, ehat, zout, ih0)
+    else:
+        k = (ctypes.c_float * 18)(*ehat, *_consts3(w, tol))
+        tensors = (z, dxpu, free, cells, zout, ih0)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors), n, k, int(max_iters), stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return (zout, ih0), True
+
+
+def prox3d(z, dxpu, free, cells, ehat, w, tol, max_iters):
+    """K4: the 3D prox z-update on ``[C, N]`` float32 channel tensors.
+
+    A CPU tensor goes to ``prox3d_plain``. A CUDA tensor launches the
+    kernel from ``csrc/prox3d.cu`` on the current stream (built at first
+    use) and counts the launch in ``prox3d.launches``."""
+    out, launched = _launch("mm_prox3d", prox3d_plain, z, dxpu, free, cells, ehat, w, tol,
+                            max_iters)
+    prox3d.launches += launched
+    return out
+
+
 def prox3d_chord_comp(z, dxpu, free, cells, ehat_e, w, tol, max_iters):
     """K4': the 3D chord prox on a computational mesh, on ``[C, N]``
     float32 channel tensors (``ehat_e [9, N]`` the per-element Ehat).
@@ -351,70 +404,79 @@ def prox3d_chord_comp(z, dxpu, free, cells, ehat_e, w, tol, max_iters):
     launches the kernel from ``csrc/prox3d.cu`` on the current stream
     (built at first use) and counts the launch in
     ``prox3d_chord_comp.launches``."""
-    n = z.shape[1]
-    for name, t, rows in (("z", z, 12), ("dxpu", dxpu, 12), ("free", free, 12),
-                          ("cells", cells, 4 * ROW_W3), ("ehat_e", ehat_e, 9)):
-        check(name, t, rows, n, z.device)
-    if z.device.type == "cpu":
-        return prox3d_chord_comp_plain(z, dxpu, free, cells, ehat_e, w, tol, max_iters)
-    if z.device.type != "cuda":
-        raise ValueError(f"prox3d_chord_comp runs on cpu or cuda, not {z.device}")
-    lib = library()
-    zout = torch.empty_like(z)
-    ih0 = torch.empty(n, dtype=z.dtype, device=z.device)
-    k = (ctypes.c_float * 9)(*_consts3(w, tol))
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    rc = lib.mm_prox3d_chord_comp(
-        z.data_ptr(), dxpu.data_ptr(), free.data_ptr(), cells.data_ptr(), ehat_e.data_ptr(),
-        zout.data_ptr(), ih0.data_ptr(), n, k, int(max_iters), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"prox3d_chord_comp kernel launch failed: CUDA error {rc}")
-    prox3d_chord_comp.launches += 1
-    return zout, ih0
+    out, launched = _launch("mm_prox3d_chord_comp", prox3d_chord_comp_plain, z, dxpu, free,
+                            cells, ehat_e, w, tol, max_iters)
+    prox3d_chord_comp.launches += launched
+    return out
 
 
-prox3d_chord_comp.launches = 0
+def prox3d_chord(z, dxpu, free, cells, ehat, w, tol, max_iters):
+    """K4''a: chord sweeps with the constant Ehat (9 floats), on ``[C, N]``
+    float32 channel tensors; ``prox3d_chord_plain`` on a CPU tensor, the
+    kernel on a CUDA tensor (counted in ``prox3d_chord.launches``)."""
+    out, launched = _launch("mm_prox3d_chord", prox3d_chord_plain, z, dxpu, free, cells, ehat,
+                            w, tol, max_iters)
+    prox3d_chord.launches += launched
+    return out
 
 
-def prox_elements(grid, z, xi, dxpu, free, w, tol, max_iters, ehat=None):
+def prox3d_comp(z, dxpu, free, cells, ehat_e, w, tol, max_iters):
+    """K4''b: Newton sweeps with each element's Ehat (``ehat_e [9, N]``),
+    on ``[C, N]`` float32 channel tensors; ``prox3d_comp_plain`` on a CPU
+    tensor, the kernel on a CUDA tensor (counted in
+    ``prox3d_comp.launches``)."""
+    out, launched = _launch("mm_prox3d_comp", prox3d_comp_plain, z, dxpu, free, cells, ehat_e,
+                            w, tol, max_iters)
+    prox3d_comp.launches += launched
+    return out
+
+
+for _fn in (prox3d, prox3d_chord_comp, prox3d_chord, prox3d_comp):
+    _fn.launches = 0
+
+
+def prox_elements(grid, z, xi, dxpu, free, w, tol, max_iters, ehat=None, chord=None):
     """The element-major entry of the stock engine
     (``prox_pallas3d.py:464-487``): ``z, dxpu, free [NF, 4, 3]`` to
     channels, the cell fetch at z, the kernel, and back. On a
-    computational mesh ``xi [NF, 4, 3]`` gives each element's Ehat and the
-    kernel is K4'; else ``xi`` is None and K4 runs with the constant
-    ``ehat`` (9 floats). Returns ``(z' [NF, 4, 3], ih0 [NF])``."""
+    computational mesh ``xi [NF, 4, 3]`` gives each element's Ehat; else
+    ``xi`` is None and the constant ``ehat`` (9 floats) serves. ``chord``
+    (default: on a computational mesh) picks chord sweeps. The kernel by
+    ``(chord, computational mesh)``: K4 ``(False, False)``, K4'
+    ``(True, True)``, K4''a ``(True, False)``, K4''b ``(False, True)``.
+    Returns ``(z' [NF, 4, 3], ih0 [NF])``."""
     nf = z.shape[0]
+    if chord is None:
+        chord = xi is not None
 
     def ch(a):
         return a.reshape(nf, 12).T.contiguous()
 
     args = (ch(z), ch(dxpu), ch(free), element_cell_rows(grid, z))
     if xi is None:
-        zo, ih0 = prox3d(*args, ehat, w, tol, max_iters)
+        kernel = prox3d_chord if chord else prox3d
+        zo, ih0 = kernel(*args, ehat, w, tol, max_iters)
     else:
         eh = (xi[:, 1:] - xi[:, :1]).transpose(1, 2).reshape(nf, 9).T.contiguous()
-        zo, ih0 = prox3d_chord_comp(*args, eh, w, tol, max_iters)
+        kernel = prox3d_chord_comp if chord else prox3d_comp
+        zo, ih0 = kernel(*args, eh, w, tol, max_iters)
     return zo.T.reshape(nf, 4, 3), ih0
 
 
-# mm_prox3d(z, dxpu, free, cells, zout, ih0, n, consts[18], max_iters,
-#           stream) and mm_prox3d_chord_comp(z, dxpu, free, cells, ehat,
-#           zout, ih0, n, consts[9], max_iters, stream) in csrc/prox3d.cu
+# mm_prox3d and mm_prox3d_chord (z, dxpu, free, cells, zout, ih0, n,
+# consts[18], max_iters, stream); mm_prox3d_chord_comp and mm_prox3d_comp
+# (z, dxpu, free, cells, ehat, zout, ih0, n, consts[9], max_iters, stream);
+# all in csrc/prox3d.cu
+_TAIL = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
-    "mm_prox3d": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float),
-                                 ctypes.c_int, ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-    "mm_prox3d_chord_comp": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float),
-                                 ctypes.c_int, ctypes.c_void_p],
-        ctypes.c_int,
-    ),
+    "mm_prox3d": ([ctypes.c_void_p] * 6 + _TAIL, ctypes.c_int),
+    "mm_prox3d_chord": ([ctypes.c_void_p] * 6 + _TAIL, ctypes.c_int),
+    "mm_prox3d_chord_comp": ([ctypes.c_void_p] * 7 + _TAIL, ctypes.c_int),
+    "mm_prox3d_comp": ([ctypes.c_void_p] * 7 + _TAIL, ctypes.c_int),
 }
 
 
 def library() -> ctypes.CDLL:
-    """K4's and K4''s library, built from ``csrc/prox3d.cu`` at first use."""
+    """The library of K4, K4' and K4'', built from ``csrc/prox3d.cu`` at
+    first use."""
     return load_library("prox3d", _SIGNATURES)

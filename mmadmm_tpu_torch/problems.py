@@ -4,24 +4,40 @@
 The port runs MM-ADMM (method 0), explicit Euler (method 1) and backward
 Euler (method 2) on the 2D stencil engine, MM-ADMM on the 3D stencil
 engine (the JAX package's ``SoAADMM3D`` in stencil mode), and MM-ADMM on
-the stock element-major engine (``ADMMIntegrator``) for every other
-float32 mesh: FromFile meshes, 2D meshes off the stencil gate, and 3D
-computational meshes, which the JAX package keeps off its SoA engine
-(``problems.py:106-111``). Every other route raises
-``NotImplementedError`` naming the ROADMAP item that ports it. The JAX
-package also gates the stencil engines on mesh size (and, for Euler and
-backward Euler, on environment switches); the port sends every mesh that
-fits a stencil engine there.
+the stock element-major engine (``ADMMIntegrator``) for every other mesh.
+
+The mesh's prox route decides the engine (``MovingMesh``'s
+``prox_backend``). On the generic route, every float64 run, every
+``prox_backend="vmap"`` run and every 2D computational mesh, MM-ADMM runs
+on the stock engine, box meshes included. This is deliberate: the JAX
+package runs its float64 box meshes on its stencil engines with its Pallas
+kernels built in float64 (``admm_grid2d.py:158-163``,
+``admm_soa.py:241-246``), and the port's kernels are float32 (ROADMAP
+A20). A configuration loaded from a JSON file (float64, ``"auto"``) thus
+runs as loaded, as ``python run.py <config>`` runs it in the JAX package:
+the stock engine with the generic prox and the carried chord Jacobian.
+
+On the kernel route (float32), FromFile and LevelSet meshes, 2D meshes off
+the stencil gate and 3D computational meshes take the stock engine (which
+the JAX package keeps off its SoA engine, ``problems.py:106-111``), as
+does a 3D box mesh with ``prox_chord=True``: the JAX SoA engine builds its
+kernel with ``chord=False`` (``admm_soa.py:244``) and sends box meshes
+under 500,000 tets to the stock engine anyway (``problems.py:93-103``).
+Every other float32 box mesh takes its stencil engine; the JAX package
+also gates those on mesh size (and, for Euler and backward Euler, on
+environment switches), the port on the mesh alone. What the port does not
+run raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
-import torch
-
 import os
+
+import torch
 
 from .config import ExperimentConfig
 from .geometry import io as mesh_io
+from .geometry.level_set import circle_phi, mesh_from_level_set, sphere_phi
 from .geometry.node_type import NodeType
 from .geometry.rect_mesh import generate_uniform_rect_mesh
 from .geometry.shoulder import make_shoulder_mesh
@@ -34,7 +50,8 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def build_geometry(cfg: ExperimentConfig):
-    """``(X, F, mask)`` for SquareGrid, Shoulder and FromFile
+    """``(X, F, mask)`` for SquareGrid, Shoulder, LevelSet (the circle in
+    2D, the sphere in 3D, ``main.cpp:333-397``) and FromFile
     (``main.cpp:874-904``); FromFile paths are relative to
     ``cfg.base_dir``. The computational mesh of a ``comp_mesh`` run is
     ``X`` itself (``problems.py:30-66`` in the JAX package)."""
@@ -51,43 +68,34 @@ def build_geometry(cfg: ExperimentConfig):
               for p in (cfg.triangles_file, cfg.pnts_file, cfg.mask_file))
         )
     if cfg.test_type == "LevelSet":
-        raise NotImplementedError("LevelSet meshes are ROADMAP item A10")
+        phi, normal = (circle_phi, "circle") if cfg.dim == 2 else (sphere_phi, "grad")
+        return mesh_from_level_set(phi, *args, normal=normal)
     raise ValueError(f"unknown TestType {cfg.test_type!r}")
 
 
-def build_problem(cfg: ExperimentConfig, device=None):
+def build_problem(cfg: ExperimentConfig, device=None, *, prox_chord: bool | None = None):
     """Return ``(mesh, integrator)`` ready to run, on ``device`` (CUDA
-    unless the caller asks for the CPU)."""
+    unless the caller asks for the CPU). ``prox_chord`` picks chord or
+    Newton sweeps in the 3D prox kernel (``MovingMesh``; None: chord
+    sweeps on a computational mesh only)."""
     if cfg.method not in (0, 1, 2):
         raise ValueError(f"unknown method {cfg.method}")
-    if cfg.dim == 3 and cfg.method != 0:
+    if cfg.method != 0 and (cfg.dim == 3 or cfg.comp_mesh):
         item = "A11" if cfg.method == 1 else "A12"
-        raise NotImplementedError(f"3D method {cfg.method} is ROADMAP item {item}")
-    if cfg.comp_mesh and cfg.dim == 2:
         raise NotImplementedError(
-            "2D computational meshes need the generic prox (ROADMAP item A14)"
+            f"method {cfg.method} in 3D or on a computational mesh runs on the compact "
+            f"path (ROADMAP item {item})"
         )
     if cfg.n_devices > 1:
         raise NotImplementedError("multi-GPU runs are ROADMAP item A15")
-    if cfg.prox_backend == "vmap":
-        raise NotImplementedError("the generic vmap prox is ROADMAP item A10")
-    if cfg.prox_backend not in ("auto", "pallas"):
-        raise ValueError(f"unknown prox_backend {cfg.prox_backend!r}")
     X, F, mask = build_geometry(cfg)
     mesh = MovingMesh(
         X, F, mask, get_monitor(cfg.dim, cfg.mon_type),
         rho=cfg.rho, tau=cfg.tau, comp_mesh=cfg.comp_mesh, Xc=X if cfg.comp_mesh else None,
-        dtype=_DTYPES[cfg.dtype], device=device,
+        dtype=_DTYPES[cfg.dtype], device=device, prox_backend=cfg.prox_backend,
+        prox_chord=prox_chord,
     )
     box = cfg.test_type in ("SquareGrid", "Shoulder")
-    if cfg.dim == 3:
-        # the 3D stencil engine's gate (problems.py:93-127 in the JAX
-        # package, without the size threshold; the monitor grid is constant
-        # or 48-wide, since build_monitor_grid builds no other 3D grid)
-        if (box and not cfg.comp_mesh
-                and dense_layout_3d(cfg.nx, cfg.ny, cfg.nz, mesh) is not None):
-            return mesh, _soa3d(cfg, mesh)
-        return mesh, _stock(cfg, mesh)
     if cfg.method == 1:
         from .integrators.euler import EulerIntegrator
 
@@ -97,8 +105,18 @@ def build_problem(cfg: ExperimentConfig, device=None):
 
         return mesh, BackwardEulerIntegrator(mesh, cfg.dt, cfg.nx, cfg.ny,
                                              tol=cfg.step_tol)
+    if mesh.prox_backend == "vmap" or not box:
+        return mesh, _stock(cfg, mesh)
+    if cfg.dim == 3:
+        # the 3D stencil engine's gate (problems.py:93-127 in the JAX
+        # package, without the size threshold; the monitor grid is constant
+        # or 48-wide, since build_monitor_grid builds no other 3D grid)
+        if (not cfg.comp_mesh and not mesh.prox_chord
+                and dense_layout_3d(cfg.nx, cfg.ny, cfg.nz, mesh) is not None):
+            return mesh, _soa3d(cfg, mesh)
+        return mesh, _stock(cfg, mesh)
     # the stencil engine's gate (problems.py:136-161 in the JAX package)
-    if not box or dense_layout(cfg.nx, cfg.ny, mesh) is None:
+    if dense_layout(cfg.nx, cfg.ny, mesh) is None:
         return mesh, _stock(cfg, mesh)
     from .integrators.admm_grid2d import GridADMM2D
 
@@ -112,7 +130,7 @@ def build_problem(cfg: ExperimentConfig, device=None):
 
 def _stock(cfg: ExperimentConfig, mesh: MovingMesh):
     """The stock element-major engine (``problems.py:162-167`` in the JAX
-    package)."""
+    package), with the chord-Jacobian carry's default rule."""
     from .integrators.admm import ADMMIntegrator
 
     return ADMMIntegrator(

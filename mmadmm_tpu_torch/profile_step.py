@@ -5,32 +5,43 @@
 For MM-ADMM (method 0), explicit Euler (1) and backward Euler (2) at
 Shoulder-320, then 3D MM-ADMM at 3D Shoulder-40 (the identity monitor,
 768,000 tet slots) on the 3D stencil engine and at 3D CompSquare-20 (a
-computational mesh, 96,000 tets) on the stock engine, in turn (or only
-the runs whose names contain one of the NAMEs): runs 5 steps, then traces
-5 more with
-``torch.profiler`` (CPU and CUDA activities) and prints wall ms per step
-(host clock, ending in ``torch.cuda.synchronize()``), the device's busy
-share (the sum of kernel times over the wall time; kernels do not overlap
-on the one stream the port uses), the time of each of the port's kernels
-(K1 ``prox2d``, K2 ``eg2d``, K3 ``hess2d``, K4 ``prox3d``, K4'
-``prox3d_chord_comp``), the number of
-kernel launches per step, and the kernels with the most device time.
-Needs a CUDA card.
+computational mesh, 96,000 tets) on the stock engine, then Monitor3320r as
+a user loads it (float64, the generic prox with the carried Jacobian), in
+turn (or only the runs whose names contain one of the NAMEs): runs 5
+steps, then traces 5 more with ``torch.profiler`` (CPU and CUDA
+activities) and prints wall ms per step (host clock, ending in
+``torch.cuda.synchronize()``), the device's busy share (the sum of kernel
+times over the wall time; kernels do not overlap on the one stream the
+port uses), the time of each of the port's kernels (K1 ``prox2d``, K2
+``eg2d``, K3 ``hess2d``, K4, K4', K4''a and K4''b, the instantiations of
+``prox3d_kernel``), the number of kernel launches per step, and the
+kernels with the most device time. On the generic route it also prints
+the device time and launches of the prox's Jacobian builds
+(``ElementKernels.masked_jac``) and of its LDL^T solves
+(``ops/linalg.py::ldlt_solve``), the ``record_function`` ranges of
+``ops/prox.py``. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import ExperimentConfig, build_problem
+from . import ExperimentConfig, build_problem, load_experiment_config
+from .ops.prox import RANGES  # the generic prox's traced ranges
 
 WARM = 5
 STEPS = 5
-KERNELS = ("prox2d", "eg2d", "hess2d", "prox3d", "prox3d_chord_comp")  # "<name>_kernel"
+# kernel: the name its device time is found by
+KERNELS = {"prox2d": "prox2d_kernel", "eg2d": "eg2d_kernel", "hess2d": "hess2d_kernel",
+           "K4": "prox3d_kernel<false, false>", "K4'": "prox3d_kernel<true, true>",
+           "K4''a": "prox3d_kernel<true, false>", "K4''b": "prox3d_kernel<false, true>"}
+M3320R = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "Experiments", "InputFiles", "Monitor3320r.json")
 _2D = dict(test_type="Shoulder", dim=2, mon_type=1, nx=320, ny=320)
 RUNS = {
     "MM-ADMM": dict(_2D, method=0),
@@ -41,13 +52,17 @@ RUNS = {
     "3D MM-ADMM stock, 3D CompSquare-20": dict(test_type="SquareGrid", dim=3, mon_type=5,
                                                method=0, comp_mesh=True, nx=20, ny=20, nz=20,
                                                rho=10.0),
+    "Monitor3320r float64 (generic route)": M3320R,
 }
 
 
 def profile_run(name: str) -> None:
-    cfg = ExperimentConfig(**dict(dict(dt=5e-3, tau=0.1, rho=50.0, dtype="float32"),
-                                  **RUNS[name]))
-    _, integ = build_problem(cfg)
+    if isinstance(RUNS[name], str):
+        cfg = load_experiment_config(RUNS[name])
+    else:
+        cfg = ExperimentConfig(**dict(dict(dt=5e-3, tau=0.1, rho=50.0, dtype="float32"),
+                                      **RUNS[name]))
+    mesh, integ = build_problem(cfg)
     state = integ.init_state()
     for _ in range(WARM):
         state, _ = integ.step(state)
@@ -60,24 +75,47 @@ def profile_run(name: str) -> None:
             infos.append(info)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    averages = prof.key_averages()
+    # device events, without the ranges' own device-side annotations
+    kernels = [e for e in averages if e.device_type.name == "CUDA" and e.key not in RANGES]
     dev_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     inner = "".join(f", {f} {[getattr(i, f) for i in infos]}" for f in ("n_iters", "n_newton")
                     if hasattr(infos[0], f))
     print(f"{name} on {torch.cuda.get_device_name(0)}: {STEPS} traced steps "
           f"after {WARM}{inner}")
-    def kernel_ms(name):
-        us = sum(e.self_device_time_total for e in kernels if name + "_kernel" in e.key)
+
+    def kernel_ms(key):
+        us = sum(e.self_device_time_total for e in kernels if key in e.key)
         return 1e-3 * us / STEPS
 
-    per_kernel = "; ".join(f"{k} {kernel_ms(k):.3f} ms/step" for k in KERNELS)
+    per_kernel = "; ".join(f"{k} {kernel_ms(key):.3f} ms/step" for k, key in KERNELS.items())
     print(f"wall {wall_ms / STEPS:.3f} ms/step (traced); device busy "
           f"{1e-3 * dev_us / STEPS:.3f} ms/step = {100 * 1e-3 * dev_us / wall_ms:.1f} % of wall; "
           f"{per_kernel}; {launches / STEPS:.0f} kernel launches/step")
+    if mesh.prox_backend == "vmap":
+        # each range's device time and launches: those of the kernels
+        # launched under it
+        events = prof.events()
+        for r in RANGES:
+            spans = [e for e in events if e.name == r and e.device_type.name == "CPU"]
+            us, n = map(sum, zip(*(_kernels(e) for e in spans))) if spans else (0, 0)
+            print(f"  range {r}: {len(spans) / STEPS:.1f} calls/step, device "
+                  f"{1e-3 * us / STEPS:.3f} ms/step, {n / STEPS:.0f} kernel launches/step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {1e-3 * e.self_device_time_total / STEPS:8.3f} ms/step "
               f"{e.count / STEPS:6.1f} launches/step  {e.key[:90]}")
+
+
+def _kernels(event):
+    """``(device us, launches)`` of the kernels launched under a profiler
+    event and its children (not the ranges' device-side annotations)."""
+    own = [k for k in event.kernels if k.name not in RANGES]
+    us, n = sum(k.duration for k in own), len(own)
+    for c in event.cpu_children:
+        cu, cn = _kernels(c)
+        us, n = us + cu, n + cn
+    return us, n
 
 
 def main() -> None:

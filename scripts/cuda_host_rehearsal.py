@@ -1,4 +1,4 @@
-"""Run kernels K1, K4 and K4' as host code, thread by thread, against
+"""Run kernels K1, K4, K4' and K4'' as host code, thread by thread, against
 their plain PyTorch versions: a rehearsal of their arithmetic where there
 is no card and no ``nvcc``.
 
@@ -10,9 +10,11 @@ against a stub ``cuda_runtime.h`` that defines ``__device__``, ``__ldg``,
 ``threadIdx`` and the like as host code, into a temporary directory, and
 calls each kernel once per element. Their outputs are compared bit for bit
 with ``prox2d_plain`` (Shoulder nx=16), ``prox3d_plain`` (3D SquareGrid
-and Shoulder nx=4 and SquareGrid nx=6) and ``prox3d_chord_comp_plain``
+and Shoulder nx=4 and SquareGrid nx=6), ``prox3d_chord_comp_plain``
 (3D SquareGrid nx=4 and 6 on a computational mesh, mon_type 5, rho 10,
-through the stock engine's element-major blocks), on the step-0 prox
+through the stock engine's element-major blocks), ``prox3d_chord_plain``
+(3D SquareGrid nx=4 with ``prox_chord=True``) and ``prox3d_comp_plain``
+(the nx=4 computational mesh with ``prox_chord=False``), on the step-0 prox
 inputs with their dual perturbed by a seeded normal. PyTorch's CPU
 ``sqrt`` need not be correctly rounded (the card's is, like the
 kernels'), so the script first prints the share of f32 square roots where
@@ -72,31 +74,43 @@ extern "C" int host_prox2d(const float* z, const float* dxpu, const float* fr, c
 }
 """,
     "prox3d": """
-extern "C" int host_prox3d(const float* z, const float* dxpu, const float* fr, const float* cells,
-                           float* zout, float* ih0, long long n, const float* c, int max_iters) {
-  Ehat3 eh;
+template <bool kChord, bool kComp>
+int host_run(const float* z, const float* dxpu, const float* fr, const float* cells,
+             const float* ehat, float* zout, float* ih0, long long n, const float* c,
+             int max_iters) {
+  Ehat3 eh{};
   Consts3 k;
-  std::memcpy(&eh, c, sizeof(eh));
-  std::memcpy(&k, c + 9, sizeof(k));
+  if (!kComp) std::memcpy(&eh, c, sizeof(eh));
+  std::memcpy(&k, c + (kComp ? 0 : 9), sizeof(k));
   blockDim.x = kThreads;
   for (long long e = 0; e < n; ++e) {
     blockIdx.x = e / kThreads; threadIdx.x = e % kThreads;
-    prox3d_kernel(z, dxpu, fr, cells, zout, ih0, n, eh, k, max_iters);
+    prox3d_kernel<kChord, kComp>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k, max_iters);
   }
   return 0;
+}
+
+extern "C" int host_prox3d(const float* z, const float* dxpu, const float* fr, const float* cells,
+                           float* zout, float* ih0, long long n, const float* c, int max_iters) {
+  return host_run<false, false>(z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
+}
+
+extern "C" int host_prox3d_chord(const float* z, const float* dxpu, const float* fr,
+                                 const float* cells, float* zout, float* ih0, long long n,
+                                 const float* c, int max_iters) {
+  return host_run<true, false>(z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
 }
 
 extern "C" int host_prox3d_chord_comp(const float* z, const float* dxpu, const float* fr,
                                       const float* cells, const float* ehat, float* zout,
                                       float* ih0, long long n, const float* c, int max_iters) {
-  Consts3 k;
-  std::memcpy(&k, c, sizeof(k));
-  blockDim.x = kThreads;
-  for (long long e = 0; e < n; ++e) {
-    blockIdx.x = e / kThreads; threadIdx.x = e % kThreads;
-    prox3d_chord_comp_kernel(z, dxpu, fr, cells, ehat, zout, ih0, n, k, max_iters);
-  }
-  return 0;
+  return host_run<true, true>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+}
+
+extern "C" int host_prox3d_comp(const float* z, const float* dxpu, const float* fr,
+                                const float* cells, const float* ehat, float* zout, float* ih0,
+                                long long n, const float* c, int max_iters) {
+  return host_run<false, true>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
 }
 """,
 }
@@ -123,7 +137,9 @@ def build(tmp: str) -> dict:
         tail = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float), ctypes.c_int]
         getattr(lib, f"host_{name}").argtypes = [ctypes.c_void_p] * 6 + tail
         if name == "prox3d":
+            lib.host_prox3d_chord.argtypes = [ctypes.c_void_p] * 6 + tail
             lib.host_prox3d_chord_comp.argtypes = [ctypes.c_void_p] * 7 + tail
+            lib.host_prox3d_comp.argtypes = [ctypes.c_void_p] * 7 + tail
         libs[name] = lib
     return libs
 
@@ -145,29 +161,39 @@ def main() -> int:
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(tmp)
-        for kw in (dict(test_type="Shoulder", dim=2, mon_type=1, nx=16, ny=16),
-                   dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4),
-                   dict(test_type="Shoulder", dim=3, mon_type=0, nx=4, ny=4, nz=4),
-                   dict(test_type="SquareGrid", dim=3, mon_type=1, nx=6, ny=6, nz=6),
-                   dict(test_type="SquareGrid", dim=3, mon_type=5, nx=4, ny=4, nz=4,
-                        comp_mesh=True, rho=10.0),
-                   dict(test_type="SquareGrid", dim=3, mon_type=5, nx=6, ny=6, nz=6,
-                        comp_mesh=True, rho=10.0)):
+        for kw, chord in ((dict(test_type="Shoulder", dim=2, mon_type=1, nx=16, ny=16), None),
+                          (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4), None),
+                          (dict(test_type="Shoulder", dim=3, mon_type=0, nx=4, ny=4, nz=4), None),
+                          (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=6, ny=6, nz=6), None),
+                          (dict(test_type="SquareGrid", dim=3, mon_type=5, nx=4, ny=4, nz=4,
+                                comp_mesh=True, rho=10.0), True),
+                          (dict(test_type="SquareGrid", dim=3, mon_type=5, nx=6, ny=6, nz=6,
+                                comp_mesh=True, rho=10.0), True),
+                          (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4),
+                           True),
+                          (dict(test_type="SquareGrid", dim=3, mon_type=5, nx=4, ny=4, nz=4,
+                                comp_mesh=True, rho=10.0), False)):
             kw = dict(dict(method=0, dt=5e-3, tau=0.1, rho=50.0, dtype="float32"), **kw)
-            _, integ = build_problem(ExperimentConfig(**kw), device="cpu")
+            _, integ = build_problem(ExperimentConfig(**kw), device="cpu", prox_chord=chord)
             _, x, z, u = integ.start(integ.init_state())
             noise = torch.tensor(rng.normal(scale=3e-3, size=tuple(u.shape)), dtype=torch.float32)
             dxpu = integ.gather(x) + u + noise
             ehat = [float(v) for v in integ.mesh.ehat_np.reshape(-1)]
             consts = [*N.consts(integ.w), N.f32(integ.prox_tol)]
-            if kw.get("comp_mesh"):  # the stock engine: element-major blocks to channels
+            k3 = [*consts, P3.K_THIRD, P3.K_G2, P3.K_DGDDET, P3.K_SM2A, P3.K_SM2B]
+            if chord is not None:  # the stock engine: element-major blocks to channels
                 nf = z.shape[0]
-                name, entry, plain = "prox3d", "host_prox3d_chord_comp", P3.prox3d_chord_comp_plain
-                eh = integ.mesh.elem_ehat.reshape(nf, 9).T.contiguous()
+                name = "prox3d"
                 args = tuple(a.reshape(nf, 12).T.contiguous() for a in (z, dxpu, integ.free))
-                args += (element_cell_rows(integ.mesh.grid, z), eh)
-                k = [*consts, P3.K_THIRD, P3.K_G2, P3.K_DGDDET, P3.K_SM2A, P3.K_SM2B]
-                pargs = ()
+                args += (element_cell_rows(integ.mesh.grid, z),)
+                if kw.get("comp_mesh"):
+                    entry, plain = (("host_prox3d_chord_comp", P3.prox3d_chord_comp_plain)
+                                    if chord else ("host_prox3d_comp", P3.prox3d_comp_plain))
+                    args += (integ.mesh.elem_ehat.reshape(nf, 9).T.contiguous(),)
+                    k, pargs = k3, ()
+                else:
+                    entry, plain = "host_prox3d_chord", P3.prox3d_chord_plain
+                    k, pargs = [*ehat, *k3], (ehat,)
             elif kw["dim"] == 2:
                 name, entry, plain = "prox2d", "host_prox2d", P2.prox2d_plain
                 args = (z.contiguous(), dxpu.contiguous(), integ.free, integ.cells(z))
@@ -176,7 +202,7 @@ def main() -> int:
             else:
                 name, entry, plain = "prox3d", "host_prox3d", P3.prox3d_plain
                 args = (z.contiguous(), dxpu.contiguous(), integ.free, integ.cells(z))
-                k = [*ehat, *consts, P3.K_THIRD, P3.K_G2, P3.K_DGDDET, P3.K_SM2A, P3.K_SM2B]
+                k = [*ehat, *k3]
                 pargs = (ehat,)
             n = args[0].shape[1]
             zo, ih = torch.empty_like(args[0]), torch.empty(n)

@@ -134,7 +134,7 @@ def test_build_problem_routes_to_the_stencil_engine(test_type, method, cls):
 
 @pytest.mark.parametrize("method,item", [(1, "A11"), (2, "A12")], ids=["euler", "be"])
 @pytest.mark.parametrize("change,change_item", [
-    (dict(test_type="LevelSet"), "A10"), (dict(dtype="float64"), None),
+    (dict(test_type="LevelSet"), None), (dict(dtype="float64"), None),
     (dict(n_devices=2), "A15"), (dict(nx=8, ny=8), None),
 ], ids=["levelset", "float64", "sharded", "off_gate"])
 def test_unported_routes_raise(method, item, change, change_item):

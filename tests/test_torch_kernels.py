@@ -15,7 +15,8 @@ prox3d_plain``), those of tests/test_prox_pallas3d.py:88-108: ih0 within
 rtol 2e-5, the regularized energies after the solve within rtol 1e-4 and
 atol 1e-6; the same for K4' (``csrc/prox3d.cu`` vs ``ops/prox3d.py::
 prox3d_chord_comp_plain``, tests/test_torch_prox3d_chord.py), on the
-stock engine's inputs."""
+stock engine's inputs. K4''a and K4''b (``prox3d_chord``,
+``prox3d_comp``) are held bit for bit to their plain versions."""
 
 import pytest
 import torch
@@ -344,3 +345,81 @@ def test_cuda_tensors_never_take_the_plain_k4c():
         P3.prox3d_chord_comp(z, dxpu, free, cells, eh[:6].contiguous(), *args)
     with pytest.raises(ValueError):
         P3.prox3d_chord_comp(z, dxpu, free, cells, eh.cpu(), *args)
+
+
+# K4''a (``prox3d_chord``, 3D SquareGrid with prox_chord=True) and K4''b
+# (``prox3d_comp``, 3D CompSquare with prox_chord=False), both on the stock
+# engine: bit-equal to their plain versions, as K4 and K4' are.
+K4PP = {
+    "chord": (lambda: P3.prox3d_chord, lambda: P3.prox3d_chord_plain,
+              dict(mon_type=1, rho=50.0), True),
+    "comp": (lambda: P3.prox3d_comp, lambda: P3.prox3d_comp_plain,
+             dict(mon_type=5, rho=10.0, comp_mesh=True), False),
+}
+
+
+def _k4pp(variant, nx=4):
+    """``(integrator, kernel, plain, channel inputs, args)`` of a K4''
+    variant on its stock-engine path."""
+    kernel, plain, kw, chord = K4PP[variant]
+    cfg = ExperimentConfig(test_type="SquareGrid", dim=3, method=0, nx=nx, ny=nx, nz=nx,
+                           dtype="float32", **kw)
+    _, integ = build_problem(cfg, prox_chord=chord)
+    inputs, _ = _stock_inputs(integ)
+    args = (integ.w, integ.prox_tol, integ.prox_max_iters)
+    if not integ.mesh.comp_mesh:
+        args = (integ.mesh.ehat_np.reshape(-1),) + args
+    return integ, kernel(), plain(), inputs, args
+
+
+@pytest.mark.parametrize("variant", list(K4PP))
+def test_k4pp_bit_equal_to_plain(variant):
+    _card()
+    _, kernel, plain, inputs, args = _k4pp(variant)
+    before = kernel.launches
+    zk, ihk = kernel(*inputs, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    zp, ihp = plain(*inputs, *args)
+    assert torch.equal(zk, zp) and torch.equal(ihk, ihp)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 700])
+@pytest.mark.parametrize("variant", list(K4PP))
+def test_k4pp_ragged_sizes(variant, n):
+    _card()
+    _, kernel, plain, inputs, args = _k4pp(variant)
+    cut = tuple(t[:, :n].contiguous() for t in inputs)
+    zk, ihk = kernel(*cut, *args)
+    torch.cuda.synchronize()
+    zp, ihp = plain(*cut, *args)
+    assert torch.equal(zk, zp) and torch.equal(ihk, ihp)
+
+
+@pytest.mark.parametrize("variant", list(K4PP))
+def test_k4pp_paths_launch_once_per_admm_iteration(variant):
+    _card()
+    integ, kernel, *_ = _k4pp(variant)
+    others = [P.prox2d, P3.prox3d, P3.prox3d_chord_comp, P3.prox3d_chord, P3.prox3d_comp]
+    for fn in others:
+        fn.launches = 0
+    iters = []
+    _, trace, steps = run(integ, integ.init_state(), cap=3, dt_tol=0.0,
+                          on_step=lambda k, info: iters.append(info.n_iters))
+    assert kernel.launches == sum(iters) > 0
+    assert all(fn.launches == 0 for fn in others if fn is not kernel)
+    assert trace[steps - 1] < trace[0]
+
+
+@pytest.mark.parametrize("variant", list(K4PP))
+def test_cuda_tensors_never_take_the_plain_k4pp(variant):
+    """A CUDA input of the wrong shape, type or device raises; there is no
+    fallback."""
+    _card()
+    _, kernel, _, (z, dxpu, free, cells, *eh), args = _k4pp(variant)
+    with pytest.raises(ValueError):
+        kernel(z.double(), dxpu, free, cells, *eh, *args)
+    with pytest.raises(ValueError):
+        kernel(z, dxpu, free, cells[:200].contiguous(), *eh, *args)
+    with pytest.raises(ValueError):
+        kernel(z, dxpu.cpu(), free, cells, *eh, *args)

@@ -138,15 +138,9 @@ def test_config_loads_like_jax():
     # methods 1 and 2 run on the stencil engine; off its gate they name
     # their own items
     (dict(method=1, nx=8, ny=8), "A11"), (dict(method=2, nx=8, ny=8), "A12"),
-    # 3D runs MM-ADMM on the SoA stencil engine and, on computational
-    # meshes, on the stock engine; the rest of 3D names its item
+    # 3D runs MM-ADMM only; methods 1 and 2 in 3D name their items
     (dict(dim=3, nz=4, method=1), "A11"), (dict(dim=3, nz=4, method=2), "A12"),
-    (dict(dim=3, nz=4, dtype="float64"), "A10"),
-    (dict(dim=3, nz=4, test_type="LevelSet"), "A10"),
-    (dict(comp_mesh=True), "A14"), (dict(n_devices=2), "A15"),
-    (dict(test_type="LevelSet"), "A10"), (dict(dtype="float64"), "A10"),
-    (dict(nx=8, ny=8, dtype="float64"), "A10"),  # the stock engine is float32 too
-    (dict(prox_backend="vmap"), "A10"),  # the generic prox
+    (dict(n_devices=2), "A15"),
 ])
 def test_unported_routes_name_their_roadmap_item(change, item):
     kw = dict(KW, test_type="Shoulder")
@@ -155,21 +149,45 @@ def test_unported_routes_name_their_roadmap_item(change, item):
         build_problem(ExperimentConfig(**kw), device="cpu")
 
 
-@pytest.mark.parametrize("change,engine", [
+@pytest.mark.parametrize("change,engine,backend", [
     # a 3D computational mesh: the stock engine with K4' (ROADMAP A14, B5)
-    (dict(dim=3, nz=4, comp_mesh=True), "ADMMIntegrator"),
+    (dict(dim=3, nz=4, comp_mesh=True), "ADMMIntegrator", "pallas"),
     # 4*nx*ny not a multiple of 1024: off the stencil gate, the stock engine
     # with K1 (ROADMAP A10)
-    (dict(nx=8, ny=8), "ADMMIntegrator"),
-    (dict(), "GridADMM2D"), (dict(dim=3, nz=4), "SoAADMM3D"),
-    (dict(prox_backend="pallas"), "GridADMM2D"),
+    (dict(nx=8, ny=8), "ADMMIntegrator", "pallas"),
+    (dict(), "GridADMM2D", "pallas"), (dict(dim=3, nz=4), "SoAADMM3D", "pallas"),
+    (dict(prox_backend="pallas"), "GridADMM2D", "pallas"),
+    # the generic route (ROADMAP A10, A14): float64, "vmap" and 2D
+    # computational meshes take the stock engine, box meshes too
+    (dict(dim=3, nz=4, dtype="float64"), "ADMMIntegrator", "vmap"),
+    (dict(comp_mesh=True), "ADMMIntegrator", "vmap"),
+    (dict(dtype="float64"), "ADMMIntegrator", "vmap"),
+    (dict(nx=8, ny=8, dtype="float64"), "ADMMIntegrator", "vmap"),
+    (dict(prox_backend="vmap"), "ADMMIntegrator", "vmap"),
+    # LevelSet meshes: the stock engine, on the kernels in float32 (K1, K4)
+    (dict(dim=3, nz=4, test_type="LevelSet"), "ADMMIntegrator", "pallas"),
+    (dict(test_type="LevelSet"), "ADMMIntegrator", "pallas"),
+    # chord sweeps on a 3D box mesh: the stock engine with K4''a (ROADMAP B6)
+    (dict(dim=3, nz=4, prox_chord=True), "ADMMIntegrator", "pallas"),
 ])
-def test_ported_routes_build_their_engine(change, engine):
+def test_ported_routes_build_their_engine(change, engine, backend):
     kw = dict(KW, test_type="Shoulder")
     kw.update(change)
-    mesh, integ = build_problem(ExperimentConfig(**kw), device="cpu")
+    chord = kw.pop("prox_chord", None)
+    mesh, integ = build_problem(ExperimentConfig(**kw), device="cpu", prox_chord=chord)
     assert type(integ).__name__ == engine
+    assert mesh.prox_backend == backend
     assert mesh.comp_mesh == bool(change.get("comp_mesh"))
+
+
+@pytest.mark.parametrize("change", [dict(dtype="float64"), dict(comp_mesh=True)])
+def test_kernel_route_refuses_what_no_kernel_computes(change):
+    """``prox_backend="pallas"`` in float64 or on a 2D computational mesh:
+    the kernels are float32 and K1 has no computational-mesh mode."""
+    kw = dict(KW, test_type="Shoulder", prox_backend="pallas")
+    kw.update(change)
+    with pytest.raises(ValueError, match="pallas"):
+        build_problem(ExperimentConfig(**kw), device="cpu")
 
 
 def test_device_default_is_cuda():
