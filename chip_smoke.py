@@ -18,7 +18,7 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    element-major entry on Monitor3320r's (265,004 triangles), K4''a and
    K4''b on the stock engine's step-0 inputs of 3D SquareGrid and
    CompSquare at nx=4, nx=20 and, in their main paths, nx=40 (768,000
-   tets; bit for bit);
+   tets); K4 and K4'' bit for bit;
 4. main paths, each through ``problems.build_problem`` and
    ``integrators.run_loop.run`` with the DtTol stop, with every launch
    count set to 0 just before and read just after: at Shoulder-320, at
@@ -26,7 +26,8 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    explicit Euler (method 1; K2 launches = steps) and backward Euler
    (method 2; K3 launches = steps, K2 launches = Newton iterations + 3 per
    step); at 3D Shoulder-40 and 3D SquareGrid-40, at most 20 steps, 3D
-   MM-ADMM (K4 launches = ADMM iterations); on the stock element-major
+   MM-ADMM (K4 launches = ADMM iterations; the ``I_h`` trace and the ADMM
+   iterations per step equal ``RECORDED_3D``); on the stock element-major
    engine, 3D CompSquare-20 (at most 30 steps) and CompSquare-40 (at most
    10) on their computational meshes (K4' launches = ADMM iterations) and
    Monitor3320r as shipped, in float32 (at most 20 steps; K1 launches =
@@ -48,7 +49,8 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    a 2D computational mesh, SquareGrid-320, in float32 (at most 10 steps);
    K4''a on 3D SquareGrid-40 with ``prox_chord=True`` and K4''b on 3D
    CompSquare-40 with ``prox_chord=False``, on the stock engine (at most 10
-   steps each; launches = ADMM iterations); and the generic route on the
+   steps each; launches = ADMM iterations; K4''b's path also equals its
+   ``RECORDED_3D`` trace); and the generic route on the
    card against the CPU at 2D SquareGrid nx=8 and 3D CompSquare nx=4 in
    float64 over 4 steps;
 5. timing: each kernel alone (median of 20 launches, CUDA events), its
@@ -107,6 +109,28 @@ JAX_GENERIC = {
                              1: (1.1772788559172092, 10, 1e-10),
                              2: (1.1750669410812833, 10, 1e-10),
                              3: (1.1731141592543588, 10, 1e-10)},
+}
+# The I_h traces (rounded to 9 digits) and ADMM iterations per step of the
+# paths of the Newton kernels K4 and K4''b, as the one-thread-per-element
+# design of those kernels gave them on an NVIDIA H100 80GB HBM3 (700 W). Each
+# kernel is bit-equal to its plain version, so any design of it must give
+# these again.
+RECORDED_3D = {
+    "3D Shoulder-40": (
+        [1.673936114, 1.645554105, 1.635251653, 1.625717401, 1.616891697, 1.60872361,
+         1.601169516, 1.594191602, 1.587757013, 1.581838851, 1.576410413, 1.571449288,
+         1.566935695, 1.562852191, 1.559183389, 1.555915752, 1.553037331, 1.5505377,
+         1.548407747, 1.546639599],
+        [4, 3, 3, 3, 3, 3, 3, 3] + [1] * 12),
+    "3D SquareGrid-40": (
+        [0.455565655, 0.455565161, 0.455564945, 0.455564747, 0.455564583, 0.455564439,
+         0.455564316, 0.455564213, 0.455564111, 0.455564023, 0.45556395, 0.455563881,
+         0.455563822, 0.455563765, 0.455563707, 0.455563673],
+        [3] + [1] * 15),
+    "K4''b 3D CompSquare-40": (
+        [0.312561783, 0.312516397, 0.312493738, 0.312470986, 0.312448149, 0.312425228,
+         0.312402218, 0.312379133, 0.312355958, 0.31233272],
+        [3] + [1] * 9),
 }
 # eg2d launches of one backward-Euler step beyond its Newton iterations:
 # the explicit-Euler guess, the residual F0 and the post-step energy
@@ -292,11 +316,11 @@ def compare(label, integ, inputs=None):
 
 
 def compare3(label, integ):
-    """K4 against its plain version on the first prox inputs of step 0.
-    Bands of tests/test_prox_pallas3d.py:88-108: ih0 within rtol 2e-5, the
-    regularized energies after the solve within rtol 1e-4 (atol 1e-6).
-    The two perform the same float operations in the same order, so they
-    are expected to agree bit for bit; the bands hold if they do not."""
+    """K4 against its plain version on the first prox inputs of step 0:
+    bit for bit (the two perform the same float operations in the same
+    order; scripts/cuda_host_rehearsal.py agrees bit for bit), and within
+    the bands of tests/test_prox_pallas3d.py:88-108 (ih0 rtol 2e-5, the
+    regularized energies after the solve rtol 1e-4, atol 1e-6)."""
     from mmadmm_tpu_torch.ops import prox3d as P3
     from mmadmm_tpu_torch.ops.newton import consts
 
@@ -316,10 +340,12 @@ def compare3(label, integ):
     err_ih = check_close(f"{label} ih0", ihk, ihp, 2e-5, 1e-8)
     err_e = check_close(f"{label} regularized energy", e_k, e_p, 1e-4, 1e-6)
     err_z = float((zk - zp).abs().max())
-    same = float(((zk == zp).all(0) & (ihk == ihp)).float().mean())
-    say(f"{label}: {z.shape[1]} slots; within bands (ih0 rtol 2e-5, energy rtol 1e-4); "
-        f"max |ih0 err| {err_ih:.3e}, max |energy err| {err_e:.3e}, max |z' err| {err_z:.3e}, "
-        f"bit-equal (z', ih0) {100 * same:.2f}% of elements; plain version {plain_s:.2f} s")
+    if not (torch.equal(zk, zp) and torch.equal(ihk, ihp)):
+        raise AssertionError(f"{label}: not bit-equal to the plain version "
+                             f"(max |z' err| {err_z:.3e}, max |ih0 err| {err_ih:.3e})")
+    say(f"{label}: {z.shape[1]} slots; bit-equal (z', ih0) on 100.00% of elements, within bands "
+        f"(ih0 rtol 2e-5, energy rtol 1e-4); max |ih0 err| {err_ih:.3e}, max |energy err| "
+        f"{err_e:.3e}, max |z' err| {err_z:.3e}; plain version {plain_s:.2f} s")
     return max(err_ih, err_z), (z, dxpu, free, cells)
 
 
@@ -478,6 +504,16 @@ def bound(fn, n_floats):
     return max(bytes_ms, ops_ms), by, counter.ops, nbytes
 
 
+def work(stats):
+    """A plain version's sweep counts: element-sweeps, and for Newton sweeps
+    the Hessians built and the retirements on the gradient before one."""
+    text = f"{stats['element_sweeps']} element-sweeps in {stats['sweeps']} sweeps"
+    if "hessians" in stats:
+        text += (f", {stats['hessians']} Hessians built ({stats['gnorm_retired']} element-sweeps "
+                 f"retired on the gradient before theirs)")
+    return text
+
+
 def _wrappers():
     from mmadmm_tpu_torch.ops import be2d as B
     from mmadmm_tpu_torch.ops import prox2d as P
@@ -531,6 +567,17 @@ def drive(label, cfg, integ, cap=STEP_CAP):
     if not bool(torch.isfinite(state.x).all()):
         raise AssertionError(f"{label}: non-finite mesh positions")
     return infos, ih, launched
+
+
+def check_recorded(label, infos, ih):
+    """A path of K4 or K4''b against its ``RECORDED_3D`` trace and counts."""
+    trace, iters = RECORDED_3D[label]
+    got = ([round(float(v), 9) for v in ih], [i.n_iters for i in infos])
+    if got != (trace, iters):
+        raise AssertionError(f"{label}: I_h trace and ADMM iterations {got} differ from the "
+                             f"recorded {(trace, iters)}")
+    say(f"{label}: I_h trace and ADMM iterations per step equal the recorded ones "
+        f"({len(trace)} steps, {sum(iters)} iterations)")
 
 
 def expect(label, launched, want):
@@ -744,6 +791,7 @@ def main() -> int:
         say(f"3D MM-ADMM {label}: K4 launches {launched3[label]['prox3d']} = ADMM iterations "
             f"{iters3} over {len(infos3)} steps ({iters3 / len(infos3):.2f} per step), "
             f"{1e3 * wall / len(infos3):.1f} ms per step; Ih trace {[round(float(v), 9) for v in ih3]}")
+        check_recorded(label, infos3, ih3)
     card_vs_cpu_3d("3D MM-ADMM at SquareGrid nx=4 (3D stencil engine, K4)",
                    lambda device: box3d("SquareGrid", 1, 4, device)[2])
     launched_s = {}
@@ -832,6 +880,8 @@ def main() -> int:
             f"{sum(iters_k)} over {len(infos_k)} steps (per step {iters_k}), "
             f"{1e3 * wall / len(infos_k):.1f} ms per step; Ih trace "
             f"{[round(float(v), 9) for v in ih_k]}")
+        if label in RECORDED_3D:
+            check_recorded(label, infos_k, ih_k)
         del cfg_k, mesh_k, integ_k
 
     # ---- timing --------------------------------------------------------------
@@ -857,7 +907,7 @@ def main() -> int:
         time_plain(lambda: P.prox2d_plain(z, dxpu, free, cells, *args)),
         bound(lambda: P.prox2d_plain(z, dxpu, free, cells, *args, stats=stats),
               n * (6 + 6 + 6 + 48 + 6 + 1)))
-    say(f"K1 step-0 work: {stats['element_sweeps']} element-sweeps in {stats['sweeps']} sweeps")
+    say(f"K1 step-0 work: {work(stats)}")
     zb, cb, eh = be_in
     row("eg2d", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:501",
         launched_e["eg2d"] + launched_b["eg2d"], k2_err,
@@ -884,8 +934,7 @@ def main() -> int:
         sum(v["prox3d"] for v in launched3.values()), err3, ms3, plain3,
         bound(lambda: P3.prox3d_plain(z3, d3, f3, c3, *a3, stats=stats3),
               z3.shape[1] * (12 + 12 + 12 + 216 + 12 + 1)))
-    say(f"K4 step-0 work at 3D Shoulder-40: {stats3['element_sweeps']} element-sweeps in "
-        f"{stats3['sweeps']} sweeps")
+    say(f"K4 step-0 work at 3D Shoulder-40: {work(stats3)}")
     # K1 on Monitor3320r's step-0 inputs, through the stock engine's entry
     m_integ, m_err, m_in = stock["Monitor3320r"][1:]
     m_args = (m_integ.mesh.ehat_np.reshape(-1), m_integ.w, m_integ.prox_tol,
@@ -897,8 +946,7 @@ def main() -> int:
                     m_in[0].shape[1] * (6 + 6 + 6 + 48 + 6 + 1))
     say(f"K1 at Monitor3320r step 0 ({m_in[0].shape[1]} triangles): {m_ms:.4f} ms (median of "
         f"20); plain {m_plain:.1f} ms; bound {m_bound[0]:.4f} ms by {m_bound[1]} "
-        f"({m_bound[2]:.4e} operations, {m_bound[3]} bytes); {stats_m['element_sweeps']} "
-        f"element-sweeps in {stats_m['sweeps']} sweeps")
+        f"({m_bound[2]:.4e} operations, {m_bound[3]} bytes); {work(stats_m)}")
     # K4' at CompSquare-40 step 0, then its row on CompSquare-20's step-0 inputs
     c40 = stock_inputs(stock["3D CompSquare-40"][1])
     i40 = stock["3D CompSquare-40"][1]
@@ -917,8 +965,7 @@ def main() -> int:
         time_plain(lambda: P3.prox3d_chord_comp_plain(*c20, *a20)),
         bound(lambda: P3.prox3d_chord_comp_plain(*c20, *a20, stats=stats4),
               c20[0].shape[1] * (12 + 12 + 12 + 216 + 9 + 12 + 1)))
-    say(f"K4' step-0 work at 3D CompSquare-20: {stats4['element_sweeps']} element-sweeps in "
-        f"{stats4['sweeps']} sweeps")
+    say(f"K4' step-0 work at 3D CompSquare-20: {work(stats4)}")
     for name, label in (("prox3d_chord", "K4''a 3D SquareGrid-40"),
                         ("prox3d_comp", "K4''b 3D CompSquare-40")):
         err, (kernel, plain, inputs_p, args_p) = k4pp[name]
@@ -929,8 +976,7 @@ def main() -> int:
             time_plain(lambda: plain(*inputs_p, *args_p)),
             bound(lambda: plain(*inputs_p, *args_p, stats=stats_p),
                   inputs_p[0].shape[1] * per_elem))
-        say(f"{name} step-0 work at {inputs_p[0].shape[1]} tets: {stats_p['element_sweeps']} "
-            f"element-sweeps in {stats_p['sweeps']} sweeps")
+        say(f"{name} step-0 work at {inputs_p[0].shape[1]} tets: {work(stats_p)}")
     say(f"launches by path: MM-ADMM {launched}, Euler {launched_e}, backward Euler {launched_b}, "
         f"3D MM-ADMM {launched3}, stock engine {launched_s}, generic route {launched_g}, "
         f"K4'' {launched_k}")

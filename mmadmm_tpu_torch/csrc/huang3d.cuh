@@ -1,8 +1,10 @@
-// The 3D Huang functional on one tetrahedron, for kernels K4 and K4'
+// The 3D Huang functional on one tetrahedron, for kernels K4, K4' and K4''
 // (prox3d.cu), on values or dual numbers (dual.cuh): the trilinear monitor
 // sample from a vertex's 54 cell channels, the terms shared by energy and
 // gradient, the energy and the analytic gradient. Ehat (row-major 3x3) is an
 // argument: K4 passes the constant reference one, K4' each element's own.
+// The cell channels come through an accessor, `cells(c)`: `Cells` reads them
+// from device memory, `SharedCells` from a block's staged copy.
 //
 // Port of the component math of mmadmm_tpu/ops/prox_pallas3d.py
 // (_sample_m3, _common_c3, energy_c3, grad_c3). ops/prox3d.py repeats these
@@ -33,6 +35,15 @@ struct Cells {
   const float* p;  // cells + element
   long long n;
   __device__ __forceinline__ float operator()(int c) const { return __ldg(p + c * n); }
+};
+
+// One element's 216 cell channels in shared memory, [channel][kE] for the kE
+// elements of a block: 32-bit offsets, and the elements of a warp on
+// consecutive banks.
+template <int kE>
+struct SharedCells {
+  const float* p;  // the block's staged cells + the element's index in the block
+  __device__ __forceinline__ float operator()(int c) const { return p[c * kE]; }
 };
 
 template <typename T>
@@ -72,8 +83,8 @@ __device__ __forceinline__ void inv33(const T* a, T det, T* o) {
 }
 
 // trilinear sample (m00, m01, m02, m11, m12, m22) of vertex v's cell
-template <typename T>
-__device__ __forceinline__ void sample_m3(const Cells& c, int v, T x, T y, T z, T* m) {
+template <typename T, typename C>
+__device__ __forceinline__ void sample_m3(const C& c, int v, T x, T y, T z, T* m) {
   const int b = v * 54;
   T xd = (x - c(b + 48)) / (c(b + 49) - c(b + 48));
   T yd = (y - c(b + 50)) / (c(b + 51) - c(b + 50));
@@ -105,8 +116,8 @@ struct Common3 {
   T tr, det_m, det_fj, G, abs_k, inv_sqrt_dm, sqrt_dfj, dfj32;
 };
 
-template <typename T>
-__device__ __forceinline__ void common3(const T* z, const Cells& cells, const float* h,
+template <typename T, typename C>
+__device__ __forceinline__ void common3(const T* z, const C& cells, const float* h,
                                         const Consts3& k, Common3<T>& t) {
 #pragma unroll
   for (int v = 0; v < 4; ++v) sample_m3(cells, v, z[3 * v], z[3 * v + 1], z[3 * v + 2], t.m[v]);
@@ -163,7 +174,8 @@ __device__ __forceinline__ T reg3(const T* z, const float* dxpu) {
   return s;
 }
 
-__device__ __forceinline__ float energy3_unreg(const float* z, const Cells& cells,
+template <typename C>
+__device__ __forceinline__ float energy3_unreg(const float* z, const C& cells,
                                                const float* h, const Consts3& k) {
   Common3<float> t;
   common3(z, cells, h, k, t);
@@ -171,15 +183,16 @@ __device__ __forceinline__ float energy3_unreg(const float* z, const Cells& cell
 }
 
 // the regularized energy at z
-__device__ __forceinline__ float energy3(const float* z, const Cells& cells, const float* h,
+template <typename C>
+__device__ __forceinline__ float energy3(const float* z, const C& cells, const float* h,
                                          const float* dxpu, const Consts3& k) {
   return energy3_unreg(z, cells, h, k) + k.half_w2 * reg3(z, dxpu);
 }
 
 // masked regularized gradient into g, the unregularized energy into ih;
 // returns the regularized energy
-template <typename T>
-__device__ __forceinline__ T grad3(const T* z, const Cells& cells, const float* h,
+template <typename T, typename C>
+__device__ __forceinline__ T grad3(const T* z, const C& cells, const float* h,
                                    const float* dxpu, const float* fr, const Consts3& k, T* g,
                                    T& ih) {
   Common3<T> t;

@@ -1,4 +1,4 @@
-// K4, K4' and K4'': the 3D ADMM prox z-update, one thread per tetrahedron.
+// K4, K4' and K4'': the 3D ADMM prox z-update.
 //
 // K4 replaces mmadmm_tpu/ops/prox_pallas3d.py::make_prox_pallas3d (:263, its
 // pl.pallas_call at :418) with chord=False, comp_mesh=False. For each
@@ -6,7 +6,9 @@
 //     I_h(z) + 0.5 w^2 |dxpu - z|^2
 // with the analytic Huang gradient, the 12x12 Hessian as the forward
 // derivative of that gradient (dual numbers, one pass per column), an
-// unrolled LDL^T solve with the -g/w^2 fallback, and 5 backtracking trials.
+// unrolled LDL^T solve with the -g/w^2 fallback, and 5 backtracking trials
+// (the sweep of mmadmm_tpu/ops/prox_pallas2d.py::make_newton_sweeps,
+// :298-359).
 //
 // K4' replaces the same call site with chord=True, comp_mesh=True (the
 // sweep of mmadmm_tpu/ops/prox_pallas2d.py::make_chord_sweeps, :362-448),
@@ -38,30 +40,65 @@
 // What bounds them on the H100: arithmetic. A K4 element reads 252 floats
 // and writes 13, (3*12 + 216 + 12 + 1) * 4 = 1,060 bytes: 814 MB, 0.243 ms
 // at 3.35 TB/s for the 768,000 slots of a 40^3 box mesh; a K4' or K4''b
-// element reads 9 more, 1,096 bytes. Each Newton sweep does tens of
-// thousands of float operations (the twelve dual passes of the Hessian take most of
-// them; the op counter of chip_smoke.py on the plain versions gives the
-// count for the inputs at hand), and elements take 1 to max_iters sweeps. A
-// chord sweep that keeps its cached step costs one gradient, one solve and
-// one trial energy, a few thousand operations; that is what chord sweeps
-// save on weakly regularized runs (rho = 10 in the 3DMonitor3 family), whose
-// elements stay active for many sweeps.
+// element reads 9 more, 1,096 bytes. A Newton sweep that goes on to its
+// step does tens of thousands of float operations (the twelve dual passes
+// of the Hessian take most of them; the op counter of chip_smoke.py on the
+// plain versions gives the count for the inputs at hand); one that retires
+// on its gradient costs one gradient. A chord sweep that keeps its cached
+// step costs one gradient, one solve and one trial energy, a few thousand
+// operations; that is what chord sweeps save on weakly regularized runs
+// (rho = 10 in the 3DMonitor3 family), whose elements stay active for many
+// sweeps.
 //
-// The design is K1's, simple and right first: one thread per element with
-// its own sweep loop, retiring on its own, so no result depends on a
-// neighbour. Registers cannot hold a 12x12 system beside the dual gradient,
-// so each dual pass writes its Hessian column, the 78-entry lower triangle,
-// to shared memory laid out [78][blockDim] (thread index fastest: no bank
-// conflicts, 39 KB at 128 threads), where it is factored in place. The
-// chord sweeps keep that factored triangle (L and D) across sweeps as its cache: the
-// JAX kernel caches H and factors it again every sweep, and factoring the
-// same H gives the same L and D, so solving with the cached factors gives
-// the same bits. A second 78-entry buffer for H itself would cost another
-// 39,936 bytes of shared memory per block and halve the blocks per SM, for
-// nothing. The 216 cell channels are read from device memory (__ldg,
-// adjacent threads on adjacent addresses) where they are used, not held in
-// registers; they are re-read from the caches by every gradient and energy.
+// The Newton sweeps (K4, K4''b: prox3d_newton_kernel) run on a group of
+// kGroup lanes per element, with the element's whole sweep state on the
+// chip: with one thread per element, the 216 cell channels are read again
+// from L2 by each of the ~18 evaluations of a sweep and the Newton state
+// spills to local memory (168-255 registers, 1.8-2.7 KB of stack a thread),
+// and the card waits on memory at about 2.5 % of the operations bound. So:
+//   - a block stages its elements' inputs (z, dxpu, free, the 216 cell
+//     channels and, for K4''b, Ehat: about 1 KB an element) into shared
+//     memory once, with cp.async (16-byte copies where a channel row is
+//     16-byte aligned and whole, 4-byte copies elsewhere, so any n works),
+//     and every evaluation reads them from there;
+//   - a sweep first computes the gradient and retires on a small one (from
+//     the second sweep on) before anything else: such an element leaves
+//     without moving, so the Hessian, solve and trials that the JAX order
+//     computes first would be thrown away (44-50 % of the element-sweeps on
+//     step-0 inputs);
+//   - the twelve dual passes of the Hessian are spread over the group, lane
+//     l taking the columns l, l + kGroup, ..., each written to the
+//     element's 78-entry triangle in shared memory; each column's pass is
+//     the one-thread design's pass, so its bits do not change;
+//   - every lane then factors and solves that triangle in its registers,
+//     in the one order of factor12 and direction, so every lane holds the
+//     same step p (on a SIMT warp, redundant work costs the group what one
+//     lane doing it alone would, and needs no broadcast);
+//   - the five backtracking trials are spread over the lanes, and a ballot
+//     of the group gives the largest accepted alpha, which is what the
+//     sequential loop returns;
+//   - the gradient, the retire and stall tests and the fallback are
+//     computed by every lane from the same data, so every lane of a group
+//     takes the same branch; a group synchronizes on its own mask
+//     (__syncwarp, __ballot_sync), and a block only once, after staging.
+// kGroup and the blocks an SM holds are chosen by timing
+// (scripts/cuda_k4_variants.py, which times 4, 8 and 16 lanes and the
+// register caps against the one-thread-per-element design): see the note at
+// kGroup below.
+//
+// The chord sweeps (K4', K4''a: prox3d_chord_kernel) keep the one thread
+// per element design, with its own sweep loop: registers cannot hold a 12x12
+// system beside the dual gradient, so each dual pass writes its Hessian
+// column, the 78-entry lower triangle, to shared memory laid out
+// [78][blockDim] (thread index fastest: no bank conflicts, 39 KB at 128
+// threads), where it is factored in place, and that factored triangle (L and
+// D) is kept across sweeps as the chord cache: the JAX kernel caches H and
+// factors it again every sweep, and factoring the same H gives the same L
+// and D, so solving with the cached factors gives the same bits. Their 216
+// cell channels are read from device memory (__ldg, adjacent threads on
+// adjacent addresses) where they are used.
 
+#include <cstdint>
 #include <cstring>
 
 #include "huang3d.cuh"
@@ -70,10 +107,24 @@ namespace {
 
 static_assert(sizeof(Consts3) == 9 * sizeof(float), "Consts3 is 9 packed floats");
 
-constexpr int kThreads = 128;
-constexpr int kTri = 78;  // entries of the lower triangle of a 12x12 matrix
+constexpr int kThreads = 128;  // threads per block, both kernels
+constexpr int kTri = 78;       // entries of the lower triangle of a 12x12 matrix
+constexpr int kCells = 216;    // cell channels per element
 constexpr float kDiagFloor = 1e-12f;
 constexpr float kEpsStall = 10.0f * 1.1920928955078125e-07f;
+
+// Lanes per element in the Newton sweeps, and the blocks of kThreads an SM
+// must hold at once, which caps the registers at 65,536 / (kThreads x
+// blocks): 128 for K4, 168 for K4''b. Of the variants that
+// scripts/cuda_k4_variants.py times on the H100 at the step-0 inputs of 3D
+// Shoulder-40 (K4) and CompSquare-40 (K4''b), these are the fastest (PERF.md
+// has the times): 4 lanes beat 8 and 16, whose lanes idle longer in the
+// gradient, factor and solve (and 16 spill); with no cap both take 220-222
+// registers and 2 blocks an SM, and the cap's few hundred bytes of spills
+// cost less than the warps it adds.
+constexpr int kGroup = 4;
+constexpr int kBlocks = 4;      // K4
+constexpr int kBlocksComp = 3;  // K4''b
 
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
@@ -89,32 +140,31 @@ __device__ __forceinline__ float edet3(const float* z) {
   return det33(E);
 }
 
-#define HS(i, j) H[tri(i, j) * kThreads]
+// H[tri(i, j) * S]: entry (i, j) of a lower triangle stored with stride S
+#define HS(i, j) H[tri(i, j) * S]
 
-// the lower triangle of the Hessian at z into H (this thread's column of
-// the shared array, H[tri(i, j) * kThreads]), one dual pass per column
-__device__ __forceinline__ void hess12(const float* z, const Cells& cells, const float* h,
-                                       const float* dxpu, const float* fr, const Consts3& k,
-                                       const float* free_col, long long n, float* H) {
-#pragma unroll 1
-  for (int j = 0; j < 12; ++j) {
-    Dual zd[12], gd[12];
+// column j of the lower triangle of the Hessian at z (rows i >= j), from one
+// dual pass; frj is free[j]
+template <int S, typename C>
+__device__ __forceinline__ void hess_col(int j, const float* z, const C& cells, const float* h,
+                                         const float* dxpu, const float* fr, const Consts3& k,
+                                         float frj, float* H) {
+  Dual zd[12], gd[12];
 #pragma unroll
-    for (int i = 0; i < 12; ++i) zd[i] = {z[i], i == j ? 1.0f : 0.0f};
-    Dual ihd;
-    grad3<Dual>(zd, cells, h, dxpu, fr, k, gd, ihd);
-    const float frj = __ldg(free_col + j * n);
+  for (int i = 0; i < 12; ++i) zd[i] = {z[i], i == j ? 1.0f : 0.0f};
+  Dual ihd;
+  grad3<Dual>(zd, cells, h, dxpu, fr, k, gd, ihd);
 #pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      if (i < j) continue;
-      float hv = gd[i].d * fr[i] * frj;
-      if (i == j) hv = hv + (1.0f - fr[i]) + kLevenberg;
-      HS(i, j) = hv;
-    }
+  for (int i = 0; i < 12; ++i) {
+    if (i < j) continue;
+    float hv = gd[i].d * fr[i] * frj;
+    if (i == j) hv = hv + (1.0f - fr[i]) + kLevenberg;
+    HS(i, j) = hv;
   }
 }
 
 // H = L D L^T in place: D on the diagonal, L below it (ops/newton.py::ldlt_c)
+template <int S>
 __device__ __forceinline__ void factor12(float* H) {
 #pragma unroll
   for (int j = 0; j < 12; ++j) {
@@ -134,6 +184,7 @@ __device__ __forceinline__ void factor12(float* H) {
 }
 
 // the step p = -H^{-1} g from the factored H, or -g/w^2 where it is not finite
+template <int S>
 __device__ __forceinline__ void direction(const float* H, const float* g, float inv_w2,
                                           float* p) {
   float zv[12];
@@ -164,28 +215,16 @@ __device__ __forceinline__ void direction(const float* H, const float* g, float 
 
 // a trial point is accepted at a finite energy not above e0 whose
 // orientation determinant stays above det_floor
-__device__ __forceinline__ bool trial_ok(const float* zt, const Cells& cells, const float* h,
+template <typename C>
+__device__ __forceinline__ bool trial_ok(const float* zt, const C& cells, const float* h,
                                          const float* dxpu, const Consts3& k, float e0,
                                          float det_floor) {
   float e_t = energy3(zt, cells, h, dxpu, k);
   return isfinite(e_t) && e_t <= e0 && edet3(zt) > det_floor;
 }
 
-// backtracking: the largest accepted alpha, 0 if none
-__device__ __forceinline__ float backtrack(const float* z, const float* p, const Cells& cells,
-                                           const float* h, const float* dxpu, const Consts3& k,
-                                           float e0, float det_floor) {
-  const float alphas[5] = {0.0625f, 0.125f, 0.25f, 0.5f, 1.0f};
-  float alpha = 0.0f;
-#pragma unroll 1
-  for (int a = 0; a < 5; ++a) {
-    float zt[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i) zt[i] = z[i] + alphas[a] * p[i];
-    if (trial_ok(zt, cells, h, dxpu, k, e0, det_floor)) alpha = alphas[a];
-  }
-  return alpha;
-}
+// the backtracking step sizes 1/16, 1/8, 1/4, 1/2, 1: 2^(a - 4), exact
+__device__ __forceinline__ float alpha_bt(int a) { return 0.0625f * (float)(1 << a); }
 
 // min(det0, 0), NaN kept (torch.clamp_max)
 __device__ __forceinline__ float floor_of(float det0) {
@@ -208,24 +247,212 @@ __device__ __forceinline__ float absmax(const float* v) {
   return m;
 }
 
-// K4, K4' and K4'' are one kernel: kChord selects chord sweeps (K4', K4''a)
-// over Newton sweeps (K4, K4''b), kComp a per-element Ehat read from
-// ehat_in (K4', K4''b) over the constant eh (K4, K4''a). Each sweep keeps
-// its JAX counterpart's order: a Newton sweep (make_newton_sweeps) finds its
-// step and then retires on a small gradient; a chord sweep
-// (make_chord_sweeps) retires before it solves.
+// ---- Newton sweeps (K4, K4''b): a group of kGroup lanes per element --------
+
+// cp.async of 4 or 16 bytes from device to shared memory (a plain copy where
+// this is compiled for the host)
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+#else
+  std::memcpy(dst, src, 16);
+#endif
+}
+
+__device__ __forceinline__ void copies_done() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// A block's staged inputs and its elements' Hessian triangles, for kE
+// elements: the cells [channel][element] (see SharedCells), the rest
+// [element][channel]. 42.3 KB (K4) and 43.4 KB (K4''b) at kE = 32.
+template <bool kComp, int kE>
+struct NewtonStage {
+  float cells[kCells * kE];
+  float z[kE * 12], dxpu[kE * 12], fr[kE * 12];
+  float eh[kComp ? kE * 9 : 1];
+  float hess[kE * kTri];
+};
+
+// rows [rows, n] of the block's elements first .. first + kE (those below n)
+// into dst [rows][kE]: 16-byte copies when every row's run is 16-byte
+// aligned and whole, else 4-byte copies
+template <int kE>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int rows, long long n,
+                                           long long first) {
+  static_assert(kE % 4 == 0, "a row of kE floats is whole 16-byte copies");
+  const bool whole = first + kE <= n && n % 4 == 0 && (uintptr_t)src % 16 == 0;
+  if (whole) {
+    for (int q = threadIdx.x; q < rows * (kE / 4); q += kThreads) {
+      const int c = q / (kE / 4), i = (q % (kE / 4)) * 4;
+      copy16(dst + c * kE + i, src + c * n + first + i);
+    }
+  } else {
+    for (int q = threadIdx.x; q < rows * kE; q += kThreads) {
+      const int c = q / kE, i = q % kE;
+      if (first + i < n) copy4(dst + c * kE + i, src + c * n + first + i);
+    }
+  }
+}
+
+// the same rows transposed into dst [kE][rows]: 4-byte copies
+template <int kE>
+__device__ __forceinline__ void stage_cols(float* dst, const float* src, int rows, long long n,
+                                           long long first) {
+  for (int q = threadIdx.x; q < rows * kE; q += kThreads) {
+    const int c = q / kE, i = q % kE;
+    if (first + i < n) copy4(dst + i * rows + c, src + c * n + first + i);
+  }
+}
+
+// backtracking over the group: trial a on lane a % G in round a / G; the
+// largest accepted alpha, 0 if none (what backtrack() returns)
+template <int G, typename C>
+__device__ __forceinline__ float backtrack_group(const float* z, const float* p, const C& cells,
+                                                 const float* h, const float* dxpu,
+                                                 const Consts3& k, float e0, float det_floor,
+                                                 int lane, int base, unsigned gmask) {
+  unsigned accepted = 0;  // bit a: trial a accepted
+#pragma unroll 1
+  for (int r = 0; r * G < 5; ++r) {
+    const int a = r * G + lane;
+    bool ok = false;
+    if (a < 5) {
+      float zt[12];
+      const float alpha = alpha_bt(a);
+#pragma unroll
+      for (int i = 0; i < 12; ++i) zt[i] = z[i] + alpha * p[i];
+      ok = trial_ok(zt, cells, h, dxpu, k, e0, det_floor);
+    }
+    const unsigned votes = __ballot_sync(gmask, ok);
+    accepted |= ((votes >> base) & ((1u << G) - 1u)) << (r * G);
+  }
+  return accepted ? alpha_bt(31 - __clz(accepted)) : 0.0f;
+}
+
+// K4 (kComp false, the constant Ehat eh) and K4''b (kComp true, ehat_in):
+// Newton sweeps in the JAX order, except that a sweep retires on its
+// gradient before it builds the Hessian (see the note at the top).
+template <bool kComp, int G>
+__global__ void __launch_bounds__(kThreads, kComp ? kBlocksComp : kBlocks) prox3d_newton_kernel(
+    const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
+    const float* __restrict__ free_in, const float* __restrict__ cells_in,
+    const float* __restrict__ ehat_in, float* __restrict__ zout, float* __restrict__ ih0_out,
+    long long n, Ehat3 eh, Consts3 k, int max_iters) {
+  static_assert(G == 4 || G == 8 || G == 16, "a group is 4, 8 or 16 lanes of one warp");
+  constexpr int kE = kThreads / G;  // elements per block
+  __shared__ __align__(16) NewtonStage<kComp, kE> st;
+  const long long first = (long long)blockIdx.x * kE;
+  stage_rows<kE>(st.cells, cells_in, kCells, n, first);
+  stage_cols<kE>(st.z, z_in, 12, n, first);
+  stage_cols<kE>(st.dxpu, dxpu_in, 12, n, first);
+  stage_cols<kE>(st.fr, free_in, 12, n, first);
+  if constexpr (kComp) stage_cols<kE>(st.eh, ehat_in, 9, n, first);
+  copies_done();
+  __syncthreads();  // the block's only barrier: every lane below is in a live group
+
+  const int el = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long e = first + el;
+  if (e >= n) return;
+  const int base = (threadIdx.x % 32) - lane;  // the group's first lane in its warp
+  const unsigned gmask = ((1u << G) - 1u) << base;
+  const SharedCells<kE> cells{st.cells + el};
+  const float* dxpu = st.dxpu + el * 12;
+  const float* fr = st.fr + el * 12;
+  const float* h = kComp ? st.eh + el * 9 : eh.h;
+  float* H = st.hess + el * kTri;
+  float z[12];
+#pragma unroll
+  for (int c = 0; c < 12; ++c) z[c] = st.z[el * 12 + c];
+
+  if (lane == 0) ih0_out[e] = energy3_unreg(z, cells, h, k);
+  for (int it = 0; it < max_iters; ++it) {
+    // gradient, its norm and the regularized energy at the start
+    float g[12];
+    float ih;
+    const float e0 = grad3<float>(z, cells, h, dxpu, fr, k, g, ih);
+    // retire on a small gradient from the second sweep on, before moving
+    // and before the Hessian, which such an element would not use
+    if (it > 0 && norm1(g) < k.tol) break;
+
+    // the Hessian's columns, spread over the group
+#pragma unroll 1
+    for (int j = lane; j < 12; j += G) hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);
+    __syncwarp(gmask);
+    float L[kTri], p[12];
+#pragma unroll
+    for (int t = 0; t < kTri; ++t) L[t] = H[t];
+    __syncwarp(gmask);  // every lane has its copy before the next sweep writes H
+    factor12<1>(L);
+    direction<1>(L, g, k.inv_w2, p);
+
+    const float det_floor = floor_of(edet3(z));
+    const float alpha =
+        backtrack_group<G>(z, p, cells, h, dxpu, k, e0, det_floor, lane, base, gmask);
+    const float step_inf = alpha * absmax(p);
+    const bool stalled = step_inf <= kEpsStall * (1.0f + absmax(z));
+#pragma unroll
+    for (int i = 0; i < 12; ++i) z[i] = z[i] + alpha * p[i];
+    if (stalled) break;
+  }
+#pragma unroll
+  for (int c = 0; c < 12; ++c)
+    if (c % G == lane) zout[c * n + e] = z[c];  // z stays in registers
+}
+
+// ---- chord sweeps (K4', K4''a): one thread per element ---------------------
+
+// the lower triangle of the Hessian at z into H (this thread's column of
+// the shared array, H[tri(i, j) * kThreads]), one dual pass per column
+__device__ __forceinline__ void hess12(const float* z, const Cells& cells, const float* h,
+                                       const float* dxpu, const float* fr, const Consts3& k,
+                                       const float* free_col, long long n, float* H) {
+#pragma unroll 1
+  for (int j = 0; j < 12; ++j)
+    hess_col<kThreads>(j, z, cells, h, dxpu, fr, k, __ldg(free_col + j * n), H);
+}
+
+// backtracking: the largest accepted alpha, 0 if none
+__device__ __forceinline__ float backtrack(const float* z, const float* p, const Cells& cells,
+                                           const float* h, const float* dxpu, const Consts3& k,
+                                           float e0, float det_floor) {
+  float alpha = 0.0f;
+#pragma unroll 1
+  for (int a = 0; a < 5; ++a) {
+    float zt[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) zt[i] = z[i] + alpha_bt(a) * p[i];
+    if (trial_ok(zt, cells, h, dxpu, k, e0, det_floor)) alpha = alpha_bt(a);
+  }
+  return alpha;
+}
+
+// K4' (kComp true, ehat_in) and K4''a (kComp false, the constant eh). Each
+// sweep keeps make_chord_sweeps' order: it retires before it solves.
 //
-// The chord sweep's refresh: the JAX kernel guards it per tile (pl.when over
-// the tile's max of active & ~ok1) and writes the new Hessian and step only
-// where the cached step was rejected (h_write(H2, keep=ok1), where(ok1, p,
-// alpha p2)). Here the guard is per element, and gives the same results: an
+// The refresh: the JAX kernel guards it per tile (pl.when over the tile's
+// max of active & ~ok1) and writes the new Hessian and step only where the
+// cached step was rejected (h_write(H2, keep=ok1), where(ok1, p, alpha
+// p2)). Here the guard is per element, and gives the same results: an
 // element that accepts the cached step keeps its cached Hessian and that
 // step whether or not a neighbour refreshes, and an element the JAX kernel
 // refreshes without needing it is one that is no longer active, which never
 // moves again. An element that retires on its gradient norm does not move
 // either, so it leaves before the solve.
-template <bool kChord, bool kComp>
-__global__ void __launch_bounds__(kThreads) prox3d_kernel(
+template <bool kComp>
+__global__ void __launch_bounds__(kThreads) prox3d_chord_kernel(
     const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
     const float* __restrict__ free_in, const float* __restrict__ cells_in,
     const float* __restrict__ ehat_in, float* __restrict__ zout, float* __restrict__ ih0_out,
@@ -233,7 +460,7 @@ __global__ void __launch_bounds__(kThreads) prox3d_kernel(
   __shared__ float hess[kTri * kThreads];
   long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  float* H = hess + threadIdx.x;  // chord sweeps: the cached Hessian, factored
+  float* H = hess + threadIdx.x;  // the cached Hessian, factored
   const Cells cells{cells_in + e, n};
   float z[12], dxpu[12], fr[12], h_e[9];
 #pragma unroll
@@ -250,57 +477,36 @@ __global__ void __launch_bounds__(kThreads) prox3d_kernel(
   }
 
   ih0_out[e] = energy3_unreg(z, cells, h, k);
-  if constexpr (kChord) {
-    hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
-    factor12(H);
-  }
+  hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
+  factor12<kThreads>(H);
 
   for (int it = 0; it < max_iters; ++it) {
     // gradient, its norm and the regularized energy at the start
     float g[12];
     float ih;
     float e0 = grad3<float>(z, cells, h, dxpu, fr, k, g, ih);
-    if constexpr (kChord) {
-      // retire on a small gradient from the second sweep on, before moving
-      if (it > 0 && norm1(g) < k.tol) break;
-      float det_floor = floor_of(edet3(z));
+    // retire on a small gradient from the second sweep on, before moving
+    if (it > 0 && norm1(g) < k.tol) break;
+    float det_floor = floor_of(edet3(z));
 
-      // the cached Hessian's step, tried once at alpha 1
-      float p[12], zt[12];
-      direction(H, g, k.inv_w2, p);
+    // the cached Hessian's step, tried once at alpha 1
+    float p[12], zt[12];
+    direction<kThreads>(H, g, k.inv_w2, p);
 #pragma unroll
-      for (int i = 0; i < 12; ++i) zt[i] = z[i] + p[i];
-      if (!trial_ok(zt, cells, h, dxpu, k, e0, det_floor)) {
-        // refresh: the Hessian at z replaces the cache, then backtracking
-        hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
-        factor12(H);
-        direction(H, g, k.inv_w2, p);
-        float alpha = backtrack(z, p, cells, h, dxpu, k, e0, det_floor);
-#pragma unroll
-        for (int i = 0; i < 12; ++i) p[i] = alpha * p[i];
-      }
-      bool stalled = absmax(p) <= kEpsStall * (1.0f + absmax(z));
-#pragma unroll
-      for (int i = 0; i < 12; ++i) z[i] = z[i] + p[i];
-      if (stalled) break;
-    } else {
-      float gnorm = norm1(g);
-
-      float p[12];
+    for (int i = 0; i < 12; ++i) zt[i] = z[i] + p[i];
+    if (!trial_ok(zt, cells, h, dxpu, k, e0, det_floor)) {
+      // refresh: the Hessian at z replaces the cache, then backtracking
       hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
-      factor12(H);
-      direction(H, g, k.inv_w2, p);
-
-      float det_floor = floor_of(edet3(z));
+      factor12<kThreads>(H);
+      direction<kThreads>(H, g, k.inv_w2, p);
       float alpha = backtrack(z, p, cells, h, dxpu, k, e0, det_floor);
-      float step_inf = alpha * absmax(p);
-      bool stalled = step_inf <= kEpsStall * (1.0f + absmax(z));
-      // retire on a small gradient from the second sweep on, before moving
-      if (it > 0 && gnorm < k.tol) break;
 #pragma unroll
-      for (int i = 0; i < 12; ++i) z[i] = z[i] + alpha * p[i];
-      if (stalled) break;
+      for (int i = 0; i < 12; ++i) p[i] = alpha * p[i];
     }
+    bool stalled = absmax(p) <= kEpsStall * (1.0f + absmax(z));
+#pragma unroll
+    for (int i = 0; i < 12; ++i) z[i] = z[i] + p[i];
+    if (stalled) break;
   }
 #pragma unroll
   for (int c = 0; c < 12; ++c) zout[c * n + e] = z[c];
@@ -315,9 +521,16 @@ int launch(const float* z, const float* dxpu, const float* free_, const float* c
   Consts3 k;
   if constexpr (!kComp) std::memcpy(&eh, consts, sizeof(eh));
   std::memcpy(&k, consts + (kComp ? 0 : 9), sizeof(k));
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  prox3d_kernel<kChord, kComp><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
+  if constexpr (kChord) {
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    prox3d_chord_kernel<kComp><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
+  } else {
+    constexpr int kE = kThreads / kGroup;
+    const long long blocks = (n + kE - 1) / kE;
+    prox3d_newton_kernel<kComp, kGroup><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@ the plain versions of kernels K1 (``ops/prox2d.py``), K4 and K4'
 Port of the dimension-generic parts of
 ``mmadmm_tpu/ops/prox_pallas2d.py``: ``make_newton_sweeps`` (one sweep:
 gradient, Hessian, ``ldlt_c``, the ``-g/w^2`` fallback, 5 backtracking
-trials, the retire rules), ``make_chord_sweeps`` (the Hessian cached
+trials, the retire rules; the plain sweep, like the kernels, retires on the
+gradient before it builds the Hessian), ``make_chord_sweeps`` (the Hessian cached
 across sweeps, one trial at the cached step, a refresh only where it is
 rejected) and the forward-mode rules the Pallas kernels get from
 ``jax.jvp``. An element's state is a list of ``n`` channel
@@ -185,11 +186,15 @@ def _backtrack(zc, p, energy_fn, edet_fn, e0, det_floor):
     return alpha
 
 
+def _stalled(step_inf, zc):
+    """A step no larger than ``EPS_STALL`` relative to ``1 + max |z|``."""
+    return step_inf <= EPS_STALL * (1.0 + rmax([torch.abs(zi) for zi in zc]))
+
+
 def _retire(not_first, gnorm, step_inf, zc, tol):
     """``(active_now, stalled)``: an element retires on ``gnorm < tol``
     from the second sweep on, before it moves, or after a stalled move."""
-    zmax = rmax([torch.abs(zi) for zi in zc])
-    stalled = step_inf <= EPS_STALL * (1.0 + zmax)
+    stalled = _stalled(step_inf, zc)
     if not_first:
         return ~(gnorm < tol), stalled
     return torch.ones_like(stalled), stalled
@@ -202,21 +207,44 @@ def _gnorm(g):
     return gnorm
 
 
-def newton_sweep(not_first, zc, grad_fn, hess_fn, energy_fn, edet_fn, inv_w2, tol):
+def newton_sweep(not_first, zc, fns, edet_fn, inv_w2, tol, stats=None):
     """One sweep over elements that are all active (``make_newton_sweeps``'s
-    ``one_iter``). ``grad_fn(z) -> (grads, ih, e_reg)``, ``hess_fn(z) ->
-    H``, ``energy_fn(z) -> e_reg``, ``edet_fn(z)``. Returns ``(z_new,
-    still_active)``."""
+    ``one_iter``). ``fns(rows) -> (grad_fn, hess_fn, energy_fn)`` gives the
+    element functions on the columns ``rows`` of ``zc`` (``slice(None)``
+    for all): ``grad_fn(z) -> (grads, ih, e_reg)``, ``hess_fn(z) -> H``,
+    ``energy_fn(z) -> e_reg``; ``edet_fn(z)``.
+
+    An element that retires on ``gnorm < tol`` (from the second sweep on)
+    does not move, so only the others build a Hessian, solve and try the
+    five steps; the JAX kernel computes those for every lane and discards
+    them, with the same results. ``stats``, if given, accumulates
+    ``hessians`` (elements that built one) and ``gnorm_retired``. Returns
+    ``(z_new, still_active)``."""
     n = len(zc)
-    g, _, e0 = grad_fn(zc)
-    gnorm = _gnorm(g)
-    p = _solve(hess_fn(zc), g, inv_w2)
-    det_floor = torch.clamp_max(edet_fn(zc), 0.0)
-    alpha = _backtrack(zc, p, energy_fn, edet_fn, e0, det_floor)
+    g, _, e0 = fns(slice(None))[0](zc)
+    go = ~(_gnorm(g) < tol) if not_first else torch.ones_like(e0, dtype=torch.bool)
+    rows = torch.nonzero(go).squeeze(1)
+    if stats is not None:
+        stats["hessians"] = stats.get("hessians", 0) + rows.numel()
+        stats["gnorm_retired"] = stats.get("gnorm_retired", 0) + go.numel() - rows.numel()
+    z_new = list(zc)
+    keep = torch.zeros_like(go)
+    if rows.numel() == 0:
+        return z_new, keep
+    if rows.numel() == go.numel():
+        rows = slice(None)
+    _, hess_fn, energy_fn = fns(rows)
+    zr = [zi[rows] for zi in zc]
+    p = _solve(hess_fn(zr), [gi[rows] for gi in g], inv_w2)
+    det_floor = torch.clamp_max(edet_fn(zr), 0.0)
+    alpha = _backtrack(zr, p, energy_fn, edet_fn, e0[rows], det_floor)
     step_inf = alpha * rmax([torch.abs(pi) for pi in p])
-    active_now, stalled = _retire(not_first, gnorm, step_inf, zc, tol)
-    z_new = [torch.where(active_now, zc[i] + alpha * p[i], zc[i]) for i in range(n)]
-    return z_new, active_now & ~stalled
+    stalled = _stalled(step_inf, zr)
+    for i in range(n):
+        z_new[i] = zc[i].clone()
+        z_new[i][rows] = zr[i] + alpha * p[i]
+    keep[rows] = ~stalled
+    return z_new, keep
 
 
 def tri_index(n):
@@ -273,6 +301,14 @@ def chord_sweep(not_first, zc, Hc, fns, edet_fn, inv_w2, tol):
     active_now, stalled = _retire(not_first, gnorm, step_inf, zc, tol)
     z_new = [torch.where(active_now, zc[i] + step[i], zc[i]) for i in range(n)]
     return z_new, active_now & ~stalled, Hc
+
+
+def cols_of(sub, rows):
+    """The columns ``rows`` of the columns ``sub`` (each an index tensor or
+    ``slice(None)``)."""
+    if isinstance(sub, slice):
+        return rows
+    return sub if isinstance(rows, slice) else sub[rows]
 
 
 def run_sweeps(z, max_iters, sweep, stats=None, carry=None):

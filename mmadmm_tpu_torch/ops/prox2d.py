@@ -38,7 +38,8 @@ import torch
 
 from ..cuda_build import load_library
 from .monitor_grid import element_cell_rows
-from .newton import F32, DET_FLOOR, absolute, f32, hessian, ldlt_c, max_floor, newton_sweep, run_sweeps, sqrt
+from .newton import (F32, DET_FLOOR, absolute, cols_of, f32, hessian, ldlt_c, max_floor,
+                     newton_sweep, run_sweeps, sqrt)
 from .newton import check as _check
 from .newton import consts as _consts
 
@@ -225,7 +226,8 @@ def prox2d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
     """Plain PyTorch K1 on ``[C, N]`` channel tensors. Sweeps only the
     elements still active (an element's result does not depend on any
     other element). Returns ``(z_out [6, N], ih0 [N])``; ``stats``, if
-    given, receives ``sweeps`` and ``element_sweeps``."""
+    given, receives ``sweeps``, ``element_sweeps``, ``hessians`` and
+    ``gnorm_retired`` (``ops/newton.py::newton_sweep``)."""
     ehat = tuple(float(v) for v in ehat)
     w2, half_w2, inv_w2 = _consts(w)
     tol = f32(tol)
@@ -235,15 +237,15 @@ def prox2d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
 
     ih0, _ = energy_c(list(z), rows(cells), ehat)
 
+    def fns(cols):
+        d, fr, c = list(dxpu[:, cols]), list(free[:, cols]), rows(cells[:, cols])
+        return (lambda zz: grad_c(zz, c, ehat, d, w2, half_w2, fr),
+                lambda zz: hess_c(zz, c, ehat, d, w2, half_w2, fr),
+                lambda zz: energy_c(zz, c, ehat, d, half_w2)[1])
+
     def sweep(not_first, sub, zc):
-        d, fr, c = list(dxpu[:, sub]), list(free[:, sub]), rows(cells[:, sub])
-        return newton_sweep(
-            not_first, zc,
-            lambda zz: grad_c(zz, c, ehat, d, w2, half_w2, fr),
-            lambda zz: hess_c(zz, c, ehat, d, w2, half_w2, fr),
-            lambda zz: energy_c(zz, c, ehat, d, half_w2)[1],
-            _edet_c, inv_w2, tol,
-        )
+        return newton_sweep(not_first, zc, lambda r: fns(cols_of(sub, r)), _edet_c, inv_w2, tol,
+                            stats)
 
     return run_sweeps(z, max_iters, sweep, stats), ih0
 

@@ -53,8 +53,8 @@ import torch
 
 from ..cuda_build import load_library
 from .monitor_grid import element_cell_rows
-from .newton import (DET_FLOOR, Dual, absolute, check, chord_sweep, consts, f32, hessian,
-                     max_floor, newton_sweep, run_sweeps, sqrt, tri_index)
+from .newton import (DET_FLOOR, Dual, absolute, check, chord_sweep, cols_of, consts, f32,
+                     hessian, max_floor, newton_sweep, run_sweeps, sqrt, tri_index)
 
 ROW_W3 = 54  # per vertex: 48 corner entries + x0, x1, y0, y1, z0, z1
 _SYM_W = (1.0, 2.0, 2.0, 1.0, 2.0, 1.0)  # contraction weights of the sym pairs
@@ -266,31 +266,30 @@ def _ehat_of(ehat):
     return lambda cols: const
 
 
+def _element_fns(dxpu, free, cells, ehat_of, w2, half_w2):
+    """``fns(cols) -> (grad_fn, hess_fn, energy_fn)``: the element
+    functions on the columns ``cols``."""
+    def fns(cols):
+        d, fr, c, eh = (list(dxpu[:, cols]), list(free[:, cols]), _rows(cells[:, cols]),
+                        ehat_of(cols))
+        return (lambda zz: grad_c3(zz, c, eh, d, w2, half_w2, fr),
+                lambda zz: hess_c3(zz, c, eh, d, w2, half_w2, fr),
+                lambda zz: energy_c3(zz, c, eh, d, half_w2)[1])
+    return fns
+
+
 def _newton_plain(z, dxpu, free, cells, ehat_of, w, tol, max_iters, stats):
     """Up to ``max_iters`` Newton sweeps of the elements still active."""
     w2, half_w2, inv_w2 = consts(w)
     tol = f32(tol)
     ih0, _ = energy_c3(list(z), _rows(cells), ehat_of(slice(None)))
+    fns = _element_fns(dxpu, free, cells, ehat_of, w2, half_w2)
 
     def sweep(not_first, sub, zc):
-        d, fr, c, eh = list(dxpu[:, sub]), list(free[:, sub]), _rows(cells[:, sub]), ehat_of(sub)
-        return newton_sweep(
-            not_first, zc,
-            lambda zz: grad_c3(zz, c, eh, d, w2, half_w2, fr),
-            lambda zz: hess_c3(zz, c, eh, d, w2, half_w2, fr),
-            lambda zz: energy_c3(zz, c, eh, d, half_w2)[1],
-            edet_c3, inv_w2, tol,
-        )
+        return newton_sweep(not_first, zc, lambda rows: fns(cols_of(sub, rows)), edet_c3, inv_w2,
+                            tol, stats)
 
     return run_sweeps(z, max_iters, sweep, stats), ih0
-
-
-def _cols(sub, rows):
-    """The columns ``rows`` of the columns ``sub`` (each an index tensor or
-    ``slice(None)``)."""
-    if isinstance(sub, slice):
-        return rows
-    return sub if isinstance(rows, slice) else sub[rows]
 
 
 def _chord_plain(z, dxpu, free, cells, ehat_of, w, tol, max_iters, stats):
@@ -300,20 +299,14 @@ def _chord_plain(z, dxpu, free, cells, ehat_of, w, tol, max_iters, stats):
     w2, half_w2, inv_w2 = consts(w)
     tol = f32(tol)
     ih0, _ = energy_c3(list(z), _rows(cells), ehat_of(slice(None)))
-
-    def fns(cols):
-        d, fr, c, eh = (list(dxpu[:, cols]), list(free[:, cols]), _rows(cells[:, cols]),
-                        ehat_of(cols))
-        return (lambda zz: grad_c3(zz, c, eh, d, w2, half_w2, fr),
-                lambda zz: hess_c3(zz, c, eh, d, w2, half_w2, fr),
-                lambda zz: energy_c3(zz, c, eh, d, half_w2)[1])
+    fns = _element_fns(dxpu, free, cells, ehat_of, w2, half_w2)
 
     H0 = fns(slice(None))[1](list(z))
     hc = torch.stack([H0[i][j] for i, j in tri_index(12)])
     del H0
 
     def sweep(not_first, sub, zc, h):
-        return chord_sweep(not_first, zc, h, lambda rows: fns(_cols(sub, rows)), edet_c3,
+        return chord_sweep(not_first, zc, h, lambda rows: fns(cols_of(sub, rows)), edet_c3,
                            inv_w2, tol)
 
     return run_sweeps(z, max_iters, sweep, stats, carry=hc), ih0
@@ -322,7 +315,8 @@ def _chord_plain(z, dxpu, free, cells, ehat_of, w, tol, max_iters, stats):
 def prox3d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
     """Plain PyTorch K4 on ``[C, N]`` channel tensors, sweeping only the
     elements still active. Returns ``(z_out [12, N], ih0 [N])``;
-    ``stats``, if given, receives ``sweeps`` and ``element_sweeps``."""
+    ``stats``, if given, receives ``sweeps``, ``element_sweeps``,
+    ``hessians`` and ``gnorm_retired`` (``ops/newton.py::newton_sweep``)."""
     return _newton_plain(z, dxpu, free, cells, _ehat_of(ehat), w, tol, max_iters, stats)
 
 

@@ -13,8 +13,8 @@ activities) and prints wall ms per step (host clock, ending in
 ``torch.cuda.synchronize()``), the device's busy share (the sum of kernel
 times over the wall time; kernels do not overlap on the one stream the
 port uses), the time of each of the port's kernels (K1 ``prox2d``, K2
-``eg2d``, K3 ``hess2d``, K4, K4', K4''a and K4''b, the instantiations of
-``prox3d_kernel``), the number of kernel launches per step, and the
+``eg2d``, K3 ``hess2d``, K4 and K4''b, the instantiations of
+``prox3d_newton_kernel``, and K4' and K4''a, of ``prox3d_chord_kernel``), the number of kernel launches per step, and the
 kernels with the most device time. On the generic route it also prints
 the device time and launches of the prox's Jacobian builds
 (``ElementKernels.masked_jac``) and of its LDL^T solves
@@ -38,8 +38,8 @@ WARM = 5
 STEPS = 5
 # kernel: the name its device time is found by
 KERNELS = {"prox2d": "prox2d_kernel", "eg2d": "eg2d_kernel", "hess2d": "hess2d_kernel",
-           "K4": "prox3d_kernel<false, false>", "K4'": "prox3d_kernel<true, true>",
-           "K4''a": "prox3d_kernel<true, false>", "K4''b": "prox3d_kernel<false, true>"}
+           "K4": "prox3d_newton_kernel<false,", "K4'": "prox3d_chord_kernel<true>",
+           "K4''a": "prox3d_chord_kernel<false>", "K4''b": "prox3d_newton_kernel<true,"}
 M3320R = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "Experiments", "InputFiles", "Monitor3320r.json")
 _2D = dict(test_type="Shoulder", dim=2, mon_type=1, nx=320, ny=320)

@@ -1,14 +1,21 @@
-"""Run kernels K1, K4, K4' and K4'' as host code, thread by thread, against
-their plain PyTorch versions: a rehearsal of their arithmetic where there
-is no card and no ``nvcc``.
+"""Run kernels K1, K4, K4' and K4'' as host code against their plain
+PyTorch versions: a rehearsal of their arithmetic where there is no card
+and no ``nvcc``.
 
     python scripts/cuda_host_rehearsal.py
 
 Compiles ``mmadmm_tpu_torch/csrc/prox2d.cu`` and ``prox3d.cu`` with
 ``g++ -ffp-contract=off`` (no fused multiply-add, as ``nvcc --fmad=false``)
 against a stub ``cuda_runtime.h`` that defines ``__device__``, ``__ldg``,
-``threadIdx`` and the like as host code, into a temporary directory, and
-calls each kernel once per element. Their outputs are compared bit for bit
+``threadIdx`` and the like as host code, into a temporary directory. The
+one-thread-per-element kernels (K1, K4', K4''a) are called once per
+element, one after another. The Newton kernels K4 and K4''b, where a group
+of lanes shares an element, run a block at a time with one host thread per
+lane (``threadIdx`` is thread-local), ``__syncthreads``, ``__syncwarp`` and
+``__ballot_sync`` being host barriers over the block or the mask's lanes;
+each runs with 4, 8 and 16 lanes per element, and also on the first 1, 30
+and 131 columns of its inputs (the block's copies then take the 4-byte
+path). Their outputs are compared bit for bit
 with ``prox2d_plain`` (Shoulder nx=16), ``prox3d_plain`` (3D SquareGrid
 and Shoulder nx=4 and SquareGrid nx=6), ``prox3d_chord_comp_plain``
 (3D SquareGrid nx=4 and 6 on a computational mesh, mon_type 5, rho 10,
@@ -45,18 +52,73 @@ from mmadmm_tpu_torch.ops import prox3d as P3  # noqa: E402
 
 STUB = """#pragma once
 #include <cmath>
+#include <condition_variable>
+#include <cstdint>
+#include <cstring>
+#include <map>
+#include <mutex>
+#include <utility>
 #define __device__
 #define __global__
 #define __forceinline__ inline
 #define __shared__ static
 #define __restrict__
 #define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
 typedef void* cudaStream_t;
 struct Dim3 { unsigned x, y, z; };
-static Dim3 blockIdx, threadIdx, blockDim;
+static thread_local Dim3 threadIdx;
+static Dim3 blockIdx, blockDim;
 template <typename T> T __ldg(const T* p) { return *p; }
 inline int cudaGetLastError() { return 0; }
+inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 using std::isfinite;
+
+// A barrier of `count` host threads, one per lane, that returns the OR of
+// the words they bring: __syncthreads, __syncwarp and __ballot_sync.
+struct HostBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int count = 0, arrived = 0;
+  unsigned long gen = 0;
+  unsigned acc = 0, result = 0;
+  unsigned arrive(unsigned v) {
+    std::unique_lock<std::mutex> lk(m);
+    acc |= v;
+    const unsigned long g = gen;
+    if (++arrived == count) {
+      result = acc;
+      acc = 0;
+      arrived = 0;
+      ++gen;
+      cv.notify_all();
+      return result;
+    }
+    cv.wait(lk, [&] { return gen != g; });
+    return result;
+  }
+};
+
+inline HostBarrier& host_barrier(unsigned warp, unsigned mask, int count) {
+  static std::mutex m;
+  static std::map<std::pair<unsigned, unsigned>, HostBarrier> bars;
+  std::lock_guard<std::mutex> lk(m);
+  auto it = bars.find({warp, mask});
+  if (it == bars.end()) {
+    it = bars.try_emplace({warp, mask}).first;
+    it->second.count = count;
+  }
+  return it->second;
+}
+
+inline void __syncthreads() { host_barrier(~0u, 0u, (int)blockDim.x).arrive(0u); }
+inline void __syncwarp(unsigned mask) {
+  host_barrier(threadIdx.x / 32, mask, __builtin_popcount(mask)).arrive(0u);
+}
+inline unsigned __ballot_sync(unsigned mask, bool p) {
+  return host_barrier(threadIdx.x / 32, mask, __builtin_popcount(mask))
+      .arrive(p ? 1u << (threadIdx.x % 32) : 0u);
+}
 """
 
 # one host entry per kernel: the launch becomes a loop over the elements
@@ -74,10 +136,14 @@ extern "C" int host_prox2d(const float* z, const float* dxpu, const float* fr, c
 }
 """,
     "prox3d": """
-template <bool kChord, bool kComp>
-int host_run(const float* z, const float* dxpu, const float* fr, const float* cells,
-             const float* ehat, float* zout, float* ih0, long long n, const float* c,
-             int max_iters) {
+#include <thread>
+#include <vector>
+
+// the chord kernels (K4', K4''a): one thread per element, run one by one
+template <bool kComp>
+int host_chord(const float* z, const float* dxpu, const float* fr, const float* cells,
+               const float* ehat, float* zout, float* ih0, long long n, const float* c,
+               int max_iters) {
   Ehat3 eh{};
   Consts3 k;
   if (!kComp) std::memcpy(&eh, c, sizeof(eh));
@@ -85,32 +151,71 @@ int host_run(const float* z, const float* dxpu, const float* fr, const float* ce
   blockDim.x = kThreads;
   for (long long e = 0; e < n; ++e) {
     blockIdx.x = e / kThreads; threadIdx.x = e % kThreads;
-    prox3d_kernel<kChord, kComp>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k, max_iters);
+    prox3d_chord_kernel<kComp>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k, max_iters);
   }
   return 0;
 }
 
-extern "C" int host_prox3d(const float* z, const float* dxpu, const float* fr, const float* cells,
-                           float* zout, float* ih0, long long n, const float* c, int max_iters) {
-  return host_run<false, false>(z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
+// the Newton kernels (K4, K4''b) with G lanes per element: a block at a
+// time, one host thread per lane, the barriers and ballots as above
+template <bool kComp, int G>
+int host_newton(const float* z, const float* dxpu, const float* fr, const float* cells,
+                const float* ehat, float* zout, float* ih0, long long n, const float* c,
+                int max_iters) {
+  Ehat3 eh{};
+  Consts3 k;
+  if (!kComp) std::memcpy(&eh, c, sizeof(eh));
+  std::memcpy(&k, c + (kComp ? 0 : 9), sizeof(k));
+  blockDim.x = kThreads;
+  const long long per_block = kThreads / G;
+  for (long long b = 0; b * per_block < n; ++b) {
+    blockIdx.x = b;
+    std::vector<std::thread> lanes;
+    for (unsigned t = 0; t < (unsigned)kThreads; ++t)
+      lanes.emplace_back([=] {
+        threadIdx.x = t;
+        prox3d_newton_kernel<kComp, G>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
+                                       max_iters);
+      });
+    for (auto& l : lanes) l.join();
+  }
+  return 0;
+}
+
+template <bool kComp>
+int host_newton_g(int g, const float* z, const float* dxpu, const float* fr, const float* cells,
+                  const float* ehat, float* zout, float* ih0, long long n, const float* c,
+                  int max_iters) {
+  switch (g) {
+    case 4: return host_newton<kComp, 4>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+    case 8: return host_newton<kComp, 8>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+    case 16: return host_newton<kComp, 16>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+  }
+  return 1;
+}
+
+extern "C" int host_prox3d(int g, const float* z, const float* dxpu, const float* fr,
+                           const float* cells, float* zout, float* ih0, long long n,
+                           const float* c, int max_iters) {
+  return host_newton_g<false>(g, z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
 }
 
 extern "C" int host_prox3d_chord(const float* z, const float* dxpu, const float* fr,
                                  const float* cells, float* zout, float* ih0, long long n,
                                  const float* c, int max_iters) {
-  return host_run<true, false>(z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
+  return host_chord<false>(z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
 }
 
 extern "C" int host_prox3d_chord_comp(const float* z, const float* dxpu, const float* fr,
                                       const float* cells, const float* ehat, float* zout,
                                       float* ih0, long long n, const float* c, int max_iters) {
-  return host_run<true, true>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+  return host_chord<true>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
 }
 
-extern "C" int host_prox3d_comp(const float* z, const float* dxpu, const float* fr,
+extern "C" int host_prox3d_comp(int g, const float* z, const float* dxpu, const float* fr,
                                 const float* cells, const float* ehat, float* zout, float* ih0,
                                 long long n, const float* c, int max_iters) {
-  return host_run<false, true>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+  return host_newton_g<true>(g, z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
 }
 """,
 }
@@ -132,14 +237,17 @@ def build(tmp: str) -> dict:
         with open(cpp, "w") as f:
             f.write(src)
         subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fno-fast-math",
-                        "-shared", "-fPIC", "-w", "-I", tmp, cpp, "-o", so], check=True)
+                        "-shared", "-fPIC", "-pthread", "-w", "-I", tmp, cpp, "-o", so],
+                       check=True)
         lib = ctypes.CDLL(so)
         tail = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float), ctypes.c_int]
-        getattr(lib, f"host_{name}").argtypes = [ctypes.c_void_p] * 6 + tail
-        if name == "prox3d":
+        if name == "prox3d":  # the Newton entries take G first
+            lib.host_prox3d.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail
             lib.host_prox3d_chord.argtypes = [ctypes.c_void_p] * 6 + tail
             lib.host_prox3d_chord_comp.argtypes = [ctypes.c_void_p] * 7 + tail
-            lib.host_prox3d_comp.argtypes = [ctypes.c_void_p] * 7 + tail
+            lib.host_prox3d_comp.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + tail
+        else:
+            lib.host_prox2d.argtypes = [ctypes.c_void_p] * 6 + tail
         libs[name] = lib
     return libs
 
@@ -205,15 +313,29 @@ def main() -> int:
                 k = [*ehat, *k3]
                 pargs = (ehat,)
             n = args[0].shape[1]
-            zo, ih = torch.empty_like(args[0]), torch.empty(n)
-            getattr(libs[name], entry)(
-                *[t.data_ptr() for t in (*args, zo, ih)], n, (ctypes.c_float * len(k))(*k),
-                integ.prox_max_iters)
             zp, ihp = plain(*args, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
-            same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
-            label = entry[5:] + (" (computational mesh)" if kw.get("comp_mesh") else "")
-            print(f"{label} at {kw['test_type']} {kw['dim']}D nx={kw['nx']}, {n} slots: host kernel "
-                  f"bit-equal to the plain version on {100 * same:.2f} % of elements", flush=True)
+            newton = entry in ("host_prox3d", "host_prox3d_comp")
+            for g in (4, 8, 16) if newton else (None,):
+                zo, ih = torch.empty_like(args[0]), torch.empty(n)
+                getattr(libs[name], entry)(
+                    *(() if g is None else (g,)), *[t.data_ptr() for t in (*args, zo, ih)], n,
+                    (ctypes.c_float * len(k))(*k), integ.prox_max_iters)
+                same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
+                label = entry[5:] + (f", {g} lanes per element" if g else "") + (
+                    " (computational mesh)" if kw.get("comp_mesh") else "")
+                print(f"{label} at {kw['test_type']} {kw['dim']}D nx={kw['nx']}, {n} slots: host "
+                      f"kernel bit-equal to the plain version on {100 * same:.2f} % of elements",
+                      flush=True)
+            for m in (1, 30, 131) if newton else ():
+                cut = tuple(a[:, :m].contiguous() for a in args)
+                zp, ihp = plain(*cut, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
+                zo, ih = torch.empty_like(cut[0]), torch.empty(m)
+                getattr(libs[name], entry)(
+                    4, *[t.data_ptr() for t in (*cut, zo, ih)], m,
+                    (ctypes.c_float * len(k))(*k), integ.prox_max_iters)
+                same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
+                print(f"{entry[5:]}, 4 lanes, first {m} columns: bit-equal on {100 * same:.2f} % "
+                      f"of elements", flush=True)
     return 0
 
 

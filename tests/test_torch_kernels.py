@@ -15,8 +15,8 @@ prox3d_plain``), those of tests/test_prox_pallas3d.py:88-108: ih0 within
 rtol 2e-5, the regularized energies after the solve within rtol 1e-4 and
 atol 1e-6; the same for K4' (``csrc/prox3d.cu`` vs ``ops/prox3d.py::
 prox3d_chord_comp_plain``, tests/test_torch_prox3d_chord.py), on the
-stock engine's inputs. K4''a and K4''b (``prox3d_chord``,
-``prox3d_comp``) are held bit for bit to their plain versions."""
+stock engine's inputs. K4, K4''a and K4''b (``prox3d``, ``prox3d_chord``,
+``prox3d_comp``) are also held bit for bit to their plain versions."""
 
 import pytest
 import torch
@@ -180,6 +180,7 @@ def _problem3(test_type="SquareGrid", mon_type=1):
 def _check_pair3(inputs, args, zk, ihk):
     z, dxpu, free, cells = inputs
     zp, ihp = P3.prox3d_plain(*inputs, *args)
+    assert torch.equal(zk, zp) and torch.equal(ihk, ihp)
     torch.testing.assert_close(ihk, ihp, rtol=2e-5, atol=1e-8)
     rows = P3._rows(cells)
     half_w2 = consts(args[1])[1]
@@ -423,3 +424,64 @@ def test_cuda_tensors_never_take_the_plain_k4pp(variant):
         kernel(z, dxpu, free, cells[:200].contiguous(), *eh, *args)
     with pytest.raises(ValueError):
         kernel(z, dxpu.cpu(), free, cells, *eh, *args)
+
+
+# The Newton kernels K4 (``prox3d``, 3D Shoulder nx=4, a constant grid) and
+# K4''b (``prox3d_comp``, 3D CompSquare nx=4), where a group of lanes shares
+# an element, bit for bit against their plain versions: as the path calls
+# them, with at most 1 and 2 sweeps, at ragged sizes (below one block, not a
+# multiple of 4, not a multiple of a block's elements) and with an element
+# whose Hessian is not finite. That element's monitor is scaled by 1e-9, so
+# the determinant of its summed monitor squares to below the smallest f32:
+# the dual pass's 1/det^2 is inf, the solve is not finite and the step is
+# -g/w^2; at w = 1000 that step is accepted, so the element moves on it.
+NEWTON_CASES = ["path", "max_iters=1", "max_iters=2", "fallback", "n=1", "n=5", "n=127",
+                "n=129", "n=700"]
+
+
+def _newton(variant):
+    """``(kernel, plain, channel inputs, args)`` of K4 or K4''b at nx=4."""
+    if variant == "K4":
+        _, integ = _problem3("Shoulder", 0)
+        inputs, args = _inputs(integ)
+        return P3.prox3d, P3.prox3d_plain, inputs, list(args)
+    _, kernel, plain, inputs, args = _k4pp("comp")
+    return kernel, plain, inputs, list(args)
+
+
+@pytest.mark.parametrize("case", NEWTON_CASES)
+@pytest.mark.parametrize("variant", ["K4", "K4''b"])
+def test_newton_kernels_bit_equal_to_plain(variant, case, monkeypatch):
+    _card()
+    from mmadmm_tpu_torch.ops import newton as N
+
+    kernel, plain, inputs, args = _newton(variant)
+    if case.startswith("max_iters="):
+        args[-1] = int(case.split("=")[1])
+    elif case.startswith("n="):
+        inputs = tuple(t[:, :int(case[2:])].contiguous() for t in inputs)
+    elif case == "fallback":
+        live = int(torch.nonzero(inputs[2].sum(0) > 0)[0])
+        cells = inputs[3].clone()
+        for v in range(4):
+            cells[v * 54:v * 54 + 48, live] *= 1e-9
+        inputs = (*inputs[:3], cells, *inputs[4:])
+        args[-3] = 1000.0
+    before = kernel.launches
+    zk, ihk = kernel(*inputs, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    fallbacks = []
+    solve = N._solve
+
+    def spy(H, g, inv_w2):
+        p = N.ldlt_c(H, [-gi for gi in g])
+        bad = ~torch.stack([torch.isfinite(pi) for pi in p]).all(0)
+        fallbacks.append(int((bad & torch.stack([torch.isfinite(gi) for gi in g]).all(0)).sum()))
+        return solve(H, g, inv_w2)
+
+    monkeypatch.setattr(N, "_solve", spy)
+    zp, ihp = plain(*inputs, *args)
+    assert torch.equal(zk, zp) and torch.equal(ihk, ihp)
+    if case == "fallback":
+        assert sum(fallbacks) >= 1 and not torch.equal(zp[:, live], inputs[0][:, live])

@@ -207,7 +207,7 @@ def test_chord_sweep_refreshes_a_rejected_step(setup):
     assert not bool(ok)  # the cached step is rejected: the refresh branch runs
     z_c, keep_c, h_new = N.chord_sweep(True, zc, cached, lambda rows: fns, P.edet_c3,
                                        inv_w2, N.f32(TOL))
-    z_n, keep_n = N.newton_sweep(True, zc, *fns, P.edet_c3, inv_w2, N.f32(TOL))
+    z_n, keep_n = N.newton_sweep(True, zc, lambda rows: fns, P.edet_c3, inv_w2, N.f32(TOL))
     assert torch.equal(h_new, exact)
     assert all(torch.equal(a, b) for a, b in zip(z_c, z_n))
     assert torch.equal(keep_c, keep_n)
