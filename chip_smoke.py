@@ -14,11 +14,11 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    Shoulder-320 (409,600 element slots), K4 at 3D SquareGrid nx=4 and on
    the step-0 inputs of 3D Shoulder-40 and 3D SquareGrid-40 (768,000
    slots each), K4' on the stock engine's step-0 inputs of 3D CompSquare
-   nx=4 and CompSquare-20 (96,000 tets), K1 through the stock engine's
-   element-major entry on Monitor3320r's (265,004 triangles), K4''a and
-   K4''b on the stock engine's step-0 inputs of 3D SquareGrid and
-   CompSquare at nx=4, nx=20 and, in their main paths, nx=40 (768,000
-   tets); K4 and K4'' bit for bit;
+   nx=4, CompSquare-20 (96,000 tets) and CompSquare-40 (768,000), K1
+   through the stock engine's element-major entry on Monitor3320r's
+   (265,004 triangles), K4''a and K4''b on the stock engine's step-0
+   inputs of 3D SquareGrid and CompSquare at nx=4, nx=20 and, in their
+   main paths, nx=40 (768,000 tets); K4, K4' and K4'' bit for bit;
 4. main paths, each through ``problems.build_problem`` and
    ``integrators.run_loop.run`` with the DtTol stop, with every launch
    count set to 0 just before and read just after: at Shoulder-320, at
@@ -29,7 +29,8 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    MM-ADMM (K4 launches = ADMM iterations; the ``I_h`` trace and the ADMM
    iterations per step equal ``RECORDED_3D``); on the stock element-major
    engine, 3D CompSquare-20 (at most 30 steps) and CompSquare-40 (at most
-   10) on their computational meshes (K4' launches = ADMM iterations) and
+   10) on their computational meshes (K4' launches = ADMM iterations; the
+   ``I_h`` traces and ADMM counts equal ``RECORDED_3D``) and
    Monitor3320r as shipped, in float32 (at most 20 steps; K1 launches =
    ADMM iterations), each with its step-0 energy within rtol 1e-6 of the
    JAX package's. The energies must be finite and fall. Euler and
@@ -49,12 +50,14 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    a 2D computational mesh, SquareGrid-320, in float32 (at most 10 steps);
    K4''a on 3D SquareGrid-40 with ``prox_chord=True`` and K4''b on 3D
    CompSquare-40 with ``prox_chord=False``, on the stock engine (at most 10
-   steps each; launches = ADMM iterations; K4''b's path also equals its
+   steps each; launches = ADMM iterations; each path equals its
    ``RECORDED_3D`` trace); and the generic route on the
    card against the CPU at 2D SquareGrid nx=8 and 3D CompSquare nx=4 in
    float64 over 4 steps;
 5. timing: each kernel alone (median of 20 launches, CUDA events), its
-   plain version once, and its bound; one JSON line ``{"kernels": [...]}``.
+   plain version once, and its bound; one JSON line ``{"kernels": [...]}``
+   (K4' on CompSquare-40's step-0 inputs, and on CompSquare-20's on a line
+   of its own).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 1
@@ -111,10 +114,11 @@ JAX_GENERIC = {
                              3: (1.1731141592543588, 10, 1e-10)},
 }
 # The I_h traces (rounded to 9 digits) and ADMM iterations per step of the
-# paths of the Newton kernels K4 and K4''b, as the one-thread-per-element
-# design of those kernels gave them on an NVIDIA H100 80GB HBM3 (700 W). Each
-# kernel is bit-equal to its plain version, so any design of it must give
-# these again.
+# 3D kernel paths, as the one-thread-per-element design of each kernel gave
+# them on an NVIDIA H100 80GB HBM3 (700 W): of the Newton kernels K4 and
+# K4''b, and of the chord kernels K4' (stock CompSquare-20 and -40) and
+# K4''a. Each kernel is bit-equal to its plain version, so any design of it
+# must give these again.
 RECORDED_3D = {
     "3D Shoulder-40": (
         [1.673936114, 1.645554105, 1.635251653, 1.625717401, 1.616891697, 1.60872361,
@@ -130,6 +134,21 @@ RECORDED_3D = {
     "K4''b 3D CompSquare-40": (
         [0.312561783, 0.312516397, 0.312493738, 0.312470986, 0.312448149, 0.312425228,
          0.312402218, 0.312379133, 0.312355958, 0.31233272],
+        [3] + [1] * 9),
+    "3D CompSquare-20": (
+        [0.255835207, 0.255771881, 0.255740371, 0.255708735, 0.255676994, 0.255645136,
+         0.255613169, 0.255581089, 0.255548908, 0.255516628, 0.255484239, 0.255451747,
+         0.255419158, 0.255386476, 0.255353691, 0.255320809, 0.255287833, 0.25525476,
+         0.2552216, 0.255188342, 0.255155, 0.255121559, 0.255088036, 0.255054426,
+         0.255020725, 0.254986944, 0.254953081, 0.254919131, 0.254885106, 0.254851003],
+        [3] + [1] * 29),
+    "3D CompSquare-40": (
+        [0.312561783, 0.312516397, 0.312493738, 0.312470986, 0.312448149, 0.312425228,
+         0.312402218, 0.312379133, 0.312355958, 0.31233272],
+        [3] + [1] * 9),
+    "K4''a 3D SquareGrid-40": (
+        [0.455565655, 0.455565161, 0.455564945, 0.455564748, 0.455564582, 0.455564438,
+         0.455564315, 0.455564211, 0.455564109, 0.45556402],
         [3] + [1] * 9),
 }
 # eg2d launches of one backward-Euler step beyond its Newton iterations:
@@ -351,11 +370,11 @@ def compare3(label, integ):
 
 def compare4c(label, integ):
     """K4' against its plain version on the stock engine's first prox
-    inputs of step 0. Bands of tests/test_torch_prox3d_chord.py: ih0 within
-    rtol 2e-5, the regularized energies after the solve within rtol 1e-4
-    (atol 1e-6). The two perform the same float operations in the same
-    order (the host rehearsal, scripts/cuda_host_rehearsal.py, agrees bit
-    for bit), so they are expected to agree bit for bit."""
+    inputs of step 0: bit for bit (the two perform the same float
+    operations in the same order; the host rehearsal,
+    scripts/cuda_host_rehearsal.py, agrees bit for bit), and within the
+    bands of tests/test_torch_prox3d_chord.py (ih0 rtol 2e-5, the
+    regularized energies after the solve rtol 1e-4, atol 1e-6)."""
     from mmadmm_tpu_torch.ops import prox3d as P3
     from mmadmm_tpu_torch.ops.newton import consts
 
@@ -375,10 +394,12 @@ def compare4c(label, integ):
     err_ih = check_close(f"{label} ih0", ihk, ihp, 2e-5, 1e-8)
     err_e = check_close(f"{label} regularized energy", e_k, e_p, 1e-4, 1e-6)
     err_z = float((zk - zp).abs().max())
-    same = float(((zk == zp).all(0) & (ihk == ihp)).float().mean())
-    say(f"{label}: {z.shape[1]} tets; within bands (ih0 rtol 2e-5, energy rtol 1e-4); "
-        f"max |ih0 err| {err_ih:.3e}, max |energy err| {err_e:.3e}, max |z' err| {err_z:.3e}, "
-        f"bit-equal (z', ih0) {100 * same:.2f}% of elements; plain version {plain_s:.2f} s")
+    if not (torch.equal(zk, zp) and torch.equal(ihk, ihp)):
+        raise AssertionError(f"{label}: not bit-equal to the plain version "
+                             f"(max |z' err| {err_z:.3e}, max |ih0 err| {err_ih:.3e})")
+    say(f"{label}: {z.shape[1]} tets; bit-equal (z', ih0) on 100.00% of elements, within bands "
+        f"(ih0 rtol 2e-5, energy rtol 1e-4); max |ih0 err| {err_ih:.3e}, max |energy err| "
+        f"{err_e:.3e}, max |z' err| {err_z:.3e}; plain version {plain_s:.2f} s")
     return max(err_ih, err_z), inputs
 
 
@@ -505,13 +526,16 @@ def bound(fn, n_floats):
 
 
 def work(stats):
-    """A plain version's sweep counts: element-sweeps, and for Newton sweeps
-    the Hessians built and the retirements on the gradient before one."""
-    text = f"{stats['element_sweeps']} element-sweeps in {stats['sweeps']} sweeps"
-    if "hessians" in stats:
-        text += (f", {stats['hessians']} Hessians built ({stats['gnorm_retired']} element-sweeps "
-                 f"retired on the gradient before theirs)")
-    return text
+    """A plain version's sweep counts: element-sweeps, the Hessians built
+    and the retirements on the gradient; for chord sweeps also the
+    refreshes (Hessians beyond the one per element at entry)."""
+    text = (f"{stats['element_sweeps']} element-sweeps in {stats['sweeps']} sweeps, "
+            f"{stats['hessians']} Hessians built")
+    if "refreshes" in stats:
+        return text + (f" ({stats['refreshes']} of them refreshes), {stats['gnorm_retired']} "
+                       f"element-sweeps retired on the gradient before their solve")
+    return text + (f" ({stats['gnorm_retired']} element-sweeps retired on the gradient before "
+                   f"theirs)")
 
 
 def _wrappers():
@@ -738,8 +762,8 @@ def main() -> int:
         say(f"{label} set-up: {mesh_s.n_pnts} nodes, {mesh_s.n_elements} elements, "
             f"{type(integ_s).__name__} ({time.perf_counter() - t:.2f} s)")
         stock[label] = [cfg_s, integ_s, None, None]
-    stock["3D CompSquare-20"][2:] = compare4c("K4' vs plain, 3D CompSquare-20 step 0",
-                                              stock["3D CompSquare-20"][1])
+    for label in ("3D CompSquare-20", "3D CompSquare-40"):
+        stock[label][2:] = compare4c(f"K4' vs plain, {label} step 0", stock[label][1])
     compare4pp("K4''a vs plain, 3D SquareGrid nx=4 (stock engine, prox_chord=True)",
                square_chord(4)[2], "chord")
     compare4pp("K4''b vs plain, 3D CompSquare nx=4 (stock engine, prox_chord=False)",
@@ -808,6 +832,8 @@ def main() -> int:
             f"{sum(iters_s)} over {len(infos_s)} steps (per step {iters_s}), "
             f"{1e3 * wall / len(infos_s):.1f} ms per step; Ih trace "
             f"{[round(float(v), 9) for v in ih_s]}")
+        if label in RECORDED_3D:
+            check_recorded(label, infos_s, ih_s)
         if label in JAX_STEP0_IH:
             ref, ih0 = JAX_STEP0_IH[label], float(ih_s[0])
             if not math.isclose(ih0, ref, rel_tol=1e-6):
@@ -947,25 +973,29 @@ def main() -> int:
     say(f"K1 at Monitor3320r step 0 ({m_in[0].shape[1]} triangles): {m_ms:.4f} ms (median of "
         f"20); plain {m_plain:.1f} ms; bound {m_bound[0]:.4f} ms by {m_bound[1]} "
         f"({m_bound[2]:.4e} operations, {m_bound[3]} bytes); {work(stats_m)}")
-    # K4' at CompSquare-40 step 0, then its row on CompSquare-20's step-0 inputs
-    c40 = stock_inputs(stock["3D CompSquare-40"][1])
-    i40 = stock["3D CompSquare-40"][1]
-    a40 = (i40.w, i40.prox_tol, i40.prox_max_iters)
-    say(f"K4' at 3D CompSquare-40 step 0 ({c40[0].shape[1]} tets): "
-        f"{time_kernel(lambda: P3.prox3d_chord_comp(*c40, *a40)):.4f} ms (median of 20); "
-        f"plain {time_plain(lambda: P3.prox3d_chord_comp_plain(*c40, *a40)):.1f} ms")
-    del c40
-    i20, err20, c20 = stock["3D CompSquare-20"][1:]
+    # K4' on CompSquare-20's step-0 inputs, then its row on CompSquare-40's
+    per_elem4c = 12 + 12 + 12 + 216 + 9 + 12 + 1
+    i20, _, c20 = stock["3D CompSquare-20"][1:]
     a20 = (i20.w, i20.prox_tol, i20.prox_max_iters)
+    stats20 = {}
+    ms20 = time_kernel(lambda: P3.prox3d_chord_comp(*c20, *a20))
+    plain20 = time_plain(lambda: P3.prox3d_chord_comp_plain(*c20, *a20))
+    b20 = bound(lambda: P3.prox3d_chord_comp_plain(*c20, *a20, stats=stats20),
+                c20[0].shape[1] * per_elem4c)
+    say(f"K4' at 3D CompSquare-20 step 0 ({c20[0].shape[1]} tets): {ms20:.4f} ms (median of "
+        f"20); plain {plain20:.1f} ms; bound {b20[0]:.4f} ms by {b20[1]} ({b20[2]:.4e} "
+        f"operations, {b20[3]} bytes); {work(stats20)}")
+    i40, err40, c40 = stock["3D CompSquare-40"][1:]
+    a40 = (i40.w, i40.prox_tol, i40.prox_max_iters)
     stats4 = {}
     row("prox3d_chord_comp", "mmadmm_tpu_torch/csrc/prox3d.cu",
         "mmadmm_tpu/ops/prox_pallas3d.py:418",
         sum(launched_s[k]["prox3d_chord_comp"] for k in ("3D CompSquare-20", "3D CompSquare-40")),
-        err20, time_kernel(lambda: P3.prox3d_chord_comp(*c20, *a20)),
-        time_plain(lambda: P3.prox3d_chord_comp_plain(*c20, *a20)),
-        bound(lambda: P3.prox3d_chord_comp_plain(*c20, *a20, stats=stats4),
-              c20[0].shape[1] * (12 + 12 + 12 + 216 + 9 + 12 + 1)))
-    say(f"K4' step-0 work at 3D CompSquare-20: {work(stats4)}")
+        err40, time_kernel(lambda: P3.prox3d_chord_comp(*c40, *a40)),
+        time_plain(lambda: P3.prox3d_chord_comp_plain(*c40, *a40)),
+        bound(lambda: P3.prox3d_chord_comp_plain(*c40, *a40, stats=stats4),
+              c40[0].shape[1] * per_elem4c))
+    say(f"K4' step-0 work at 3D CompSquare-40: {work(stats4)}")
     for name, label in (("prox3d_chord", "K4''a 3D SquareGrid-40"),
                         ("prox3d_comp", "K4''b 3D CompSquare-40")):
         err, (kernel, plain, inputs_p, args_p) = k4pp[name]

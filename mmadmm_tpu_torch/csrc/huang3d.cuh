@@ -3,8 +3,8 @@
 // sample from a vertex's 54 cell channels, the terms shared by energy and
 // gradient, the energy and the analytic gradient. Ehat (row-major 3x3) is an
 // argument: K4 passes the constant reference one, K4' each element's own.
-// The cell channels come through an accessor, `cells(c)`: `Cells` reads them
-// from device memory, `SharedCells` from a block's staged copy.
+// The cell channels come through an accessor, `cells(c)`: `SharedCells` reads
+// them from a block's staged copy.
 //
 // Port of the component math of mmadmm_tpu/ops/prox_pallas3d.py
 // (_sample_m3, _common_c3, energy_c3, grad_c3). ops/prox3d.py repeats these
@@ -27,14 +27,6 @@ struct Ehat3 {
 struct Consts3 {
   float w2, half_w2, inv_w2, tol;
   float k_third, k_g2, k_dgddet, k_sm2a, k_sm2b;
-};
-
-// One element's 216 cell channels, channel-major with stride n, read from
-// device memory where they are used.
-struct Cells {
-  const float* p;  // cells + element
-  long long n;
-  __device__ __forceinline__ float operator()(int c) const { return __ldg(p + c * n); }
 };
 
 // One element's 216 cell channels in shared memory, [channel][kE] for the kE

@@ -86,17 +86,31 @@
 // register caps against the one-thread-per-element design): see the note at
 // kGroup below.
 //
-// The chord sweeps (K4', K4''a: prox3d_chord_kernel) keep the one thread
-// per element design, with its own sweep loop: registers cannot hold a 12x12
-// system beside the dual gradient, so each dual pass writes its Hessian
-// column, the 78-entry lower triangle, to shared memory laid out
-// [78][blockDim] (thread index fastest: no bank conflicts, 39 KB at 128
-// threads), where it is factored in place, and that factored triangle (L and
-// D) is kept across sweeps as the chord cache: the JAX kernel caches H and
-// factors it again every sweep, and factoring the same H gives the same L
-// and D, so solving with the cached factors gives the same bits. Their 216
-// cell channels are read from device memory (__ldg, adjacent threads on
-// adjacent addresses) where they are used.
+// The chord sweeps (K4', K4''a: prox3d_chord_kernel) have the same on-chip
+// design, with their own sweep: one Hessian per element at entry, factored
+// once; the factored triangle (L and D) is the element's chord cache, kept
+// in the block's shared memory (the Newton kernels' `hess`) from entry to
+// the element's last sweep (the JAX kernel caches H and factors it again
+// every sweep; factoring the same H gives the same L and D, so solving
+// with the cached factors gives the same bits). So:
+//   - the block stages its elements' inputs as the Newton kernels do
+//     (and, for K4', Ehat);
+//   - the entry Hessian's twelve dual passes are spread over the group as
+//     in the Newton kernels, then one lane factors the triangle in place;
+//   - a common sweep is the gradient, the retire test (from the second
+//     sweep on), the solve with the cached factors (out of line, see
+//     cached_direction) and one trial at alpha 1, all computed by every
+//     lane from the same data (little in it can be shared out, and so every
+//     lane takes the same branch with no broadcast);
+//   - only a rejected trial refreshes: the columns again over the group
+//     into the cache, the factor, the solve and the five trials over the
+//     group (the ballot of backtrack_group);
+//   - the element's first gradient also gives ih0: it is the same float
+//     operations as the energy at the input.
+// A refresh is guarded per element: a group that keeps its cached step skips
+// it (though its lanes idle while another group of its warp refreshes). The
+// group width, the register cap and the factor's lanes were chosen by timing
+// (scripts/cuda_k4_variants.py): see kChordGroup below.
 
 #include <cstdint>
 #include <cstring>
@@ -125,6 +139,19 @@ constexpr float kEpsStall = 10.0f * 1.1920928955078125e-07f;
 constexpr int kGroup = 4;
 constexpr int kBlocks = 4;      // K4
 constexpr int kBlocksComp = 3;  // K4''b
+
+// The chord sweeps: kChordE elements a block, kChordGroup lanes each (a
+// block of kChordE x kChordGroup threads, with the Newton kernels' staging
+// of 42-44 KB), and no register cap. Of the variants that
+// scripts/cuda_k4_variants.py times on the H100 at the step-0 inputs of 3D
+// CompSquare-40 (K4') and 3D SquareGrid-40 with prox_chord=True (K4''a),
+// these are the fastest (PERF.md has the times): 2 lanes beat 4 and 8,
+// which repeat the common sweep (gradient, solve, trial) on more lanes for
+// each element, and 1, which builds the whole Hessian alone; at 218-221
+// registers an SM holds 4 blocks (128 elements), and a cap to 168 registers
+// (6 blocks) spills more than the warps it gains are worth.
+constexpr int kChordE = 32;
+constexpr int kChordGroup = 2;
 
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
@@ -213,12 +240,15 @@ __device__ __forceinline__ void direction(const float* H, const float* g, float 
 
 #undef HS
 
-// a trial point is accepted at a finite energy not above e0 whose
-// orientation determinant stays above det_floor
+// the trial point z + alpha p is accepted at a finite energy not above e0
+// whose orientation determinant stays above det_floor
 template <typename C>
-__device__ __forceinline__ bool trial_ok(const float* zt, const C& cells, const float* h,
-                                         const float* dxpu, const Consts3& k, float e0,
-                                         float det_floor) {
+__device__ __forceinline__ bool trial_ok(const float* z, const float* p, float alpha,
+                                         const C& cells, const float* h, const float* dxpu,
+                                         const Consts3& k, float e0, float det_floor) {
+  float zt[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) zt[i] = z[i] + alpha * p[i];
   float e_t = energy3(zt, cells, h, dxpu, k);
   return isfinite(e_t) && e_t <= e0 && edet3(zt) > det_floor;
 }
@@ -289,18 +319,18 @@ struct NewtonStage {
 // rows [rows, n] of the block's elements first .. first + kE (those below n)
 // into dst [rows][kE]: 16-byte copies when every row's run is 16-byte
 // aligned and whole, else 4-byte copies
-template <int kE>
+template <int kE, int kT = kThreads>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int rows, long long n,
                                            long long first) {
   static_assert(kE % 4 == 0, "a row of kE floats is whole 16-byte copies");
   const bool whole = first + kE <= n && n % 4 == 0 && (uintptr_t)src % 16 == 0;
   if (whole) {
-    for (int q = threadIdx.x; q < rows * (kE / 4); q += kThreads) {
+    for (int q = threadIdx.x; q < rows * (kE / 4); q += kT) {
       const int c = q / (kE / 4), i = (q % (kE / 4)) * 4;
       copy16(dst + c * kE + i, src + c * n + first + i);
     }
   } else {
-    for (int q = threadIdx.x; q < rows * kE; q += kThreads) {
+    for (int q = threadIdx.x; q < rows * kE; q += kT) {
       const int c = q / kE, i = q % kE;
       if (first + i < n) copy4(dst + c * kE + i, src + c * n + first + i);
     }
@@ -308,17 +338,18 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int row
 }
 
 // the same rows transposed into dst [kE][rows]: 4-byte copies
-template <int kE>
+template <int kE, int kT = kThreads>
 __device__ __forceinline__ void stage_cols(float* dst, const float* src, int rows, long long n,
                                            long long first) {
-  for (int q = threadIdx.x; q < rows * kE; q += kThreads) {
+  for (int q = threadIdx.x; q < rows * kE; q += kT) {
     const int c = q / kE, i = q % kE;
     if (first + i < n) copy4(dst + i * rows + c, src + c * n + first + i);
   }
 }
 
 // backtracking over the group: trial a on lane a % G in round a / G; the
-// largest accepted alpha, 0 if none (what backtrack() returns)
+// largest accepted alpha, 0 if none (what the sequential loop of
+// ops/newton.py::_backtrack returns)
 template <int G, typename C>
 __device__ __forceinline__ float backtrack_group(const float* z, const float* p, const C& cells,
                                                  const float* h, const float* dxpu,
@@ -328,14 +359,7 @@ __device__ __forceinline__ float backtrack_group(const float* z, const float* p,
 #pragma unroll 1
   for (int r = 0; r * G < 5; ++r) {
     const int a = r * G + lane;
-    bool ok = false;
-    if (a < 5) {
-      float zt[12];
-      const float alpha = alpha_bt(a);
-#pragma unroll
-      for (int i = 0; i < 12; ++i) zt[i] = z[i] + alpha * p[i];
-      ok = trial_ok(zt, cells, h, dxpu, k, e0, det_floor);
-    }
+    const bool ok = a < 5 && trial_ok(z, p, alpha_bt(a), cells, h, dxpu, k, e0, det_floor);
     const unsigned votes = __ballot_sync(gmask, ok);
     accepted |= ((votes >> base) & ((1u << G) - 1u)) << (r * G);
   }
@@ -412,35 +436,36 @@ __global__ void __launch_bounds__(kThreads, kComp ? kBlocksComp : kBlocks) prox3
     if (c % G == lane) zout[c * n + e] = z[c];  // z stays in registers
 }
 
-// ---- chord sweeps (K4', K4''a): one thread per element ---------------------
+// ---- chord sweeps (K4', K4''a): a group of kChordGroup lanes per element --
 
-// the lower triangle of the Hessian at z into H (this thread's column of
-// the shared array, H[tri(i, j) * kThreads]), one dual pass per column
-__device__ __forceinline__ void hess12(const float* z, const Cells& cells, const float* h,
-                                       const float* dxpu, const float* fr, const Consts3& k,
-                                       const float* free_col, long long n, float* H) {
-#pragma unroll 1
-  for (int j = 0; j < 12; ++j)
-    hess_col<kThreads>(j, z, cells, h, dxpu, fr, k, __ldg(free_col + j * n), H);
+// direction<1> on the cached factors, out of line: inlined into the chord
+// sweep, the sweep spills some 500 bytes at 255 registers (ptxas, the
+// "solve inlined" variant of scripts/cuda_k4_variants.py); out of line, g
+// and p pass through 96 bytes of stack and nothing spills
+__device__ __noinline__ void cached_direction(const float* H, const float* g, float inv_w2,
+                                              float* p) {
+  direction<1>(H, g, inv_w2, p);
 }
 
-// backtracking: the largest accepted alpha, 0 if none
-__device__ __forceinline__ float backtrack(const float* z, const float* p, const Cells& cells,
-                                           const float* h, const float* dxpu, const Consts3& k,
-                                           float e0, float det_floor) {
-  float alpha = 0.0f;
+// the element's Hessian at z into its cache H, factored: the columns spread
+// over the group, then one lane factors in place (every lane factoring a copy
+// in its registers, one writing it back, is no faster); every lane of the
+// group has read the old cache before this is called
+template <int G, typename C>
+__device__ __forceinline__ void chord_refresh(const float* z, const C& cells, const float* h,
+                                              const float* dxpu, const float* fr,
+                                              const Consts3& k, int lane, unsigned gmask,
+                                              float* H) {
 #pragma unroll 1
-  for (int a = 0; a < 5; ++a) {
-    float zt[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i) zt[i] = z[i] + alpha_bt(a) * p[i];
-    if (trial_ok(zt, cells, h, dxpu, k, e0, det_floor)) alpha = alpha_bt(a);
-  }
-  return alpha;
+  for (int j = lane; j < 12; j += G) hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);
+  __syncwarp(gmask);
+  if (lane == 0) factor12<1>(H);
+  __syncwarp(gmask);  // the factored cache is the group's
 }
 
 // K4' (kComp true, ehat_in) and K4''a (kComp false, the constant eh). Each
-// sweep keeps make_chord_sweeps' order: it retires before it solves.
+// sweep keeps make_chord_sweeps' order, except that it retires on its
+// gradient before it solves.
 //
 // The refresh: the JAX kernel guards it per tile (pl.when over the tile's
 // max of active & ~ok1) and writes the new Hessian and step only where the
@@ -451,65 +476,81 @@ __device__ __forceinline__ float backtrack(const float* z, const float* p, const
 // refreshes without needing it is one that is no longer active, which never
 // moves again. An element that retires on its gradient norm does not move
 // either, so it leaves before the solve.
-template <bool kComp>
-__global__ void __launch_bounds__(kThreads) prox3d_chord_kernel(
-    const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
-    const float* __restrict__ free_in, const float* __restrict__ cells_in,
-    const float* __restrict__ ehat_in, float* __restrict__ zout, float* __restrict__ ih0_out,
-    long long n, Ehat3 eh, Consts3 k, int max_iters) {
-  __shared__ float hess[kTri * kThreads];
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+template <bool kComp, int G>
+__global__ void __launch_bounds__(kChordE * G)
+    prox3d_chord_kernel(const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
+                        const float* __restrict__ free_in, const float* __restrict__ cells_in,
+                        const float* __restrict__ ehat_in, float* __restrict__ zout,
+                        float* __restrict__ ih0_out, long long n, Ehat3 eh, Consts3 k,
+                        int max_iters) {
+  static_assert(G == 2 || G == 4 || G == 8, "a group is 2, 4 or 8 lanes of one warp");
+  constexpr int kT = kChordE * G;  // threads per block
+  __shared__ __align__(16) NewtonStage<kComp, kChordE> st;
+  const long long first = (long long)blockIdx.x * kChordE;
+  stage_rows<kChordE, kT>(st.cells, cells_in, kCells, n, first);
+  stage_cols<kChordE, kT>(st.z, z_in, 12, n, first);
+  stage_cols<kChordE, kT>(st.dxpu, dxpu_in, 12, n, first);
+  stage_cols<kChordE, kT>(st.fr, free_in, 12, n, first);
+  if constexpr (kComp) stage_cols<kChordE, kT>(st.eh, ehat_in, 9, n, first);
+  copies_done();
+  __syncthreads();  // the block's only barrier: every lane below is in a live group
+
+  const int el = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long e = first + el;
   if (e >= n) return;
-  float* H = hess + threadIdx.x;  // the cached Hessian, factored
-  const Cells cells{cells_in + e, n};
-  float z[12], dxpu[12], fr[12], h_e[9];
+  const int base = (threadIdx.x % 32) - lane;  // the group's first lane in its warp
+  const unsigned gmask = ((1u << G) - 1u) << base;
+  const SharedCells<kChordE> cells{st.cells + el};
+  const float* dxpu = st.dxpu + el * 12;
+  const float* fr = st.fr + el * 12;
+  const float* h = kComp ? st.eh + el * 9 : eh.h;
+  float* H = st.hess + el * kTri;  // the chord cache, factored
+  float z[12];
 #pragma unroll
-  for (int c = 0; c < 12; ++c) {
-    z[c] = z_in[c * n + e];
-    dxpu[c] = dxpu_in[c * n + e];
-    fr[c] = free_in[c * n + e];
-  }
-  const float* h = eh.h;
-  if constexpr (kComp) {
-#pragma unroll
-    for (int c = 0; c < 9; ++c) h_e[c] = ehat_in[c * n + e];
-    h = h_e;
-  }
+  for (int c = 0; c < 12; ++c) z[c] = st.z[el * 12 + c];
 
-  ih0_out[e] = energy3_unreg(z, cells, h, k);
-  hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
-  factor12<kThreads>(H);
-
+  if (max_iters <= 0 && lane == 0) ih0_out[e] = energy3_unreg(z, cells, h, k);
   for (int it = 0; it < max_iters; ++it) {
     // gradient, its norm and the regularized energy at the start
     float g[12];
     float ih;
-    float e0 = grad3<float>(z, cells, h, dxpu, fr, k, g, ih);
+    const float e0 = grad3<float>(z, cells, h, dxpu, fr, k, g, ih);
+    if (it == 0 && lane == 0) ih0_out[e] = ih;  // the unregularized energy at the input
     // retire on a small gradient from the second sweep on, before moving
     if (it > 0 && norm1(g) < k.tol) break;
-    float det_floor = floor_of(edet3(z));
+    const float det_floor = floor_of(edet3(z));
 
-    // the cached Hessian's step, tried once at alpha 1
-    float p[12], zt[12];
-    direction<kThreads>(H, g, k.inv_w2, p);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) zt[i] = z[i] + p[i];
-    if (!trial_ok(zt, cells, h, dxpu, k, e0, det_floor)) {
-      // refresh: the Hessian at z replaces the cache, then backtracking
-      hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
-      factor12<kThreads>(H);
-      direction<kThreads>(H, g, k.inv_w2, p);
-      float alpha = backtrack(z, p, cells, h, dxpu, k, e0, det_floor);
-#pragma unroll
-      for (int i = 0; i < 12; ++i) p[i] = alpha * p[i];
+    // from the second sweep on, the cached factors' step, tried once at alpha 1
+    float p[12];
+    bool ok = false;
+    if (it > 0) {
+      cached_direction(H, g, k.inv_w2, p);
+      ok = trial_ok(z, p, 1.0f, cells, h, dxpu, k, e0, det_floor);
     }
-    bool stalled = absmax(p) <= kEpsStall * (1.0f + absmax(z));
+    if (!ok) {
+      // the Hessian at z into the cache: the entry Hessian in the first
+      // sweep, whose step is then the cached step tried at alpha 1 (were it
+      // rejected, the refresh would build the same Hessian at the same z),
+      // else a refresh; then backtracking where the step is rejected
+      __syncwarp(gmask);  // every lane has solved with the old cache, if any
+      chord_refresh<G>(z, cells, h, dxpu, fr, k, lane, gmask, H);
+      cached_direction(H, g, k.inv_w2, p);
+      ok = it == 0 && trial_ok(z, p, 1.0f, cells, h, dxpu, k, e0, det_floor);
+      if (!ok) {
+        const float alpha =
+            backtrack_group<G>(z, p, cells, h, dxpu, k, e0, det_floor, lane, base, gmask);
+#pragma unroll
+        for (int i = 0; i < 12; ++i) p[i] = alpha * p[i];
+      }
+    }
+    const bool stalled = absmax(p) <= kEpsStall * (1.0f + absmax(z));
 #pragma unroll
     for (int i = 0; i < 12; ++i) z[i] = z[i] + p[i];
     if (stalled) break;
   }
 #pragma unroll
-  for (int c = 0; c < 12; ++c) zout[c * n + e] = z[c];
+  for (int c = 0; c < 12; ++c)
+    if (c % G == lane) zout[c * n + e] = z[c];  // z stays in registers
 }
 
 template <bool kChord, bool kComp>
@@ -522,9 +563,10 @@ int launch(const float* z, const float* dxpu, const float* free_, const float* c
   if constexpr (!kComp) std::memcpy(&eh, consts, sizeof(eh));
   std::memcpy(&k, consts + (kComp ? 0 : 9), sizeof(k));
   if constexpr (kChord) {
-    const long long blocks = (n + kThreads - 1) / kThreads;
-    prox3d_chord_kernel<kComp><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
+    const long long blocks = (n + kChordE - 1) / kChordE;
+    prox3d_chord_kernel<kComp, kChordGroup>
+        <<<(unsigned)blocks, kChordE * kChordGroup, 0, (cudaStream_t)stream>>>(
+            z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
   } else {
     constexpr int kE = kThreads / kGroup;
     const long long blocks = (n + kE - 1) / kE;

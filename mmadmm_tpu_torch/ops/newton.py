@@ -191,20 +191,37 @@ def _stalled(step_inf, zc):
     return step_inf <= EPS_STALL * (1.0 + rmax([torch.abs(zi) for zi in zc]))
 
 
-def _retire(not_first, gnorm, step_inf, zc, tol):
-    """``(active_now, stalled)``: an element retires on ``gnorm < tol``
-    from the second sweep on, before it moves, or after a stalled move."""
-    stalled = _stalled(step_inf, zc)
-    if not_first:
-        return ~(gnorm < tol), stalled
-    return torch.ones_like(stalled), stalled
-
-
 def _gnorm(g):
     gnorm = torch.abs(g[0])
     for i in range(1, len(g)):
         gnorm = gnorm + torch.abs(g[i])
     return gnorm
+
+
+def _stepping_rows(not_first, g, tol, stats):
+    """The elements that step in a sweep: all of them in the first sweep;
+    from the second on, those whose gradient norm is not below ``tol`` (the
+    others retire without moving). Counts the retired ones in
+    ``stats["gnorm_retired"]``. Returns ``(rows, count)``, ``rows`` the
+    indices of those that step or ``slice(None)`` where all do."""
+    go = ~(_gnorm(g) < tol) if not_first else torch.ones_like(g[0], dtype=torch.bool)
+    rows = torch.nonzero(go).squeeze(1)
+    if stats is not None:
+        stats["gnorm_retired"] = stats.get("gnorm_retired", 0) + go.numel() - rows.numel()
+    return (slice(None) if rows.numel() == go.numel() else rows), rows.numel()
+
+
+def _moved(zc, rows, step, stalled):
+    """``(z_new, still_active)``: ``zc`` with its rows ``rows`` moved by
+    ``step`` and kept active unless ``stalled``; the other rows retire."""
+    keep = torch.zeros_like(zc[0], dtype=torch.bool)
+    keep[rows] = ~stalled
+    z_new = []
+    for zi, si in zip(zc, step):
+        zi = zi.clone()
+        zi[rows] = zi[rows] + si
+        z_new.append(zi)
+    return z_new, keep
 
 
 def newton_sweep(not_first, zc, fns, edet_fn, inv_w2, tol, stats=None):
@@ -220,31 +237,19 @@ def newton_sweep(not_first, zc, fns, edet_fn, inv_w2, tol, stats=None):
     them, with the same results. ``stats``, if given, accumulates
     ``hessians`` (elements that built one) and ``gnorm_retired``. Returns
     ``(z_new, still_active)``."""
-    n = len(zc)
     g, _, e0 = fns(slice(None))[0](zc)
-    go = ~(_gnorm(g) < tol) if not_first else torch.ones_like(e0, dtype=torch.bool)
-    rows = torch.nonzero(go).squeeze(1)
+    rows, count = _stepping_rows(not_first, g, tol, stats)
     if stats is not None:
-        stats["hessians"] = stats.get("hessians", 0) + rows.numel()
-        stats["gnorm_retired"] = stats.get("gnorm_retired", 0) + go.numel() - rows.numel()
-    z_new = list(zc)
-    keep = torch.zeros_like(go)
-    if rows.numel() == 0:
-        return z_new, keep
-    if rows.numel() == go.numel():
-        rows = slice(None)
+        stats["hessians"] = stats.get("hessians", 0) + count
+    if count == 0:
+        return list(zc), torch.zeros_like(e0, dtype=torch.bool)
     _, hess_fn, energy_fn = fns(rows)
     zr = [zi[rows] for zi in zc]
     p = _solve(hess_fn(zr), [gi[rows] for gi in g], inv_w2)
     det_floor = torch.clamp_max(edet_fn(zr), 0.0)
     alpha = _backtrack(zr, p, energy_fn, edet_fn, e0[rows], det_floor)
-    step_inf = alpha * rmax([torch.abs(pi) for pi in p])
-    stalled = _stalled(step_inf, zr)
-    for i in range(n):
-        z_new[i] = zc[i].clone()
-        z_new[i][rows] = zr[i] + alpha * p[i]
-    keep[rows] = ~stalled
-    return z_new, keep
+    stalled = _stalled(alpha * rmax([torch.abs(pi) for pi in p]), zr)
+    return _moved(zc, rows, [alpha * pi for pi in p], stalled)
 
 
 def tri_index(n):
@@ -253,12 +258,13 @@ def tri_index(n):
     return [(i, j) for i in range(n) for j in range(i + 1)]
 
 
-def chord_sweep(not_first, zc, Hc, fns, edet_fn, inv_w2, tol):
+def chord_sweep(not_first, zc, Hc, fns, edet_fn, inv_w2, tol, stats=None, grad=None):
     """One chord sweep over elements that are all active
     (``make_chord_sweeps``'s ``one_iter``). ``Hc [n(n+1)/2, N]`` is the
     cached lower triangle of each element's Hessian (``tri_index`` order);
     ``fns(rows) -> (grad_fn, hess_fn, energy_fn)`` gives the element
-    functions on the columns ``rows`` of ``zc`` (``slice(None)`` for all).
+    functions on the columns ``rows`` of ``zc`` (``slice(None)`` for all);
+    ``grad``, if given, is ``grad_fn(zc)`` of all the columns.
 
     The step is the cached Hessian's, with one trial at alpha 1. Where the
     trial is rejected, the element refreshes: its Hessian at ``zc``
@@ -266,41 +272,48 @@ def chord_sweep(not_first, zc, Hc, fns, edet_fn, inv_w2, tol):
     over ``ALPHAS_BT``. Only those elements compute a Hessian (the JAX
     kernel computes it for every lane of a tile with any such element, and
     keeps the cached one where the trial passed, ``h_write(H2, ok1)``:
-    the same results). An element that retires on its gradient norm does
-    not move and is never swept again, so it needs no refresh.
-    Returns ``(z_new, still_active, Hc_new)``."""
+    the same results). In the first sweep the cached Hessian is the one at
+    ``zc``, so a refresh would build it again and repeat the solve: there
+    the cached step itself is backtracked. An element that retires on its
+    gradient norm (from the second sweep on) does not move and is never
+    swept again, so only the others solve and try a step; the JAX kernel
+    computes those for every lane and discards them, with the same
+    results. ``stats``, if given, accumulates ``refreshes`` (the Hessians
+    built again) and ``gnorm_retired``. Returns ``(z_new, still_active,
+    Hc_new)``."""
     n = len(zc)
     tri = tri_index(n)
-    grad_fn, _, energy_fn = fns(slice(None))
-    g, _, e0 = grad_fn(zc)
-    gnorm = _gnorm(g)
-    det_floor = torch.clamp_max(edet_fn(zc), 0.0)
-
-    def square(h):
-        H = [[None] * n for _ in range(n)]
-        for t, (i, j) in enumerate(tri):
-            H[i][j] = h[t]
-        return H
-
-    p = _solve(square(Hc), g, inv_w2)
-    ok1 = _trial_ok(energy_fn, edet_fn, [zc[i] + p[i] for i in range(n)], e0, det_floor)
+    g, _, e0 = fns(slice(None))[0](zc) if grad is None else grad
+    rows, count = _stepping_rows(not_first, g, tol, stats)
+    if count == 0:
+        return list(zc), torch.zeros_like(e0, dtype=torch.bool), Hc
+    _, _, energy_fn = fns(rows)
+    zr, gr, e0r = [zi[rows] for zi in zc], [gi[rows] for gi in g], e0[rows]
+    det_floor = torch.clamp_max(edet_fn(zr), 0.0)
+    hc = Hc[:, rows]
+    H = [[None] * n for _ in range(n)]
+    for t, (i, j) in enumerate(tri):
+        H[i][j] = hc[t]
+    p = _solve(H, gr, inv_w2)
+    ok1 = _trial_ok(energy_fn, edet_fn, [zr[i] + p[i] for i in range(n)], e0r, det_floor)
     step = torch.stack([torch.where(ok1, p[i], 0.0) for i in range(n)])
-    if not_first:
-        ok1 = ok1 | (gnorm < tol)
-    rows = torch.nonzero(~ok1).squeeze(1)
-    Hc = Hc.clone()
-    if rows.numel():
-        _, hess_fn, energy_r = fns(rows)
-        zr = [zi[rows] for zi in zc]
-        H2 = hess_fn(zr)
-        p2 = _solve(H2, [gi[rows] for gi in g], inv_w2)
-        alpha = _backtrack(zr, p2, energy_r, edet_fn, e0[rows], det_floor[rows])
-        step[:, rows] = torch.stack([alpha * pi for pi in p2])
-        Hc[:, rows] = torch.stack([H2[i][j] for i, j in tri])
-    step_inf = rmax([torch.abs(s) for s in step])
-    active_now, stalled = _retire(not_first, gnorm, step_inf, zc, tol)
-    z_new = [torch.where(active_now, zc[i] + step[i], zc[i]) for i in range(n)]
-    return z_new, active_now & ~stalled, Hc
+    ref = torch.nonzero(~ok1).squeeze(1)
+    if ref.numel():
+        _, hess_fn, energy_r = fns(cols_of(rows, ref))
+        zf = [zi[ref] for zi in zr]
+        if not_first:
+            if stats is not None:
+                stats["refreshes"] = stats.get("refreshes", 0) + ref.numel()
+            H2 = hess_fn(zf)
+            p2 = _solve(H2, [gi[ref] for gi in gr], inv_w2)
+            Hc = Hc.clone()
+            Hc[:, cols_of(rows, ref)] = torch.stack([H2[i][j] for i, j in tri])
+        else:
+            p2 = [pi[ref] for pi in p]
+        alpha = _backtrack(zf, p2, energy_r, edet_fn, e0r[ref], det_floor[ref])
+        step[:, ref] = torch.stack([alpha * pi for pi in p2])
+    stalled = _stalled(rmax([torch.abs(s) for s in step]), zr)
+    return (*_moved(zc, rows, step, stalled), Hc)
 
 
 def cols_of(sub, rows):

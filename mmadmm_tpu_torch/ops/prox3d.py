@@ -295,21 +295,33 @@ def _newton_plain(z, dxpu, free, cells, ehat_of, w, tol, max_iters, stats):
 def _chord_plain(z, dxpu, free, cells, ehat_of, w, tol, max_iters, stats):
     """One Hessian per element at the input z, then up to ``max_iters``
     chord sweeps of the elements still active, each computing a Hessian
-    only where its cached step is rejected."""
+    only where its cached step is rejected after the first sweep. ih0 is
+    the first sweep's gradient's (the same operations as ``energy_c3``).
+    ``stats`` also receives ``hessians`` (the entry ones and the
+    refreshes), ``refreshes`` and ``gnorm_retired``
+    (``ops/newton.py::chord_sweep``)."""
     w2, half_w2, inv_w2 = consts(w)
     tol = f32(tol)
-    ih0, _ = energy_c3(list(z), _rows(cells), ehat_of(slice(None)))
+    if stats is not None:
+        stats.update(refreshes=0, gnorm_retired=0, hessians=0)
+    if max_iters <= 0:
+        ih0, _ = energy_c3(list(z), _rows(cells), ehat_of(slice(None)))
+        return run_sweeps(z, max_iters, None, stats), ih0
     fns = _element_fns(dxpu, free, cells, ehat_of, w2, half_w2)
-
-    H0 = fns(slice(None))[1](list(z))
+    grad_fn, hess_fn, _ = fns(slice(None))
+    grad0 = grad_fn(list(z))
+    H0 = hess_fn(list(z))
     hc = torch.stack([H0[i][j] for i, j in tri_index(12)])
     del H0
 
     def sweep(not_first, sub, zc, h):
         return chord_sweep(not_first, zc, h, lambda rows: fns(cols_of(sub, rows)), edet_c3,
-                           inv_w2, tol)
+                           inv_w2, tol, stats, grad=None if not_first else grad0)
 
-    return run_sweeps(z, max_iters, sweep, stats, carry=hc), ih0
+    z_out = run_sweeps(z, max_iters, sweep, stats, carry=hc)
+    if stats is not None:
+        stats["hessians"] = z.shape[1] + stats["refreshes"]
+    return z_out, grad0[1]
 
 
 def prox3d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
@@ -329,8 +341,8 @@ def prox3d_comp_plain(z, dxpu, free, cells, ehat_e, w, tol, max_iters, stats=Non
 def prox3d_chord_comp_plain(z, dxpu, free, cells, ehat_e, w, tol, max_iters, stats=None):
     """Plain PyTorch K4' on ``[C, N]`` channel tensors: chord sweeps with
     each element's Ehat (``ehat_e [9, N]``). Returns ``(z_out [12, N], ih0
-    [N])``; ``stats``, if given, receives ``sweeps`` and
-    ``element_sweeps``."""
+    [N])``; ``stats``, if given, receives ``sweeps``, ``element_sweeps``,
+    ``hessians``, ``refreshes`` and ``gnorm_retired``."""
     return _chord_plain(z, dxpu, free, cells, _ehat_of(ehat_e), w, tol, max_iters, stats)
 
 

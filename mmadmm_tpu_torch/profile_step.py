@@ -38,8 +38,8 @@ WARM = 5
 STEPS = 5
 # kernel: the name its device time is found by
 KERNELS = {"prox2d": "prox2d_kernel", "eg2d": "eg2d_kernel", "hess2d": "hess2d_kernel",
-           "K4": "prox3d_newton_kernel<false,", "K4'": "prox3d_chord_kernel<true>",
-           "K4''a": "prox3d_chord_kernel<false>", "K4''b": "prox3d_newton_kernel<true,"}
+           "K4": "prox3d_newton_kernel<false,", "K4'": "prox3d_chord_kernel<true,",
+           "K4''a": "prox3d_chord_kernel<false,", "K4''b": "prox3d_newton_kernel<true,"}
 M3320R = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "Experiments", "InputFiles", "Monitor3320r.json")
 _2D = dict(test_type="Shoulder", dim=2, mon_type=1, nx=320, ny=320)

@@ -8,14 +8,16 @@ Compiles ``mmadmm_tpu_torch/csrc/prox2d.cu`` and ``prox3d.cu`` with
 ``g++ -ffp-contract=off`` (no fused multiply-add, as ``nvcc --fmad=false``)
 against a stub ``cuda_runtime.h`` that defines ``__device__``, ``__ldg``,
 ``threadIdx`` and the like as host code, into a temporary directory. The
-one-thread-per-element kernels (K1, K4', K4''a) are called once per
-element, one after another. The Newton kernels K4 and K4''b, where a group
-of lanes shares an element, run a block at a time with one host thread per
-lane (``threadIdx`` is thread-local), ``__syncthreads``, ``__syncwarp`` and
-``__ballot_sync`` being host barriers over the block or the mask's lanes;
-each runs with 4, 8 and 16 lanes per element, and also on the first 1, 30
-and 131 columns of its inputs (the block's copies then take the 4-byte
-path). Their outputs are compared bit for bit
+one-thread-per-element kernel K1 is called once per element, one after
+another. The 3D kernels, where a group of lanes shares an element, run a
+block at a time with one host thread per lane (``threadIdx`` is
+thread-local), ``__syncthreads``, ``__syncwarp`` and ``__ballot_sync``
+being host barriers over the block or the mask's lanes: the Newton kernels
+K4 and K4''b with 4, 8 and 16 lanes per element, the chord kernels K4' and
+K4''a with 2, 4 and 8; each also on the first 1, 30 and 131
+columns of its inputs at the lanes ``prox3d.cu`` launches it with (4 and
+2; the block's copies then take the 4-byte path). Their outputs are
+compared bit for bit
 with ``prox2d_plain`` (Shoulder nx=16), ``prox3d_plain`` (3D SquareGrid
 and Shoulder nx=4 and SquareGrid nx=6), ``prox3d_chord_comp_plain``
 (3D SquareGrid nx=4 and 6 on a computational mesh, mon_type 5, rho 10,
@@ -26,7 +28,8 @@ inputs with their dual perturbed by a seeded normal. PyTorch's CPU
 ``sqrt`` need not be correctly rounded (the card's is, like the
 kernels'), so the script first prints the share of f32 square roots where
 it differs from the correctly rounded one, then runs the plain versions
-with a correctly rounded square root. Needs ``g++``; runs on the CPU.
+with a correctly rounded square root. Exits 1 unless every run is
+bit-equal. Needs ``g++``; runs on the CPU.
 """
 
 from __future__ import annotations
@@ -57,10 +60,12 @@ STUB = """#pragma once
 #include <cstring>
 #include <map>
 #include <mutex>
+#include <tuple>
 #include <utility>
 #define __device__
 #define __global__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __shared__ static
 #define __restrict__
 #define __launch_bounds__(...)
@@ -101,11 +106,11 @@ struct HostBarrier {
 
 inline HostBarrier& host_barrier(unsigned warp, unsigned mask, int count) {
   static std::mutex m;
-  static std::map<std::pair<unsigned, unsigned>, HostBarrier> bars;
+  static std::map<std::tuple<unsigned, unsigned, int>, HostBarrier> bars;
   std::lock_guard<std::mutex> lk(m);
-  auto it = bars.find({warp, mask});
+  auto it = bars.find({warp, mask, count});
   if (it == bars.end()) {
-    it = bars.try_emplace({warp, mask}).first;
+    it = bars.try_emplace({warp, mask, count}).first;
     it->second.count = count;
   }
   return it->second;
@@ -122,7 +127,7 @@ inline unsigned __ballot_sync(unsigned mask, bool p) {
 """
 
 # one host entry per kernel: the launch becomes a loop over the elements
-DRIVERS = {
+HOST_ENTRIES = {
     "prox2d": """
 extern "C" int host_prox2d(const float* z, const float* dxpu, const float* fr, const float* cells,
                            float* zout, float* ih0, long long n, const float* c, int max_iters) {
@@ -139,8 +144,9 @@ extern "C" int host_prox2d(const float* z, const float* dxpu, const float* fr, c
 #include <thread>
 #include <vector>
 
-// the chord kernels (K4', K4''a): one thread per element, run one by one
-template <bool kComp>
+// the chord kernels (K4', K4''a) with G lanes per element: a block of
+// kChordE elements at a time, one host thread per lane
+template <bool kComp, int G>
 int host_chord(const float* z, const float* dxpu, const float* fr, const float* cells,
                const float* ehat, float* zout, float* ih0, long long n, const float* c,
                int max_iters) {
@@ -148,12 +154,31 @@ int host_chord(const float* z, const float* dxpu, const float* fr, const float* 
   Consts3 k;
   if (!kComp) std::memcpy(&eh, c, sizeof(eh));
   std::memcpy(&k, c + (kComp ? 0 : 9), sizeof(k));
-  blockDim.x = kThreads;
-  for (long long e = 0; e < n; ++e) {
-    blockIdx.x = e / kThreads; threadIdx.x = e % kThreads;
-    prox3d_chord_kernel<kComp>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k, max_iters);
+  blockDim.x = kChordE * G;
+  for (long long b = 0; b * kChordE < n; ++b) {
+    blockIdx.x = b;
+    std::vector<std::thread> lanes;
+    for (unsigned t = 0; t < (unsigned)(kChordE * G); ++t)
+      lanes.emplace_back([=] {
+        threadIdx.x = t;
+        prox3d_chord_kernel<kComp, G>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
+                                      max_iters);
+      });
+    for (auto& l : lanes) l.join();
   }
   return 0;
+}
+
+template <bool kComp>
+int host_chord_g(int g, const float* z, const float* dxpu, const float* fr, const float* cells,
+                 const float* ehat, float* zout, float* ih0, long long n, const float* c,
+                 int max_iters) {
+  switch (g) {
+    case 2: return host_chord<kComp, 2>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+    case 4: return host_chord<kComp, 4>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+    case 8: return host_chord<kComp, 8>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+  }
+  return 1;
 }
 
 // the Newton kernels (K4, K4''b) with G lanes per element: a block at a
@@ -200,16 +225,16 @@ extern "C" int host_prox3d(int g, const float* z, const float* dxpu, const float
   return host_newton_g<false>(g, z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
 }
 
-extern "C" int host_prox3d_chord(const float* z, const float* dxpu, const float* fr,
+extern "C" int host_prox3d_chord(int g, const float* z, const float* dxpu, const float* fr,
                                  const float* cells, float* zout, float* ih0, long long n,
                                  const float* c, int max_iters) {
-  return host_chord<false>(z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
+  return host_chord_g<false>(g, z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
 }
 
-extern "C" int host_prox3d_chord_comp(const float* z, const float* dxpu, const float* fr,
+extern "C" int host_prox3d_chord_comp(int g, const float* z, const float* dxpu, const float* fr,
                                       const float* cells, const float* ehat, float* zout,
                                       float* ih0, long long n, const float* c, int max_iters) {
-  return host_chord<true>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+  return host_chord_g<true>(g, z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
 }
 
 extern "C" int host_prox3d_comp(int g, const float* z, const float* dxpu, const float* fr,
@@ -221,6 +246,11 @@ extern "C" int host_prox3d_comp(int g, const float* z, const float* dxpu, const 
 }
 
 
+# lanes per element that the group entries are run with
+GROUPS = {"host_prox3d": (4, 8, 16), "host_prox3d_comp": (4, 8, 16),
+          "host_prox3d_chord": (2, 4, 8), "host_prox3d_chord_comp": (2, 4, 8)}
+
+
 def build(tmp: str) -> dict:
     with open(os.path.join(tmp, "cuda_runtime.h"), "w") as f:
         f.write(STUB)
@@ -230,9 +260,9 @@ def build(tmp: str) -> dict:
         with open(os.path.join(tmp, name), "w") as f:
             f.write(src)
     libs = {}
-    for name, driver in DRIVERS.items():
+    for name, entries in HOST_ENTRIES.items():
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
-            src = re.sub(r"<<<[^>]*>>>", "", f.read()) + driver
+            src = re.sub(r"<<<[^>]*>>>", "", f.read()) + entries
         cpp, so = os.path.join(tmp, f"{name}.cpp"), os.path.join(tmp, f"lib{name}.so")
         with open(cpp, "w") as f:
             f.write(src)
@@ -241,10 +271,10 @@ def build(tmp: str) -> dict:
                        check=True)
         lib = ctypes.CDLL(so)
         tail = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float), ctypes.c_int]
-        if name == "prox3d":  # the Newton entries take G first
+        if name == "prox3d":  # the group entries take G first
             lib.host_prox3d.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail
-            lib.host_prox3d_chord.argtypes = [ctypes.c_void_p] * 6 + tail
-            lib.host_prox3d_chord_comp.argtypes = [ctypes.c_void_p] * 7 + tail
+            lib.host_prox3d_chord.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail
+            lib.host_prox3d_chord_comp.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + tail
             lib.host_prox3d_comp.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + tail
         else:
             lib.host_prox2d.argtypes = [ctypes.c_void_p] * 6 + tail
@@ -267,6 +297,7 @@ def main() -> int:
           f"of 1,000,003 uniform inputs", flush=True)
     P2.sqrt = P3.sqrt = correctly_rounded_sqrt
     rng = np.random.default_rng(0)
+    failed = 0
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(tmp)
         for kw, chord in ((dict(test_type="Shoulder", dim=2, mon_type=1, nx=16, ny=16), None),
@@ -314,29 +345,28 @@ def main() -> int:
                 pargs = (ehat,)
             n = args[0].shape[1]
             zp, ihp = plain(*args, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
-            newton = entry in ("host_prox3d", "host_prox3d_comp")
-            for g in (4, 8, 16) if newton else (None,):
-                zo, ih = torch.empty_like(args[0]), torch.empty(n)
+            runs = [(g,) for g in GROUPS.get(entry, (None,))]
+            shipped = 2 if entry in ("host_prox3d_chord", "host_prox3d_chord_comp") else 4
+            runs += [(shipped, m) for m in ((1, 30, 131) if entry in GROUPS else ())]
+            for g, *cut in runs:
+                m = cut[0] if cut else n
+                a_m = tuple(a[:, :m].contiguous() for a in args)
+                if cut:
+                    zp, ihp = plain(*a_m, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
+                zo, ih = torch.empty_like(a_m[0]), torch.empty(m)
                 getattr(libs[name], entry)(
-                    *(() if g is None else (g,)), *[t.data_ptr() for t in (*args, zo, ih)], n,
+                    *(() if g is None else (g,)), *[t.data_ptr() for t in (*a_m, zo, ih)], m,
                     (ctypes.c_float * len(k))(*k), integ.prox_max_iters)
                 same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
+                failed += same < 1.0
                 label = entry[5:] + (f", {g} lanes per element" if g else "") + (
-                    " (computational mesh)" if kw.get("comp_mesh") else "")
-                print(f"{label} at {kw['test_type']} {kw['dim']}D nx={kw['nx']}, {n} slots: host "
+                    " (computational mesh)" if kw.get("comp_mesh") else "") + (
+                    f", first {m} columns" if cut else "")
+                print(f"{label} at {kw['test_type']} {kw['dim']}D nx={kw['nx']}, {m} slots: host "
                       f"kernel bit-equal to the plain version on {100 * same:.2f} % of elements",
                       flush=True)
-            for m in (1, 30, 131) if newton else ():
-                cut = tuple(a[:, :m].contiguous() for a in args)
-                zp, ihp = plain(*cut, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
-                zo, ih = torch.empty_like(cut[0]), torch.empty(m)
-                getattr(libs[name], entry)(
-                    4, *[t.data_ptr() for t in (*cut, zo, ih)], m,
-                    (ctypes.c_float * len(k))(*k), integ.prox_max_iters)
-                same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
-                print(f"{entry[5:]}, 4 lanes, first {m} columns: bit-equal on {100 * same:.2f} % "
-                      f"of elements", flush=True)
-    return 0
+    print(f"{failed} runs not bit-equal", flush=True)
+    return int(failed > 0)
 
 
 if __name__ == "__main__":

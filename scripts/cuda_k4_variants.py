@@ -1,35 +1,57 @@
-"""The Newton-sweep kernels K4 and K4''b (``csrc/prox3d.cu``) against the
-one-thread-per-element design, timed on the card.
+"""The 3D prox kernels of ``csrc/prox3d.cu`` against their
+one-thread-per-element designs and against variants of their group
+design, timed on the card.
 
-    python3 scripts/cuda_k4_variants.py
+    python3 scripts/cuda_k4_variants.py [newton] [chord]
 
-Builds, by plain ``nvcc`` into the git-ignored
-``mmadmm_tpu_torch/_build/k4_variants/``, copies of ``csrc/``:
+``newton`` times the Newton-sweep kernels K4 and K4''b, ``chord`` the
+chord-sweep kernels K4' and K4''a; with no argument, both. Builds, by plain
+``nvcc`` into the git-ignored ``mmadmm_tpu_torch/_build/k4_variants/``,
+copies of ``csrc/``, all started together:
 
-- ``thread``: ``prox3d.cu`` with the one-thread-per-element Newton kernel
-  added (``prox3d_thread_kernel<kComp, kLate>``: each thread sweeps its
-  element alone, its inputs read from device memory where they are used,
-  its Hessian triangle in shared memory [78][128]). With ``kLate`` it
-  retires on the gradient after computing its step (the JAX order, which
-  the port's K4 and K4''b kept until the group design), without it before
-  the Hessian; the script generates this copy, so the design it replaced
-  can be timed beside it on the same card;
+- ``thread``: ``prox3d.cu`` with two one-thread-per-element kernels added,
+  each thread sweeping its element alone, its inputs read from device
+  memory where they are used, its Hessian triangle in shared memory
+  [78][128]: the Newton sweep ``prox3d_thread_kernel<kComp, kLate>``
+  (with ``kLate`` it retires on the gradient after computing its step, the
+  JAX order, else before the Hessian) and the chord sweep
+  ``prox3d_chord_thread_kernel<kComp>`` (the design K4' and K4''a had
+  before their group design: the entry Hessian and ih0's energy first,
+  each sweep retiring before its cached solve). The script generates this
+  copy, so the designs the group kernels replaced can be timed beside them
+  on the same card;
 - ``as it is``: ``prox3d.cu`` unchanged;
-- ``G=4``, ``G=8``, ``G=16``: ``prox3d.cu`` with ``kGroup`` set to 4, 8 or
-  16 lanes per element and no minimum of blocks an SM in the Newton
-  kernels' ``__launch_bounds__`` (up to 255 registers), and at G = 4 also
-  with a minimum of 3 and of 4 blocks of 128 threads an SM (at most 168 and
-  128 registers).
+- Newton variants: ``kGroup`` set to 4, 8 or 16 lanes per element and no
+  minimum of blocks an SM in the Newton kernels' ``__launch_bounds__`` (up
+  to 255 registers), and at G = 4 also a minimum of 3 and of 4 blocks of
+  128 threads an SM (at most 168 and 128 registers);
+- chord variants: ``kChordGroup`` set to 1, 2, 4 or 8 lanes per element (a
+  block of 32 elements: 32, 64, 128 or 256 threads; 1 lane is the staged
+  design without a group) with no minimum of blocks an SM; at G = 2 a
+  minimum of 5 and of 6 blocks of 64 threads (at most 204 and 168
+  registers), at G = 4 of 3 blocks of 128 (168); at G = 2 and 4 the
+  factor in every lane's registers, one lane writing it back, instead of
+  on one lane in place; at G = 2 and 4 the dual pass (``hess_col``) as a
+  function of its own (``__noinline__``); at G = 2 the sweep loop kept
+  rolled (``#pragma unroll 1``); and at G = 2, without a cap and with 6
+  blocks an SM, the solve with the cached factors (``cached_direction``)
+  inlined.
 
-It prints each build's ``-Xptxas -v`` registers, stack and spills for the
-Newton kernels, then times every variant (median of 20 launches, CUDA
-events) on the step-0 prox inputs of 3D Shoulder-40 (K4, 768,000 tet
-slots) and of 3D CompSquare-40 with ``prox_chord=False`` (K4''b, 768,000
-tets), in turns forward and back (late, early, as it is, the G=4 bounds,
-G=8, G=16, then back again), with the card's name and power limit, and holds
-every variant bit for bit to the plain version (``prox3d_plain``,
-``prox3d_comp_plain``). Needs a CUDA card; run it from the root of the
-repo.
+It prints each build's ``-Xptxas -v`` registers, stack, spills and shared
+bytes for the selected kernels, then times every variant (median of 20
+launches, CUDA events) in turns forward and back, and holds every variant
+bit for bit to the plain version, on:
+
+- K4 at the step-0 prox inputs of 3D Shoulder-40 (768,000 tet slots) and
+  K4''b at those of 3D CompSquare-40 with ``prox_chord=False`` (768,000
+  tets), against ``prox3d_plain`` and ``prox3d_comp_plain``;
+- K4' at the stock engine's step-0 inputs of 3D CompSquare-40 (768,000
+  tets) and CompSquare-20 (96,000), and K4''a at those of 3D
+  SquareGrid-40 with ``prox_chord=True`` (768,000), against
+  ``prox3d_chord_comp_plain`` and ``prox3d_chord_plain``.
+
+Prints the card's name and power limit first. Needs a CUDA card; run it
+from the root of the repo.
 """
 
 from __future__ import annotations
@@ -51,12 +73,59 @@ from mmadmm_tpu_torch import cuda_build  # noqa: E402
 from mmadmm_tpu_torch.ops import prox3d as P3  # noqa: E402
 
 OUT = os.path.join(cuda_build.BUILD_DIR, "k4_variants")
-GROUP = re.compile(r"constexpr int kGroup = \d+;")
 LAUNCH = "template <bool kChord, bool kComp>\nint launch("
 
-# The one-thread-per-element Newton sweep, with the retire test after the
-# step (kLate, the JAX order) or before the Hessian, on prox3d.cu's helpers.
-THREAD_KERNEL = r"""
+# The one-thread-per-element designs, on prox3d.cu's helpers: the Newton
+# sweep with the retire test after the step (kLate, the JAX order) or
+# before the Hessian, and the chord sweep as K4' and K4''a had it.
+THREAD_KERNELS = r"""
+// One element's 216 cell channels, channel-major with stride n, read from
+// device memory where they are used.
+struct Cells {
+  const float* p;  // cells + element
+  long long n;
+  __device__ __forceinline__ float operator()(int c) const { return __ldg(p + c * n); }
+};
+
+// the lower triangle of the Hessian at z into H (this thread's column of
+// the shared array, H[tri(i, j) * kThreads]), one dual pass per column
+__device__ __forceinline__ void hess12(const float* z, const Cells& cells, const float* h,
+                                       const float* dxpu, const float* fr, const Consts3& k,
+                                       const float* free_col, long long n, float* H) {
+#pragma unroll 1
+  for (int j = 0; j < 12; ++j)
+    hess_col<kThreads>(j, z, cells, h, dxpu, fr, k, __ldg(free_col + j * n), H);
+}
+
+// backtracking: the largest accepted alpha, 0 if none
+__device__ __forceinline__ float backtrack(const float* z, const float* p, const Cells& cells,
+                                           const float* h, const float* dxpu, const Consts3& k,
+                                           float e0, float det_floor) {
+  float alpha = 0.0f;
+#pragma unroll 1
+  for (int a = 0; a < 5; ++a)
+    if (trial_ok(z, p, alpha_bt(a), cells, h, dxpu, k, e0, det_floor)) alpha = alpha_bt(a);
+  return alpha;
+}
+
+// one element's inputs from device memory into registers
+template <bool kComp>
+__device__ __forceinline__ void load_thread(const float* z_in, const float* dxpu_in,
+                                            const float* free_in, const float* ehat_in,
+                                            long long n, long long e, float* z, float* dxpu,
+                                            float* fr, float* h_e) {
+#pragma unroll
+  for (int c = 0; c < 12; ++c) {
+    z[c] = z_in[c * n + e];
+    dxpu[c] = dxpu_in[c * n + e];
+    fr[c] = free_in[c * n + e];
+  }
+  if constexpr (kComp) {
+#pragma unroll
+    for (int c = 0; c < 9; ++c) h_e[c] = ehat_in[c * n + e];
+  }
+}
+
 template <bool kComp, bool kLate>
 __global__ void __launch_bounds__(kThreads) prox3d_thread_kernel(
     const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
@@ -69,18 +138,8 @@ __global__ void __launch_bounds__(kThreads) prox3d_thread_kernel(
   float* H = hess + threadIdx.x;
   const Cells cells{cells_in + e, n};
   float z[12], dxpu[12], fr[12], h_e[9];
-#pragma unroll
-  for (int c = 0; c < 12; ++c) {
-    z[c] = z_in[c * n + e];
-    dxpu[c] = dxpu_in[c * n + e];
-    fr[c] = free_in[c * n + e];
-  }
-  const float* h = eh.h;
-  if constexpr (kComp) {
-#pragma unroll
-    for (int c = 0; c < 9; ++c) h_e[c] = ehat_in[c * n + e];
-    h = h_e;
-  }
+  load_thread<kComp>(z_in, dxpu_in, free_in, ehat_in, n, e, z, dxpu, fr, h_e);
+  const float* h = kComp ? h_e : eh.h;
   ih0_out[e] = energy3_unreg(z, cells, h, k);
   for (int it = 0; it < max_iters; ++it) {
     float g[12];
@@ -105,69 +164,188 @@ __global__ void __launch_bounds__(kThreads) prox3d_thread_kernel(
   for (int c = 0; c < 12; ++c) zout[c * n + e] = z[c];
 }
 
-template <bool kComp, bool kLate>
-int launch_thread(const float* z, const float* dxpu, const float* free_, const float* cells,
-                  const float* ehat, float* zout, float* ih0, long long n, const float* consts,
-                  int max_iters) {
+template <bool kComp>
+__global__ void __launch_bounds__(kThreads) prox3d_chord_thread_kernel(
+    const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
+    const float* __restrict__ free_in, const float* __restrict__ cells_in,
+    const float* __restrict__ ehat_in, float* __restrict__ zout, float* __restrict__ ih0_out,
+    long long n, Ehat3 eh, Consts3 k, int max_iters) {
+  __shared__ float hess[kTri * kThreads];
+  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float* H = hess + threadIdx.x;
+  const Cells cells{cells_in + e, n};
+  float z[12], dxpu[12], fr[12], h_e[9];
+  load_thread<kComp>(z_in, dxpu_in, free_in, ehat_in, n, e, z, dxpu, fr, h_e);
+  const float* h = kComp ? h_e : eh.h;
+  ih0_out[e] = energy3_unreg(z, cells, h, k);
+  hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
+  factor12<kThreads>(H);
+  for (int it = 0; it < max_iters; ++it) {
+    float g[12];
+    float ih;
+    float e0 = grad3<float>(z, cells, h, dxpu, fr, k, g, ih);
+    if (it > 0 && norm1(g) < k.tol) break;
+    float det_floor = floor_of(edet3(z));
+    float p[12];
+    direction<kThreads>(H, g, k.inv_w2, p);
+    if (!trial_ok(z, p, 1.0f, cells, h, dxpu, k, e0, det_floor)) {
+      hess12(z, cells, h, dxpu, fr, k, free_in + e, n, H);
+      factor12<kThreads>(H);
+      direction<kThreads>(H, g, k.inv_w2, p);
+      float alpha = backtrack(z, p, cells, h, dxpu, k, e0, det_floor);
+#pragma unroll
+      for (int i = 0; i < 12; ++i) p[i] = alpha * p[i];
+    }
+    bool stalled = absmax(p) <= kEpsStall * (1.0f + absmax(z));
+#pragma unroll
+    for (int i = 0; i < 12; ++i) z[i] = z[i] + p[i];
+    if (stalled) break;
+  }
+#pragma unroll
+  for (int c = 0; c < 12; ++c) zout[c * n + e] = z[c];
+}
+
+// design 0: Newton, retire before the Hessian; 1: Newton, retire after the
+// step; 2: chord
+template <bool kComp>
+int launch_thread(int design, const float* z, const float* dxpu, const float* free_,
+                  const float* cells, const float* ehat, float* zout, float* ih0, long long n,
+                  const float* consts, int max_iters) {
   if (n <= 0) return 0;
   Ehat3 eh{};
   Consts3 k;
   if constexpr (!kComp) std::memcpy(&eh, consts, sizeof(eh));
   std::memcpy(&k, consts + (kComp ? 0 : 9), sizeof(k));
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  prox3d_thread_kernel<kComp, kLate><<<(unsigned)blocks, kThreads>>>(
-      z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  if (design == 0)
+    prox3d_thread_kernel<kComp, false><<<blocks, kThreads>>>(z, dxpu, free_, cells, ehat, zout,
+                                                             ih0, n, eh, k, max_iters);
+  else if (design == 1)
+    prox3d_thread_kernel<kComp, true><<<blocks, kThreads>>>(z, dxpu, free_, cells, ehat, zout,
+                                                            ih0, n, eh, k, max_iters);
+  else
+    prox3d_chord_thread_kernel<kComp><<<blocks, kThreads>>>(z, dxpu, free_, cells, ehat, zout,
+                                                            ih0, n, eh, k, max_iters);
   return (int)cudaGetLastError();
 }
 
 """
 
-THREAD_ENTRIES = r"""
-extern "C" int mm_prox3d_thread(int late, const float* z, const float* dxpu, const float* fr,
+THREAD_ENTRY = r"""
+extern "C" int mm_prox3d_thread(int design, const float* z, const float* dxpu, const float* fr,
                                 const float* cells, const float* ehat, float* zout, float* ih0,
                                 long long n, const float* consts, int max_iters) {
-  if (ehat == nullptr)
-    return late ? launch_thread<false, true>(z, dxpu, fr, cells, ehat, zout, ih0, n, consts,
-                                             max_iters)
-                : launch_thread<false, false>(z, dxpu, fr, cells, ehat, zout, ih0, n, consts,
-                                              max_iters);
-  return late ? launch_thread<true, true>(z, dxpu, fr, cells, ehat, zout, ih0, n, consts,
-                                          max_iters)
-              : launch_thread<true, false>(z, dxpu, fr, cells, ehat, zout, ih0, n, consts,
-                                           max_iters);
+  return ehat == nullptr
+             ? launch_thread<false>(design, z, dxpu, fr, cells, ehat, zout, ih0, n, consts,
+                                    max_iters)
+             : launch_thread<true>(design, z, dxpu, fr, cells, ehat, zout, ih0, n, consts,
+                                   max_iters);
 }
 """
 
-BOUNDS = "__launch_bounds__(kThreads, kComp ? kBlocksComp : kBlocks) prox3d_newton_kernel("
+
+def _sub(s, old, new):
+    if old not in s:
+        raise RuntimeError(f"prox3d.cu has no {old!r}, which this script edits")
+    return s.replace(old, new)
 
 
-def _group(g, blocks):
-    """prox3d.cu with kGroup = g and ``__launch_bounds__(kThreads,
-    blocks)`` on the Newton kernels (no minimum where ``blocks`` is 0)."""
+NEWTON_BOUNDS = "__launch_bounds__(kThreads, kComp ? kBlocksComp : kBlocks) prox3d_newton_kernel("
+CHORD_BOUNDS = "__launch_bounds__(kChordE * G)\n    prox3d_chord_kernel("
+CHORD_GROUPS = ('static_assert(G == 2 || G == 4 || G == 8, "a group is 2, 4 or 8 lanes of one '
+                'warp");')
+FACTOR = "  if (lane == 0) factor12<1>(H);\n"
+# every lane factors a copy of the triangle in its registers, one writes it back
+FACTOR_IN_REGISTERS = """  float L[kTri];
+#pragma unroll
+  for (int t = 0; t < kTri; ++t) L[t] = H[t];
+  factor12<1>(L);
+  __syncwarp(gmask);  // every lane has its copy before lane 0 writes
+  if (lane == 0) {
+#pragma unroll
+    for (int t = 0; t < kTri; ++t) H[t] = L[t];
+  }
+"""
+
+
+def _newton(g, blocks):
+    """kGroup = g and ``__launch_bounds__(kThreads, blocks)`` on the Newton
+    kernels (no minimum where ``blocks`` is 0)."""
     def edit(s):
-        if BOUNDS not in s:
-            raise RuntimeError("prox3d.cu's Newton kernel bounds are not where this script "
-                               "expects them")
         bounds = f"(kThreads, {blocks})" if blocks else "(kThreads)"
-        s = GROUP.sub(f"constexpr int kGroup = {g};", s)
-        return s.replace(BOUNDS, f"__launch_bounds__{bounds} prox3d_newton_kernel(")
+        s = re.sub(r"constexpr int kGroup = \d+;", f"constexpr int kGroup = {g};", s)
+        return _sub(s, NEWTON_BOUNDS, f"__launch_bounds__{bounds} prox3d_newton_kernel(")
+    return edit
+
+
+# the chord kernels' dual passes in a function of their own (its registers
+# apart from the sweep's), their sweep loop kept rolled, and their solve
+# with the cached factors inlined
+NOINLINE = ("__device__ __forceinline__ void hess_col(", "__device__ __noinline__ void hess_col(")
+INLINED = ("__device__ __noinline__ void cached_direction(",
+           "__device__ __forceinline__ void cached_direction(")
+ROLLED = ("if (max_iters <= 0 && lane == 0) ih0_out[e] = energy3_unreg(z, cells, h, k);\n",
+          "if (max_iters <= 0 && lane == 0) ih0_out[e] = energy3_unreg(z, cells, h, k);\n"
+          "#pragma unroll 1\n")
+
+
+def _chord(g, blocks, factor_one_lane=True, *edits):
+    """kChordGroup = g (1 lane allowed too), ``__launch_bounds__(32 g,
+    blocks)`` on the chord kernels (no minimum where ``blocks`` is 0), the
+    factor on one lane or in every lane's registers, then the ``(old,
+    new)`` text edits."""
+    def edit(s):
+        for old, new in edits:
+            s = _sub(s, old, new)
+        s = re.sub(r"constexpr int kChordGroup = \d+;", f"constexpr int kChordGroup = {g};", s)
+        s = _sub(s, CHORD_GROUPS, "static_assert(G == 1 || G == 2 || G == 4 || G == 8);")
+        if blocks:
+            s = _sub(s, CHORD_BOUNDS,
+                     f"__launch_bounds__(kChordE * G, {blocks})\n    prox3d_chord_kernel(")
+        if not factor_one_lane:
+            s = _sub(s, FACTOR, FACTOR_IN_REGISTERS)
+        return s
     return edit
 
 
 BUILDS = {
-    "thread": lambda s: s.replace(LAUNCH, THREAD_KERNEL + LAUNCH) + THREAD_ENTRIES,
+    "thread": lambda s: _sub(s, LAUNCH, THREAD_KERNELS + LAUNCH) + THREAD_ENTRY,
     "as it is": lambda s: s,
-    "G=4, no block minimum": _group(4, 0),
-    "G=4, 3 blocks an SM": _group(4, 3),
-    "G=4, 4 blocks an SM": _group(4, 4),
-    "G=8, no block minimum": _group(8, 0),
-    "G=16, no block minimum": _group(16, 0),
+}
+NEWTON_BUILDS = {
+    "Newton G=4, no block minimum": _newton(4, 0),
+    "Newton G=4, 3 blocks an SM": _newton(4, 3),
+    "Newton G=4, 4 blocks an SM": _newton(4, 4),
+    "Newton G=8, no block minimum": _newton(8, 0),
+    "Newton G=16, no block minimum": _newton(16, 0),
+}
+CHORD_BUILDS = {
+    "chord G=1, no block minimum": _chord(1, 0),
+    "chord G=2, no block minimum": _chord(2, 0),
+    "chord G=2, 5 blocks an SM": _chord(2, 5),
+    "chord G=2, 6 blocks an SM": _chord(2, 6),
+    "chord G=2, no block minimum, factor in registers": _chord(2, 0, False),
+    "chord G=4, no block minimum": _chord(4, 0),
+    "chord G=4, 3 blocks an SM": _chord(4, 3),
+    "chord G=4, no block minimum, factor in registers": _chord(4, 0, False),
+    "chord G=8, no block minimum": _chord(8, 0),
+    "chord G=2, no block minimum, dual pass not inlined": _chord(2, 0, True, NOINLINE),
+    "chord G=4, no block minimum, dual pass not inlined": _chord(4, 0, True, NOINLINE),
+    "chord G=2, no block minimum, sweep loop rolled": _chord(2, 0, True, ROLLED),
+    "chord G=2, no block minimum, solve inlined": _chord(2, 0, True, INLINED),
+    "chord G=2, 6 blocks an SM, solve inlined": _chord(2, 6, True, INLINED),
+}
+THREAD_NAMES = {
+    "newton": {0: "one thread per element, retire before the Hessian",
+               1: "one thread per element, retire after the step"},
+    "chord": {2: "one thread per element (the design before the group)"},
 }
 
 
-def _ptxas(out: str):
-    """``(kernel, registers, stack, spill stores, spill loads)`` of the
-    Newton kernels in an ``nvcc -Xptxas -v`` log."""
+def _ptxas(out: str, family: str):
+    """``(kernel, registers, stack, spill stores, spill loads, shared
+    bytes)`` of the ``family`` kernels in an ``nvcc -Xptxas -v`` log."""
     rows, name, stack = [], None, None
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -180,21 +358,36 @@ def _ptxas(out: str):
             stack = tuple(int(v) for v in m.groups())
             continue
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and ("newton" in name or "thread" in name):
-            t = re.search(r"(newton|thread)_kernelILb([01])EL([bi])(\d+)E", name)
-            kernel = "K4''b" if t.group(2) == "1" else "K4"
-            if t.group(1) == "newton":
-                kernel += f", {t.group(4)} lanes per element"
+        if not (m and name):
+            continue
+        smem = re.search(r"(\d+) bytes smem", line)
+        smem = int(smem.group(1)) if smem else 0
+        if family == "newton":
+            t = re.search(r"prox3d_newton_kernelILb([01])ELi(\d+)E", name)
+            u = re.search(r"prox3d_thread_kernelILb([01])ELb([01])E", name)
+            if t:
+                kernel = ("K4''b" if t.group(1) == "1" else "K4") + f", {t.group(2)} lanes"
+            elif u:
+                kernel = ("K4''b" if u.group(1) == "1" else "K4") + ", " + THREAD_NAMES[
+                    "newton"][int(u.group(2))]
             else:
-                kernel += ", one thread per element, retire " + (
-                    "after the step" if t.group(4) == "1" else "before the Hessian")
-            rows.append((kernel, int(m.group(1)), *stack))
+                continue
+        else:
+            t = re.search(r"prox3d_chord_kernelILb([01])ELi(\d+)E", name)
+            u = re.search(r"prox3d_chord_thread_kernelILb([01])E", name)
+            if t:
+                kernel = ("K4'" if t.group(1) == "1" else "K4''a") + f", {t.group(2)} lanes"
+            elif u:
+                kernel = ("K4'" if u.group(1) == "1" else "K4''a") + ", one thread per element"
+            else:
+                continue
+        rows.append((kernel, int(m.group(1)), *stack, smem))
     return rows
 
 
-def build_all():
+def build_all(builds, families):
     jobs = {}
-    for i, (name, edit) in enumerate(BUILDS.items()):
+    for i, (name, edit) in enumerate(builds.items()):
         d = os.path.join(OUT, str(i))
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(cuda_build.CSRC, d)
@@ -213,9 +406,11 @@ def build_all():
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed\n{out}")
         print(f"{name}: built in {time.perf_counter() - t0:.1f} s", flush=True)
-        for kernel, regs, stack, st, ld in _ptxas(out):
-            print(f"  ptxas {kernel}: {regs} registers, {stack} bytes stack frame, {st} bytes "
-                  f"spill stores, {ld} bytes spill loads", flush=True)
+        for family in families:
+            for kernel, regs, stack, st, ld, smem in _ptxas(out, family):
+                print(f"  ptxas {kernel}: {regs} registers, {stack} bytes stack frame, {st} "
+                      f"bytes spill stores, {ld} bytes spill loads, {smem} bytes shared",
+                      flush=True)
         lib = ctypes.CDLL(so)
         for fn, sig in P3._SIGNATURES.items():
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = sig
@@ -227,40 +422,63 @@ def build_all():
     return libs
 
 
+def cases(families):
+    """``{label: (family, inputs, ehat or None, integrator, entry, plain)}``."""
+    out = {}
+    if "newton" in families:
+        shoulder = C.box3d("Shoulder", 0, 40)[2]
+        comp = C.comp_square(40, prox_chord=False)[2]
+        out["K4 at 3D Shoulder-40 step 0"] = ("newton", C.prox_inputs(shoulder),
+                                              shoulder.mesh.ehat_np.reshape(-1), shoulder,
+                                              "mm_prox3d", P3.prox3d_plain)
+        out["K4''b at 3D CompSquare-40 step 0"] = ("newton", C.stock_inputs(comp), None, comp,
+                                                   "mm_prox3d_comp", P3.prox3d_comp_plain)
+    if "chord" in families:
+        for n in (40, 20):
+            comp = C.comp_square(n)[2]
+            out[f"K4' at 3D CompSquare-{n} step 0"] = (
+                "chord", C.stock_inputs(comp), None, comp, "mm_prox3d_chord_comp",
+                P3.prox3d_chord_comp_plain)
+        square = C.square_chord(40)[2]
+        out["K4''a at 3D SquareGrid-40 step 0"] = (
+            "chord", C.stock_inputs(square), square.mesh.ehat_np.reshape(-1), square,
+            "mm_prox3d_chord", P3.prox3d_chord_plain)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("cuda_k4_variants: no CUDA device", file=sys.stderr)
         return 1
+    families = [a for a in sys.argv[1:] if a in ("newton", "chord")] or ["newton", "chord"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)}; {smi}; torch {torch.__version__}", flush=True)
-    libs = build_all()
-    _, _, shoulder = C.box3d("Shoulder", 0, 40)
-    _, _, comp = C.comp_square(40, prox_chord=False)
-    cases = {
-        "K4 at 3D Shoulder-40 step 0": (
-            C.prox_inputs(shoulder), shoulder.mesh.ehat_np.reshape(-1), shoulder, "mm_prox3d"),
-        "K4''b at 3D CompSquare-40 step 0": (C.stock_inputs(comp), None, comp, "mm_prox3d_comp"),
-    }
-    order = ["late", "early", *list(BUILDS)[1:]]
-    for label, (inputs, ehat, integ, entry) in cases.items():
+    builds = dict(BUILDS)
+    if "newton" in families:
+        builds.update(NEWTON_BUILDS)
+    if "chord" in families:
+        builds.update(CHORD_BUILDS)
+    libs = build_all(builds, families)
+    for label, (family, inputs, ehat, integ, entry, plain) in cases(families).items():
         z, n = inputs[0], inputs[0].shape[1]
         comp_mesh = ehat is None
         consts = P3._consts3(integ.w, integ.prox_tol)
         k = ((ctypes.c_float * 9)(*consts) if comp_mesh
              else (ctypes.c_float * 18)(*ehat, *consts))
-        plain = P3.prox3d_comp_plain if comp_mesh else P3.prox3d_plain
         pargs = () if comp_mesh else (ehat,)
         zp, ihp = plain(*inputs, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
         ptrs = [t.data_ptr() for t in inputs[:4]]
         eh_ptr = inputs[4].data_ptr() if comp_mesh else None
+        own = NEWTON_BUILDS if family == "newton" else CHORD_BUILDS
+        order = [*THREAD_NAMES[family], "as it is", *own]
         times = {v: [] for v in order}
         for v in order + order[::-1]:
             zo, ih = torch.empty_like(z), torch.empty(n, device=z.device)
-            if v in ("late", "early"):
-                def call(late=int(v == "late")):
+            if isinstance(v, int):
+                def call(design=v):
                     return libs["thread"].mm_prox3d_thread(
-                        late, *ptrs, eh_ptr, zo.data_ptr(), ih.data_ptr(), n, k,
+                        design, *ptrs, eh_ptr, zo.data_ptr(), ih.data_ptr(), n, k,
                         integ.prox_max_iters)
             else:
                 def call(lib=libs[v]):
@@ -280,8 +498,7 @@ def main() -> int:
         print(f"{label} ({n} slots), bit-equal to the plain version in every variant:",
               flush=True)
         for v in order:
-            name = {"late": "one thread per element, retire after the step",
-                    "early": "one thread per element, retire before the Hessian"}.get(v, v)
+            name = THREAD_NAMES[family].get(v, v)
             print(f"  {name}: {' and '.join(f'{t:.4f}' for t in times[v])} ms", flush=True)
     return 0
 

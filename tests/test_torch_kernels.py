@@ -15,8 +15,9 @@ prox3d_plain``), those of tests/test_prox_pallas3d.py:88-108: ih0 within
 rtol 2e-5, the regularized energies after the solve within rtol 1e-4 and
 atol 1e-6; the same for K4' (``csrc/prox3d.cu`` vs ``ops/prox3d.py::
 prox3d_chord_comp_plain``, tests/test_torch_prox3d_chord.py), on the
-stock engine's inputs. K4, K4''a and K4''b (``prox3d``, ``prox3d_chord``,
-``prox3d_comp``) are also held bit for bit to their plain versions."""
+stock engine's inputs. K4, K4', K4''a and K4''b (``prox3d``,
+``prox3d_chord_comp``, ``prox3d_chord``, ``prox3d_comp``) are also held
+bit for bit to their plain versions."""
 
 import pytest
 import torch
@@ -269,10 +270,11 @@ def _stock_inputs(integ):
 
 
 def _check_pair4c(inputs, args, zk, ihk):
-    """K4' against its plain version, the bands of
+    """K4' against its plain version: bit for bit, and within the bands of
     tests/test_torch_prox3d_chord.py."""
     z, dxpu, free, cells, eh = inputs
     zp, ihp = P3.prox3d_chord_comp_plain(*inputs, *args)
+    assert torch.equal(zk, zp) and torch.equal(ihk, ihp)
     torch.testing.assert_close(ihk, ihp, rtol=2e-5, atol=1e-8)
     rows = P3._rows(cells)
     half_w2 = consts(args[0])[1]
@@ -485,3 +487,80 @@ def test_newton_kernels_bit_equal_to_plain(variant, case, monkeypatch):
     assert torch.equal(zk, zp) and torch.equal(ihk, ihp)
     if case == "fallback":
         assert sum(fallbacks) >= 1 and not torch.equal(zp[:, live], inputs[0][:, live])
+
+
+# The chord kernels K4' (``prox3d_chord_comp``, 3D CompSquare nx=4) and K4''a
+# (``prox3d_chord``, 3D SquareGrid nx=4 with prox_chord=True), where a group
+# of lanes shares an element and its cached factors, bit for bit against
+# their plain versions: as the path calls them, with at most 1 and 2 sweeps,
+# with the fallback element of NEWTON_CASES (its entry Hessian is not
+# finite, so its cached step is -g/w^2), at ragged sizes, and on one block
+# of 32 elements whose duals are perturbed by a seeded normal so that some
+# elements refresh their cache while their neighbours keep it (the plain
+# version's Hessian builds after the entry ones show it).
+CHORD_CASES = ["path", "max_iters=1", "max_iters=2", "fallback", "mixed refresh", "n=1", "n=5",
+               "n=127", "n=129", "n=700"]
+
+
+def _chord(variant):
+    """``(kernel, plain, channel inputs, args)`` of K4' or K4''a at nx=4."""
+    if variant == "K4'":
+        _, integ = _stock()
+        inputs, _ = _stock_inputs(integ)
+        return (P3.prox3d_chord_comp, P3.prox3d_chord_comp_plain, inputs,
+                [integ.w, integ.prox_tol, integ.prox_max_iters])
+    _, kernel, plain, inputs, args = _k4pp("chord")
+    return kernel, plain, inputs, list(args)
+
+
+@pytest.mark.parametrize("case", CHORD_CASES)
+@pytest.mark.parametrize("variant", ["K4'", "K4''a"])
+def test_chord_kernels_bit_equal_to_plain(variant, case, monkeypatch):
+    _card()
+    import numpy as np
+
+    from mmadmm_tpu_torch.ops import newton as N
+
+    kernel, plain, inputs, args = _chord(variant)
+    if case.startswith("max_iters="):
+        args[-1] = int(case.split("=")[1])
+    elif case.startswith("n="):
+        inputs = tuple(t[:, :int(case[2:])].contiguous() for t in inputs)
+    elif case == "mixed refresh":
+        noise = np.random.default_rng(0).normal(scale=3e-3, size=tuple(inputs[1].shape))
+        dxpu = inputs[1] + torch.tensor(noise, dtype=torch.float32, device=inputs[1].device)
+        inputs = tuple(t[:, :32].contiguous() for t in (inputs[0], dxpu, *inputs[2:]))
+    elif case == "fallback":
+        live = int(torch.nonzero(inputs[2].sum(0) > 0)[0])
+        cells = inputs[3].clone()
+        for v in range(4):
+            cells[v * 54:v * 54 + 48, live] *= 1e-9
+        inputs = (*inputs[:3], cells, *inputs[4:])
+        args[-3] = 1000.0
+    before = kernel.launches
+    zk, ihk = kernel(*inputs, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    fallbacks, built = [], []
+    solve, hess = N._solve, P3.hess_c3
+
+    def spy(H, g, inv_w2):
+        p = N.ldlt_c(H, [-gi for gi in g])
+        bad = ~torch.stack([torch.isfinite(pi) for pi in p]).all(0)
+        fallbacks.append(int((bad & torch.stack([torch.isfinite(gi) for gi in g]).all(0)).sum()))
+        return solve(H, g, inv_w2)
+
+    def counted(z, *rest):
+        built.append(z[0].shape[0])
+        return hess(z, *rest)
+
+    monkeypatch.setattr(N, "_solve", spy)
+    monkeypatch.setattr(P3, "hess_c3", counted)
+    stats = {}
+    zp, ihp = plain(*inputs, *args, stats=stats)
+    assert torch.equal(zk, zp) and torch.equal(ihk, ihp)
+    if case == "fallback":
+        assert sum(fallbacks) >= 1 and not torch.equal(zp[:, live], inputs[0][:, live])
+    if case == "mixed refresh":
+        assert stats["refreshes"] >= 1 and built[0] == 32
+        assert len(built) > 1 and all(0 < k < 32 for k in built[1:])

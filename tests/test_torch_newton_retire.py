@@ -44,7 +44,10 @@ def jax_order_sweep(not_first, zc, fns, edet_fn, inv_w2, tol, stats):
     det_floor = torch.clamp_max(edet_fn(zc), 0.0)
     alpha = N._backtrack(zc, p, energy_fn, edet_fn, e0, det_floor)
     step_inf = alpha * N.rmax([torch.abs(pi) for pi in p])
-    active_now, stalled = N._retire(not_first, gnorm, step_inf, zc, tol)
+    # an element retires on gnorm < tol from the second sweep on, before it
+    # moves, or after a stalled move
+    active_now = ~(gnorm < tol) if not_first else torch.ones_like(e0, dtype=torch.bool)
+    stalled = N._stalled(step_inf, zc)
     stats["gnorm_retired"] = stats.get("gnorm_retired", 0) + int((~active_now).sum())
     z_new = [torch.where(active_now, zc[i] + alpha * p[i], zc[i]) for i in range(len(zc))]
     return z_new, active_now & ~stalled
