@@ -18,7 +18,10 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    through the stock engine's element-major entry on Monitor3320r's
    (265,004 triangles), K4''a and K4''b on the stock engine's step-0
    inputs of 3D SquareGrid and CompSquare at nx=4, nx=20 and, in their
-   main paths, nx=40 (768,000 tets); K4, K4' and K4'' bit for bit;
+   main paths, nx=40 (768,000 tets); K4, K4' and K4'' bit for bit; and
+   the float64 builds of K1, K2 and K3 on the step-0 inputs of
+   Shoulder-320 in float64 and of K4 on those of 3D Shoulder-40 and 3D
+   SquareGrid-40 in float64, each bit for bit;
 4. main paths, each through ``problems.build_problem`` and
    ``integrators.run_loop.run`` with the DtTol stop, with every launch
    count set to 0 just before and read just after: at Shoulder-320, at
@@ -51,13 +54,23 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    K4''a on 3D SquareGrid-40 with ``prox_chord=True`` and K4''b on 3D
    CompSquare-40 with ``prox_chord=False``, on the stock engine (at most 10
    steps each; launches = ADMM iterations; each path equals its
-   ``RECORDED_3D`` trace); and the generic route on the
+   ``RECORDED_3D`` trace); the generic route on the
    card against the CPU at 2D SquareGrid nx=8 and 3D CompSquare nx=4 in
-   float64 over 4 steps;
+   float64 over 4 steps; then the float64 stencil engines, each at most
+   ``F64_CAP`` steps with the DtTol stop: Shoulder-320 methods 0, 1 and 2
+   and 3D Shoulder-40 and SquareGrid-40 (the stencil engine with float64
+   state; the float64 kernels launched as the float32 ones are counted
+   there, the float32 counters at 0; ``I_h`` finite and falling; step 0
+   against the same configuration's float32 run: the initial energy
+   within rtol 1e-6 and, for backward Euler, the post-step energy within
+   its neumann band, rtol 1e-5), and card against CPU in float64 at
+   Shoulder nx=16 (methods 0-2) and 3D SquareGrid nx=4 (``I_h`` within
+   rtol 1e-10, the same inner counts);
 5. timing: each kernel alone (median of 20 launches, CUDA events), its
-   plain version once, and its bound; one JSON line ``{"kernels": [...]}``
-   (K4' on CompSquare-40's step-0 inputs, and on CompSquare-20's on a line
-   of its own).
+   plain version once, and its bound (float64 rows: 8-byte values, the
+   float64 operation rate); one JSON line ``{"kernels": [...]}`` (K4' on
+   CompSquare-40's step-0 inputs, and on CompSquare-20's on a line of its
+   own).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 1
@@ -78,6 +91,11 @@ import torch
 T0 = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+# float64 outside the tensor cores: half the float32 rate (NVIDIA's H100
+# SXM data sheet gives 34 TFLOP/s, the Hopper white paper 64 float64 units
+# an SM against 128 float32 ones)
+H100_F64_OPS_PER_S = 33.5e12
+F64_CAP = 10  # steps of each float64 stencil path
 STEP_CAP = 30
 STEP_CAP_3D = 20
 STOCK_CAPS = {"3D CompSquare-20": 30, "3D CompSquare-40": 10, "Monitor3320r": 20}
@@ -160,25 +178,26 @@ def say(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:8.2f} s] {msg}", flush=True)
 
 
-def shoulder(nx: int, method: int = 0, device: str = "cuda"):
+def shoulder(nx: int, method: int = 0, device: str = "cuda", dtype: str = "float32"):
     from mmadmm_tpu_torch import ExperimentConfig, build_problem
 
     cfg = ExperimentConfig(
         test_type="Shoulder", dim=2, mon_type=1, method=method, nx=nx, ny=nx,
-        dt=5e-3, tau=0.1, rho=50.0, dtype="float32",
+        dt=5e-3, tau=0.1, rho=50.0, dtype=dtype,
     )
     mesh, integ = build_problem(cfg, device=device)
     return cfg, mesh, integ
 
 
-def box3d(test_type: str, mon_type: int, n: int, device: str = "cuda"):
+def box3d(test_type: str, mon_type: int, n: int, device: str = "cuda",
+          dtype: str = "float32"):
     """3D MM-ADMM on an n^3 box mesh: Shoulder with the identity monitor (a
     constant grid) or SquareGrid with the radial bump (the 48-wide table)."""
     from mmadmm_tpu_torch import ExperimentConfig, build_problem
 
     cfg = ExperimentConfig(
         test_type=test_type, dim=3, mon_type=mon_type, method=0, nx=n, ny=n, nz=n,
-        dt=5e-3, tau=0.1, rho=50.0, dtype="float32",
+        dt=5e-3, tau=0.1, rho=50.0, dtype=dtype,
     )
     mesh, integ = build_problem(cfg, device=device)
     return cfg, mesh, integ
@@ -248,6 +267,13 @@ def prox_inputs(integ):
     _, x, z, u = integ.start(state)
     dxpu = (integ.gather(x) + u).contiguous()
     return z.contiguous(), dxpu, integ.free, integ.cells(z)
+
+
+def prox_call(integ):
+    """``(inputs, args)`` of the first prox call of step 0 of a stencil
+    engine: ``prox_inputs`` and ``(ehat, w, tol, max_iters)``."""
+    return prox_inputs(integ), (integ.mesh.ehat_np.reshape(-1), integ.w, integ.prox_tol,
+                                integ.prox_max_iters)
 
 
 def stock_inputs(integ):
@@ -512,15 +538,17 @@ def time_plain(fn):
     return 1e3 * (time.perf_counter() - t)
 
 
-def bound(fn, n_floats):
+def bound(fn, n_floats, f64=False):
     """``(bound ms, bound_by, ops, bytes)`` of a function whose plain
     version ``fn`` does the counted operations and which moves
-    ``n_floats`` f32 values (inputs read once, outputs written once)."""
+    ``n_floats`` values (inputs read once, outputs written once): f32
+    values at the float32 rate, or with ``f64`` f64 values at the float64
+    rate."""
     with _OpCounter() as counter:
         fn()
-    nbytes = 4 * n_floats
+    nbytes = (8 if f64 else 4) * n_floats
     bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
-    ops_ms = 1e3 * counter.ops / H100_F32_OPS_PER_S
+    ops_ms = 1e3 * counter.ops / (H100_F64_OPS_PER_S if f64 else H100_F32_OPS_PER_S)
     by = "operations" if ops_ms >= bytes_ms else "bytes"
     return max(bytes_ms, ops_ms), by, counter.ops, nbytes
 
@@ -548,13 +576,21 @@ def _wrappers():
             "prox3d_comp": P3.prox3d_comp}
 
 
+# the wrappers with a float64 build, whose launches count apart as <name>_f64
+F64_KERNELS = ("prox2d", "eg2d", "hess2d", "prox3d")
+
+
 def counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    c = {name: fn.launches for name, fn in _wrappers().items()}
+    c.update({f"{name}_f64": _wrappers()[name].launches_f64 for name in F64_KERNELS})
+    return c
 
 
 def zero_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+    for name in F64_KERNELS:
+        _wrappers()[name].launches_f64 = 0
 
 
 def drive(label, cfg, integ, cap=STEP_CAP):
@@ -681,6 +717,91 @@ def card_vs_cpu_generic(label, make):
         f"1e-10, the same n_iters {[i.n_iters for i in runs[0]]}): {[i.ih for i in runs[0]]}")
 
 
+def compare_f64(label, kernel, plain, inputs, args):
+    """A float64 kernel against its plain version on the same inputs, bit
+    for bit (on the card both round every operation as IEEE float64).
+    Returns ``(max abs error, plain version's seconds)``."""
+    if inputs[0].dtype != torch.float64:
+        raise AssertionError(f"{label}: inputs are {inputs[0].dtype}, not float64")
+    out_k = kernel(*inputs, *args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out_p = plain(*inputs, *args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+    err = max(float((a - b).abs().max()) for a, b in zip(out_k, out_p))
+    if not all(a.dtype == torch.float64 and torch.equal(a, b) for a, b in zip(out_k, out_p)):
+        raise AssertionError(f"{label}: not bit-equal to the plain version (max |err| {err:.3e})")
+    say(f"{label}: {inputs[0].shape[1]} slots; float64, bit-equal on 100.00% of elements; "
+        f"plain version {plain_s:.2f} s")
+    return err, plain_s
+
+
+def drive_f64(label, cfg, mesh, integ, engine, f32_ih0):
+    """A float64 stencil path. The engine must be ``engine`` with float64
+    state; the run (at most
+    ``F64_CAP`` steps, the DtTol stop) must launch only float64 kernels, as
+    many as the float32 path would (K1 or K4 = ADMM iterations, K2 = steps
+    or Newton iterations + 3 per step, K3 = steps). Against the float32
+    run of the same configuration, ``f32_ih0 = (initial energy, step-0
+    I_h)``: the step-0 ``I_h`` within rtol 1e-6; for backward Euler, whose
+    step-0 ``I_h`` is the energy after its first solve, the initial energy
+    within rtol 1e-6 and the step-0 ``I_h`` within rtol 1e-5 (its neumann
+    band). Returns ``(infos, trace, launches)``."""
+    state = integ.init_state()
+    if type(integ).__name__ != engine or state.x.dtype != torch.float64:
+        raise AssertionError(f"{label}: {type(integ).__name__} with {state.x.dtype} state, "
+                             f"expected {engine} in float64")
+    infos, ih, launched = drive(label, cfg, integ, F64_CAP)
+    method = cfg.method
+    if method == 0:
+        iters = sum(i.n_iters for i in infos)
+        want = {("prox2d_f64" if cfg.dim == 2 else "prox3d_f64"): iters}
+    elif method == 1:
+        want = {"eg2d_f64": len(infos)}
+    else:
+        newton = sum(i.n_newton for i in infos)
+        want = {"eg2d_f64": newton + BE_EG_PER_STEP * len(infos), "hess2d_f64": len(infos)}
+    expect(label, launched, want)
+    e0 = float(mesh.energy(mesh.X0))
+    for name, got, ref, rtol in (("initial energy", e0, f32_ih0[0], 1e-6),
+                                 ("step-0 I_h", float(ih[0]), f32_ih0[1],
+                                  1e-5 if method == 2 else 1e-6)):
+        if not math.isclose(got, ref, rel_tol=rtol):
+            raise AssertionError(f"{label}: {name} {got!r} vs the float32 run's {ref!r}, "
+                                 f"outside rtol {rtol}")
+    say(f"{label}: launches {want} as counted, float32 kernels 0; initial energy {e0!r}, "
+        f"rel {abs(e0 / f32_ih0[0] - 1):.2e} from float32's; step-0 I_h {float(ih[0])!r} "
+        f"(float32 {f32_ih0[1]!r}, rel {abs(float(ih[0]) / f32_ih0[1] - 1):.2e})")
+    return infos, ih, launched
+
+
+def card_vs_cpu_f64(label, make):
+    """A float64 stencil path, SMALL_STEPS steps on the card (the float64
+    kernels) and on the CPU (their plain versions): ``I_h`` within rtol
+    1e-10, the same ADMM or Newton counts. ``make(device)`` builds the
+    integrator."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        integ = make(device)
+        state, infos = integ.init_state(), []
+        if state.x.dtype != torch.float64:
+            raise AssertionError(f"{label}: {state.x.dtype} state")
+        for _ in range(SMALL_STEPS):
+            state, info = integ.step(state)
+            infos.append(info)
+        runs.append(infos)
+    for k, (a, b) in enumerate(zip(*runs)):
+        if not math.isclose(a.ih, b.ih, rel_tol=1e-10) or any(
+                getattr(a, f) != getattr(b, f) for f in ("n_iters", "n_newton")
+                if hasattr(a, f)):
+            raise AssertionError(f"{label} step {k}: card {a} vs cpu {b}")
+    say(f"{label}: card and CPU agree over {SMALL_STEPS} steps in float64 (Ih rtol 1e-10, the "
+        f"same inner counts): {[i.ih for i in runs[0]]}")
+
+
 def check_jax(label, infos):
     """A generic path's ``I_h`` and ADMM counts at the steps the JAX package
     gave (``JAX_GENERIC``)."""
@@ -784,18 +905,54 @@ def main() -> int:
     if not (torch.equal(ze, zc.T.reshape(-1, 3, 2)) and torch.equal(ihe, ihc)):
         raise AssertionError("K1's element-major entry differs from its channel call")
     say("K1's element-major entry equals its channel call on Monitor3320r's step-0 inputs")
+    # the float64 builds of K1-K3 and K4, bit for bit, on the float64
+    # stencil engines' step-0 inputs, at nx=16 / nx=4 and on the main paths'
+    compare_f64("K1 float64 vs plain, Shoulder nx=16", P.prox2d, P.prox2d_plain,
+                *prox_call(shoulder(16, dtype="float64")[2]))
+    compare_f64("K4 float64 vs plain, 3D SquareGrid nx=4", P3.prox3d, P3.prox3d_plain,
+                *prox_call(box3d("SquareGrid", 1, 4, dtype="float64")[2]))
+    f64 = {}
+    for label, make in (("MM-ADMM float64", lambda: shoulder(320, 0, dtype="float64")),
+                        ("Euler float64", lambda: shoulder(320, 1, dtype="float64")),
+                        ("backward Euler float64", lambda: shoulder(320, 2, dtype="float64")),
+                        ("3D Shoulder-40 float64", lambda: box3d("Shoulder", 0, 40,
+                                                                 dtype="float64")),
+                        ("3D SquareGrid-40 float64", lambda: box3d("SquareGrid", 1, 40,
+                                                                   dtype="float64"))):
+        t = time.perf_counter()
+        f64[label] = make()
+        mesh64 = f64[label][1]
+        say(f"{label} set-up: {type(f64[label][2]).__name__}, {mesh64.dtype}, "
+            f"{mesh64.n_elements} live elements ({time.perf_counter() - t:.2f} s)")
+    k1_64 = prox_call(f64["MM-ADMM float64"][2])
+    k1_64_err = compare_f64("K1 float64 vs plain, Shoulder-320 float64 step 0", P.prox2d,
+                            P.prox2d_plain, *k1_64)[0]
+    zb64, cb64, eh64 = be_inputs(f64["Euler float64"][2])
+    k2_64_err = compare_f64("K2 float64 vs plain, Shoulder-320 float64 step 0", B.eg2d,
+                            B.eg2d_plain, (zb64, cb64), (eh64,))[0]
+    k3_64_err = compare_f64("K3 float64 vs plain, Shoulder-320 float64 step 0", B.hess2d,
+                            B.hess2d_plain, (zb64, cb64), (eh64,))[0]
+    k4_64 = {}
+    for label in ("3D Shoulder-40 float64", "3D SquareGrid-40 float64"):
+        call = prox_call(f64[label][2])
+        err, plain_s = compare_f64(f"K4 float64 vs plain, {label} step 0", P3.prox3d,
+                                   P3.prox3d_plain, *call)
+        k4_64[label] = (call, err, plain_s)
 
     # ---- main paths -----------------------------------------------------------
     infos, ih, launched = drive("MM-ADMM", cfg, integ)
+    f32_ih0 = {"MM-ADMM float64": (float(integ.mesh.energy(integ.mesh.X0)), float(ih[0]))}
     iters = sum(i.n_iters for i in infos)
     expect("MM-ADMM", launched, {"prox2d": iters, "eg2d": 0, "hess2d": 0, "prox3d": 0})
     say(f"MM-ADMM: K1 launches {launched['prox2d']} = ADMM iterations {iters}; "
         f"step-0 Ih {ih[0]:.6f} beside the reference's recorded Monitor1320 initial Ih "
         f"{MONITOR1320_IH0} (information: dt/rho may differ from its JSON)")
-    infos_e, _, launched_e = drive("Euler", cfg_e, euler)
+    infos_e, ih_e, launched_e = drive("Euler", cfg_e, euler)
+    f32_ih0["Euler float64"] = (float(euler.mesh.energy(euler.mesh.X0)), float(ih_e[0]))
     expect("Euler", launched_e, {"prox2d": 0, "eg2d": len(infos_e), "hess2d": 0, "prox3d": 0})
     say(f"Euler: K2 launches {launched_e['eg2d']} = steps {len(infos_e)}")
-    infos_b, _, launched_b = drive("backward Euler", cfg_b, be)
+    infos_b, ih_b, launched_b = drive("backward Euler", cfg_b, be)
+    f32_ih0["backward Euler float64"] = (float(be.mesh.energy(be.mesh.X0)), float(ih_b[0]))
     newton = sum(i.n_newton for i in infos_b)
     expect("backward Euler", launched_b, {
         "prox2d": 0, "eg2d": newton + BE_EG_PER_STEP * len(infos_b), "hess2d": len(infos_b),
@@ -810,6 +967,7 @@ def main() -> int:
         t = time.perf_counter()
         infos3, ih3, launched3[label] = drive(f"3D MM-ADMM {label}", cfg3, integ3, STEP_CAP_3D)
         wall = time.perf_counter() - t
+        f32_ih0[f"{label} float64"] = (float(integ3.mesh.energy(integ3.mesh.X0)), float(ih3[0]))
         iters3 = sum(i.n_iters for i in infos3)
         expect(label, launched3[label], {"prox2d": 0, "eg2d": 0, "hess2d": 0, "prox3d": iters3})
         say(f"3D MM-ADMM {label}: K4 launches {launched3[label]['prox3d']} = ADMM iterations "
@@ -909,6 +1067,22 @@ def main() -> int:
         if label in RECORDED_3D:
             check_recorded(label, infos_k, ih_k)
         del cfg_k, mesh_k, integ_k
+    # the float64 stencil engines, their kernels built in float64
+    launched64 = {}
+    for label, engine in (("MM-ADMM float64", "GridADMM2D"), ("Euler float64", "EulerIntegrator"),
+                          ("backward Euler float64", "BackwardEulerIntegrator"),
+                          ("3D Shoulder-40 float64", "SoAADMM3D"),
+                          ("3D SquareGrid-40 float64", "SoAADMM3D")):
+        t = time.perf_counter()
+        infos64, _, launched64[label] = drive_f64(label, *f64[label], engine, f32_ih0[label])
+        inner = [getattr(i, "n_iters", getattr(i, "n_newton", None)) for i in infos64]
+        say(f"{label}: {len(infos64)} steps, inner iterations per step {inner}, "
+            f"{1e3 * (time.perf_counter() - t) / len(infos64):.1f} ms per step")
+    for method in (0, 1, 2):
+        card_vs_cpu_f64(f"method {method} at Shoulder nx=16 float64",
+                        lambda device: shoulder(16, method, device, "float64")[2])
+    card_vs_cpu_f64("3D MM-ADMM at SquareGrid nx=4 float64 (3D stencil engine, K4 float64)",
+                    lambda device: box3d("SquareGrid", 1, 4, device, "float64")[2])
 
     # ---- timing --------------------------------------------------------------
     z, dxpu, free, cells = inputs
@@ -916,15 +1090,15 @@ def main() -> int:
     stats = {}
     rows = []
 
-    def row(name, source, replaces, launches, err, ms, plain_ms, b):
+    def row(name, source, replaces, launches, err, ms, plain_ms, b, f64=False):
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
         })
         say(f"{name}: {ms:.4f} ms (median of 20); plain {plain_ms:.1f} ms; bound "
-            f"{b[0]:.4f} ms by {b[1]} ({b[2]:.4e} operations at 67 TFLOP/s, {b[3]} bytes "
-            f"at 3.35 TB/s)")
+            f"{b[0]:.4f} ms by {b[1]} ({b[2]:.4e} operations at "
+            f"{'33.5' if f64 else '67'} TFLOP/s, {b[3]} bytes at 3.35 TB/s)")
 
     n = z.shape[1]
     row("prox2d", "mmadmm_tpu_torch/csrc/prox2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:573",
@@ -1007,9 +1181,49 @@ def main() -> int:
             bound(lambda: plain(*inputs_p, *args_p, stats=stats_p),
                   inputs_p[0].shape[1] * per_elem))
         say(f"{name} step-0 work at {inputs_p[0].shape[1]} tets: {work(stats_p)}")
+    # the float64 builds: K1-K3 on Shoulder-320's float64 step-0 inputs, K4
+    # on 3D Shoulder-40's (its row) and 3D SquareGrid-40's
+    z64, d64, f64_, c64 = k1_64[0]
+    a64 = k1_64[1]
+    stats = {}
+    row("prox2d_f64", "mmadmm_tpu_torch/csrc/prox2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:573",
+        launched64["MM-ADMM float64"]["prox2d_f64"], k1_64_err,
+        time_kernel(lambda: P.prox2d(z64, d64, f64_, c64, *a64)),
+        time_plain(lambda: P.prox2d_plain(z64, d64, f64_, c64, *a64)),
+        bound(lambda: P.prox2d_plain(z64, d64, f64_, c64, *a64, stats=stats),
+              z64.shape[1] * (6 + 6 + 6 + 48 + 6 + 1), f64=True), f64=True)
+    say(f"K1 float64 step-0 work: {work(stats)}")
+    row("eg2d_f64", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:501",
+        launched64["Euler float64"]["eg2d_f64"] + launched64["backward Euler float64"]["eg2d_f64"],
+        k2_64_err, time_kernel(lambda: B.eg2d(zb64, cb64, eh64)),
+        time_plain(lambda: B.eg2d_plain(zb64, cb64, eh64)),
+        bound(lambda: B.eg2d_plain(zb64, cb64, eh64), zb64.shape[1] * (6 + 48 + 6 + 1),
+              f64=True), f64=True)
+    row("hess2d_f64", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:514",
+        launched64["backward Euler float64"]["hess2d_f64"], k3_64_err,
+        time_kernel(lambda: B.hess2d(zb64, cb64, eh64)),
+        time_plain(lambda: B.hess2d_plain(zb64, cb64, eh64)),
+        bound(lambda: B.hess2d_plain(zb64, cb64, eh64), zb64.shape[1] * (6 + 48 + 21),
+              f64=True), f64=True)
+    for label in ("3D SquareGrid-40 float64", "3D Shoulder-40 float64"):
+        (inp, a4), err, plain_s = k4_64[label]
+        ms = time_kernel(lambda: P3.prox3d(*inp, *a4))
+        if label == "3D SquareGrid-40 float64":
+            say(f"K4 float64 at {label} step 0: {ms:.4f} ms (median of 20); plain "
+                f"{1e3 * plain_s:.1f} ms")
+            continue
+        stats64 = {}
+        row("prox3d_f64", "mmadmm_tpu_torch/csrc/prox3d.cu",
+            "mmadmm_tpu/ops/prox_pallas3d.py:263",
+            sum(launched64[k]["prox3d_f64"] for k in ("3D Shoulder-40 float64",
+                                                      "3D SquareGrid-40 float64")),
+            err, ms, time_plain(lambda: P3.prox3d_plain(*inp, *a4)),
+            bound(lambda: P3.prox3d_plain(*inp, *a4, stats=stats64),
+                  inp[0].shape[1] * (12 + 12 + 12 + 216 + 12 + 1), f64=True), f64=True)
+        say(f"K4 float64 step-0 work at {label}: {work(stats64)}")
     say(f"launches by path: MM-ADMM {launched}, Euler {launched_e}, backward Euler {launched_b}, "
         f"3D MM-ADMM {launched3}, stock engine {launched_s}, generic route {launched_g}, "
-        f"K4'' {launched_k}")
+        f"K4'' {launched_k}, float64 stencil engines {launched64}")
     print(json.dumps({"kernels": rows}), flush=True)
     say(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ stencil engines and the stock element-major engine, through
 ``problems.build_problem`` and ``integrators.run_loop.run``:
 
 * MM-ADMM (method 0): ``integrators.admm_grid2d.GridADMM2D`` ->
-  ``ops.prox2d.prox2d`` (kernel K1, ``csrc/prox2d.cu``);
+  ``ops.prox2d.prox2d`` (kernel K1, ``csrc/prox2d.cu``); on the stencil
+  engines each kernel is built in the mesh's dtype, float32 or float64;
 * explicit Euler (method 1): ``integrators.euler.EulerIntegrator`` ->
   ``ops.be2d.eg2d`` (kernel K2, ``csrc/be2d.cu``);
 * backward Euler (method 2): ``integrators.backward_euler.
@@ -16,10 +17,12 @@ stencil engines and the stock element-major engine, through
 * 3D MM-ADMM (method 0 on 3D SquareGrid and Shoulder box meshes):
   ``integrators.admm_soa.SoAADMM3D`` -> ``ops.prox3d.prox3d`` (kernel K4,
   ``csrc/prox3d.cu``);
-* MM-ADMM on every other float32 mesh (FromFile, 2D off the stencil
-  gate, 3D computational meshes): ``integrators.admm.ADMMIntegrator`` ->
+* MM-ADMM on every other mesh (FromFile, LevelSet, 2D off the stencil
+  gate, computational meshes): ``integrators.admm.ADMMIntegrator`` ->
   ``ops.prox2d.prox_elements`` (K1) or ``ops.prox3d.prox_elements``
-  (K4' on a computational mesh, ``csrc/prox3d.cu``; K4 otherwise).
+  (K4' on a computational mesh, ``csrc/prox3d.cu``; K4 otherwise) in
+  float32, the generic prox (``ops/prox.py``) in float64 unless
+  ``prox_backend="pallas"`` asks for K1 or K4 in float64.
 """
 
 from .config import ExperimentConfig, load_experiment_config

@@ -10,14 +10,16 @@ Reference quirks kept on purpose (see ``MovingMesh``):
     (``main.cpp:809``).
 
 ``prox_backend`` (``MovingMesh`` decides it): ``"pallas"`` takes the
-kernel route, the float32 prox kernels K1, K4, K4' and K4'' (on the card;
-their plain PyTorch versions on the CPU), what the JAX package's speed
-entry runs (``bench.py:182-193``); ``"vmap"`` the generic batched prox
-(``ops/prox.py``) in any dtype, on the stock engine. ``"auto"`` (the
-default) takes the kernels where a kernel computes the function and the
-generic prox elsewhere: every float64 run and every 2D computational
-mesh. ``dtype`` defaults to float64, as in the JAX package, so a JSON
-config runs as loaded on the generic route, as the JAX package's own
+kernel route, the prox kernels K1, K4, K4' and K4'' (on the card; their
+plain PyTorch versions on the CPU; in float64 K1 and K4 only), what the
+JAX package's speed entry runs (``bench.py:182-193``); ``"vmap"`` the
+generic batched prox (``ops/prox.py``) in any dtype, on the stock engine.
+``"auto"`` (the default) takes the float32 kernels where one computes the
+function and the generic prox elsewhere: every float64 run and every 2D
+computational mesh. Box meshes on the stencil gate take their stencil
+engine under ``"auto"`` and ``"pallas"`` in either dtype, with its
+kernels in the mesh's dtype. ``dtype`` defaults to float64, as in the JAX
+package, so a JSON config runs as loaded, as the JAX package's own
 ``"auto"`` runs it.
 """
 

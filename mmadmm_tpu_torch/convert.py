@@ -2,7 +2,10 @@
 
 There are no weights here: the state is the mesh. These functions take the
 JAX package's arrays, as NumPy, and load them into a port integrator built
-from the same config, so that both packages start from the same bits:
+from the same config, so that both packages start from the same bits
+(each array is loaded in the integrator's own dtype: a float64 run's
+state and constants stay float64 from end to end, never rounded through
+float32):
 ``GridADMM2D`` constants and state, the Euler and backward-Euler state
 (``EulerState`` / ``BackwardEulerState``), ``SoAADMM3D`` constants and
 state, and the stock ``ADMMIntegrator``'s state. The tests use them;

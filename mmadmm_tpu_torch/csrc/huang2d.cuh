@@ -2,7 +2,8 @@
 // prox2d.cu, K2 and K3 in be2d.cu), on values or dual numbers
 // (dual.cuh): the bilinear monitor sample from a vertex's 16-wide cell
 // row, the terms shared by energy and gradient, the energy and the
-// analytic gradient.
+// analytic gradient. Templated on the real type R (float or double) and on
+// T, R or Dual<R>.
 //
 // Port of the component math of mmadmm_tpu/ops/prox_pallas2d.py
 // (_sample_m_c, _common_c, energy_c, grad_c). ops/prox2d.py repeats these
@@ -15,19 +16,24 @@
 
 namespace {
 
+template <typename R>
 struct Consts {
-  float h00, h01, h10, h11;  // Ehat, row-major
-  float w2, half_w2, inv_w2, tol;
+  R h00, h01, h10, h11;  // Ehat, row-major
+  R w2, half_w2, inv_w2, tol;
 };
 
-// f32 constants rounded as the JAX kernel rounds them (see ops/prox2d.py)
-__device__ __forceinline__ float third() { return 1.0f / 3.0f; }
-__device__ __forceinline__ float c_d32() { return 2.0f * sqrtf(2.0f); }
+// The constants, rounded as the JAX kernel rounds them in its dtype (see
+// ops/prox2d.py::_k2): a Python float, or a product of Python floats, is
+// cast to R where it meets a tile; c_d32 is 2 sqrt(2) computed in R.
+template <typename R>
+__device__ __forceinline__ R third() { return R(1) / R(3); }
+template <typename R>
+__device__ __forceinline__ R c_d32() { return R(2) * sqrt_(R(2)); }
 
-template <typename T>
-__device__ __forceinline__ void sample_m(const float* c, T x, T y, T& m0, T& m1, T& m2) {
-  float x0 = c[12], x1 = c[13], y0 = c[14], y1 = c[15];
-  float norm = 1.0f / ((x1 - x0) * (y1 - y0));
+template <typename T, typename R>
+__device__ __forceinline__ void sample_m(const R* c, T x, T y, T& m0, T& m1, T& m2) {
+  R x0 = c[12], x1 = c[13], y0 = c[14], y1 = c[15];
+  R norm = R(1) / ((x1 - x0) * (y1 - y0));
   T c00 = norm * (x1 - x) * (y1 - y);
   T c10 = norm * (x - x0) * (y1 - y);
   T c01 = norm * (x1 - x) * (y - y0);
@@ -45,15 +51,16 @@ struct Common {
   T tr, det_m, det_fj, G, abs_k, sqrt_tr, sqrt_dfj, inv_sqrt_dm;
 };
 
-template <typename T>
-__device__ __forceinline__ void common(const T* z, const float* cells, const Consts& k, Common<T>& t) {
+template <typename T, typename R>
+__device__ __forceinline__ void common(const T* z, const R* cells, const Consts<R>& k,
+                                       Common<T>& t) {
 #pragma unroll
   for (int v = 0; v < 3; ++v) sample_m(cells + 16 * v, z[2 * v], z[2 * v + 1], t.m[v][0], t.m[v][1], t.m[v][2]);
   T ms00 = t.m[0][0] + t.m[1][0] + t.m[2][0];
   T ms01 = t.m[0][1] + t.m[1][1] + t.m[2][1];
   T ms11 = t.m[0][2] + t.m[1][2] + t.m[2][2];
   T det_ms = ms00 * ms11 - ms01 * ms01;
-  T q = 1.0f / (3.0f * det_ms);
+  T q = R(1) / (R(3) * det_ms);
   t.mi00 = ms11 * q;
   t.mi01 = -ms01 * q;
   t.mi11 = ms00 * q;
@@ -63,7 +70,7 @@ __device__ __forceinline__ void common(const T* z, const float* cells, const Con
   T e01 = z[4] - z[0];
   T e11 = z[5] - z[1];
   T edet = e00 * e11 - e01 * e10;
-  T r = 1.0f / edet;
+  T r = R(1) / edet;
   t.ei00 = e11 * r;
   t.ei01 = -e01 * r;
   t.ei10 = -e10 * r;
@@ -82,40 +89,42 @@ __device__ __forceinline__ void common(const T* z, const float* cells, const Con
   T tr = t.fj00 * t.mj00 + t.fj01 * t.mj10 + t.fj10 * t.mj01 + t.fj11 * t.mj11;
 
   T det_minv = t.mi00 * t.mi11 - t.mi01 * t.mi01;
-  t.det_m = sqrt_(1.0f / max_floor(det_minv, kDetFloor));
-  t.tr = max_floor(tr, kDetFloor);
-  t.det_fj = max_floor(det_fj, kDetFloor);
+  t.det_m = sqrt_(R(1) / max_floor(det_minv, Num<R>::kDetFloor));
+  t.tr = max_floor(tr, Num<R>::kDetFloor);
+  t.det_fj = max_floor(det_fj, Num<R>::kDetFloor);
   t.sqrt_tr = sqrt_(t.tr);
   T tr32 = t.tr * t.sqrt_tr;
   t.sqrt_dfj = sqrt_(t.det_fj);
   T dfj32 = t.det_fj * t.sqrt_dfj;
-  t.inv_sqrt_dm = 1.0f / sqrt_(t.det_m);
-  t.G = third() * t.det_m * tr32 + (third() * c_d32()) * dfj32 * t.inv_sqrt_dm;
-  t.abs_k = abs_(edet * 0.5f);
+  t.inv_sqrt_dm = R(1) / sqrt_(t.det_m);
+  t.G = third<R>() * t.det_m * tr32 + (third<R>() * c_d32<R>()) * dfj32 * t.inv_sqrt_dm;
+  t.abs_k = abs_(edet * R(0.5));
 }
 
 // (ih_unregularized, e_regularized) at z
-__device__ __forceinline__ void energy(const float* z, const float* cells, const float* dxpu,
-                                       const Consts& k, float& ih, float& e_reg) {
-  Common<float> t;
+template <typename R>
+__device__ __forceinline__ void energy(const R* z, const R* cells, const R* dxpu,
+                                       const Consts<R>& k, R& ih, R& e_reg) {
+  Common<R> t;
   common(z, cells, k, t);
   ih = t.abs_k * t.G;
-  float reg = (dxpu[0] - z[0]) * (dxpu[0] - z[0]);
+  R reg = (dxpu[0] - z[0]) * (dxpu[0] - z[0]);
   for (int i = 1; i < 6; ++i) reg = reg + (dxpu[i] - z[i]) * (dxpu[i] - z[i]);
   e_reg = ih + k.half_w2 * reg;
 }
 
-__device__ __forceinline__ float energy_unreg(const float* z, const float* cells, const Consts& k) {
-  Common<float> t;
+template <typename R>
+__device__ __forceinline__ R energy_unreg(const R* z, const R* cells, const Consts<R>& k) {
+  Common<R> t;
   common(z, cells, k, t);
   return t.abs_k * t.G;
 }
 
 // masked regularized gradient into g, the unregularized energy into ih;
 // returns e_reg
-template <typename T>
-__device__ __forceinline__ T grad(const T* z, const float* cells, const float* dxpu, const float* fr,
-                                  const Consts& k, T* g, T& ih) {
+template <typename T, typename R>
+__device__ __forceinline__ T grad(const T* z, const R* cells, const R* dxpu, const R* fr,
+                                  const Consts<R>& k, T* g, T& ih) {
   Common<T> t;
   common(z, cells, k, t);
   T s_j = t.det_m * t.sqrt_tr;
@@ -123,7 +132,7 @@ __device__ __forceinline__ T grad(const T* z, const float* cells, const float* d
   T dj01 = s_j * t.mj01;
   T dj10 = s_j * t.mj10;
   T dj11 = s_j * t.mj11;
-  T dgddet = ((float)(1.5 * (1.0 / 3.0)) * c_d32()) * t.inv_sqrt_dm * t.sqrt_dfj;
+  T dgddet = ((R)(1.5 * (1.0 / 3.0)) * c_d32<R>()) * t.inv_sqrt_dm * t.sqrt_dfj;
 
   T a00 = t.fj00 * t.mi00 + t.fj01 * t.mi01;
   T a01 = t.fj00 * t.mi01 + t.fj01 * t.mi11;
@@ -132,12 +141,12 @@ __device__ __forceinline__ T grad(const T* z, const float* cells, const float* d
   T b00 = a00 * a00 + a10 * a10;
   T b01 = a00 * a01 + a10 * a11;
   T b11 = a01 * a01 + a11 * a11;
-  T s_m1 = -0.5f * s_j;
+  T s_m1 = R(-0.5) * s_j;
   T tr32 = t.tr * t.sqrt_tr;
   T dfj32 = t.det_fj * t.sqrt_dfj;
-  // Python doubles rounded to f32 where they meet a tile, as in JAX
-  const float k_sm2a = (float)(0.5 * (1.0 / 3.0));
-  const float k_sm2b = (float)((0.5 - 1.0 / 3.0) * (1.0 - 1.5)) * c_d32();
+  // Python doubles rounded to R where they meet a tile, as in JAX
+  const R k_sm2a = (R)(0.5 * (1.0 / 3.0));
+  const R k_sm2b = (R)((0.5 - 1.0 / 3.0) * (1.0 - 1.5)) * c_d32<R>();
   T s_m2 = k_sm2a * t.det_m * tr32 + (k_sm2b * t.inv_sqrt_dm * dfj32);
   T dm00 = s_m1 * b00 + s_m2 * t.mi00;
   T dm01 = s_m1 * b01 + s_m2 * t.mi01;
@@ -145,8 +154,8 @@ __device__ __forceinline__ T grad(const T* z, const float* cells, const float* d
 
   T d10 = t.m[1][0] - t.m[0][0], d11 = t.m[1][1] - t.m[0][1], d12 = t.m[1][2] - t.m[0][2];
   T d20 = t.m[2][0] - t.m[0][0], d21 = t.m[2][1] - t.m[0][1], d22 = t.m[2][2] - t.m[0][2];
-  T tr1 = d10 * dm00 + 2.0f * d11 * dm01 + d12 * dm11;
-  T tr2 = d20 * dm00 + 2.0f * d21 * dm01 + d22 * dm11;
+  T tr1 = d10 * dm00 + R(2) * d11 * dm01 + d12 * dm11;
+  T tr2 = d20 * dm00 + R(2) * d21 * dm01 + d22 * dm11;
   T bc0 = tr1 * t.ei00 + tr2 * t.ei10;
   T bc1 = tr1 * t.ei01 + tr2 * t.ei11;
 
@@ -155,10 +164,10 @@ __device__ __forceinline__ T grad(const T* z, const float* cells, const float* d
   T q01 = t.ei00 * dj01 + t.ei01 * dj11;
   T q10 = t.ei10 * dj00 + t.ei11 * dj10;
   T q11 = t.ei10 * dj01 + t.ei11 * dj11;
-  T v00 = c1 * t.ei00 + q00 * t.fj00 + q01 * t.fj10 - bc0 * third();
-  T v01 = c1 * t.ei01 + q00 * t.fj01 + q01 * t.fj11 - bc1 * third();
-  T v10 = c1 * t.ei10 + q10 * t.fj00 + q11 * t.fj10 - bc0 * third();
-  T v11 = c1 * t.ei11 + q10 * t.fj01 + q11 * t.fj11 - bc1 * third();
+  T v00 = c1 * t.ei00 + q00 * t.fj00 + q01 * t.fj10 - bc0 * third<R>();
+  T v01 = c1 * t.ei01 + q00 * t.fj01 + q01 * t.fj11 - bc1 * third<R>();
+  T v10 = c1 * t.ei10 + q10 * t.fj00 + q11 * t.fj10 - bc0 * third<R>();
+  T v11 = c1 * t.ei11 + q10 * t.fj01 + q11 * t.fj11 - bc1 * third<R>();
 
   T g0x = v00 + v10 + bc0;
   T g0y = v01 + v11 + bc1;

@@ -6,6 +6,9 @@
 // The cell channels come through an accessor, `cells(c)`: `SharedCells` reads
 // them from a block's staged copy.
 //
+// Templated on the real type R (float or double; the Ehat, the constants
+// and the staged inputs are in R) and on T, R or Dual<R>.
+//
 // Port of the component math of mmadmm_tpu/ops/prox_pallas3d.py
 // (_sample_m3, _common_c3, energy_c3, grad_c3). ops/prox3d.py repeats these
 // operations in the same order, so with --fmad=false a kernel built on them
@@ -18,24 +21,26 @@
 namespace {
 
 // K4's constant Ehat, row-major
+template <typename R>
 struct Ehat3 {
-  float h[9];
+  R h[9];
 };
 
-// The f32 constants, rounded on the host exactly as ops/prox3d.py rounds
-// them (ops/prox3d.py::_consts3, in this order)
+// The constants in R, rounded on the host exactly as ops/prox3d.py rounds
+// them in that dtype (ops/prox3d.py::_consts3, in this order)
+template <typename R>
 struct Consts3 {
-  float w2, half_w2, inv_w2, tol;
-  float k_third, k_g2, k_dgddet, k_sm2a, k_sm2b;
+  R w2, half_w2, inv_w2, tol;
+  R k_third, k_g2, k_dgddet, k_sm2a, k_sm2b;
 };
 
 // One element's 216 cell channels in shared memory, [channel][kE] for the kE
 // elements of a block: 32-bit offsets, and the elements of a warp on
-// consecutive banks.
-template <int kE>
+// consecutive words.
+template <typename R, int kE>
 struct SharedCells {
-  const float* p;  // the block's staged cells + the element's index in the block
-  __device__ __forceinline__ float operator()(int c) const { return p[c * kE]; }
+  const R* p;  // the block's staged cells + the element's index in the block
+  __device__ __forceinline__ R operator()(int c) const { return p[c * kE]; }
 };
 
 template <typename T>
@@ -62,7 +67,8 @@ __device__ __forceinline__ T det33(const T* a) {
 // adjugate over det, the cofactor layout of the JAX package's huang._inv
 template <typename T>
 __device__ __forceinline__ void inv33(const T* a, T det, T* o) {
-  T r = 1.0f / det;
+  using R = real_t<T>;
+  T r = R(1) / det;
   o[0] = (a[4] * a[8] - a[5] * a[7]) * r;
   o[1] = (a[2] * a[7] - a[1] * a[8]) * r;
   o[2] = (a[1] * a[5] - a[2] * a[4]) * r;
@@ -77,15 +83,16 @@ __device__ __forceinline__ void inv33(const T* a, T det, T* o) {
 // trilinear sample (m00, m01, m02, m11, m12, m22) of vertex v's cell
 template <typename T, typename C>
 __device__ __forceinline__ void sample_m3(const C& c, int v, T x, T y, T z, T* m) {
+  using R = real_t<T>;
   const int b = v * 54;
   T xd = (x - c(b + 48)) / (c(b + 49) - c(b + 48));
   T yd = (y - c(b + 50)) / (c(b + 51) - c(b + 50));
   T zd = (z - c(b + 52)) / (c(b + 53) - c(b + 52));
   T wts[8] = {
-      (1.0f - xd) * (1.0f - yd) * (1.0f - zd), xd * (1.0f - yd) * (1.0f - zd),
-      (1.0f - xd) * yd * (1.0f - zd),          xd * yd * (1.0f - zd),
-      (1.0f - xd) * (1.0f - yd) * zd,          xd * (1.0f - yd) * zd,
-      (1.0f - xd) * yd * zd,                   xd * yd * zd,
+      (R(1) - xd) * (R(1) - yd) * (R(1) - zd), xd * (R(1) - yd) * (R(1) - zd),
+      (R(1) - xd) * yd * (R(1) - zd),          xd * yd * (R(1) - zd),
+      (R(1) - xd) * (R(1) - yd) * zd,          xd * (R(1) - yd) * zd,
+      (R(1) - xd) * yd * zd,                   xd * yd * zd,
   };
 #pragma unroll
   for (int e = 0; e < 6; ++e) {
@@ -108,9 +115,9 @@ struct Common3 {
   T tr, det_m, det_fj, G, abs_k, inv_sqrt_dm, sqrt_dfj, dfj32;
 };
 
-template <typename T, typename C>
-__device__ __forceinline__ void common3(const T* z, const C& cells, const float* h,
-                                        const Consts3& k, Common3<T>& t) {
+template <typename T, typename C, typename R>
+__device__ __forceinline__ void common3(const T* z, const C& cells, const R* h,
+                                        const Consts3<R>& k, Common3<T>& t) {
 #pragma unroll
   for (int v = 0; v < 4; ++v) sample_m3(cells, v, z[3 * v], z[3 * v + 1], z[3 * v + 2], t.m[v]);
   T ms[6];
@@ -119,7 +126,7 @@ __device__ __forceinline__ void common3(const T* z, const C& cells, const float*
   T ms_full[9] = {ms[0], ms[1], ms[2], ms[1], ms[3], ms[4], ms[2], ms[4], ms[5]};
   inv33(ms_full, det33(ms_full), t.mi);
 #pragma unroll
-  for (int i = 0; i < 9; ++i) t.mi[i] = t.mi[i] * 0.25f;
+  for (int i = 0; i < 9; ++i) t.mi[i] = t.mi[i] * R(0.25);
 
   T E[9];  // E[d][j] = z_{j+1, d} - z_{0, d}
 #pragma unroll
@@ -144,18 +151,18 @@ __device__ __forceinline__ void common3(const T* z, const C& cells, const float*
     for (int j = 0; j < 3; ++j)
       if (i || j) tr = tr + t.fj[i * 3 + j] * t.mj[j * 3 + i];
 
-  t.det_m = sqrt_(1.0f / max_floor(det33(t.mi), kDetFloor));
-  t.tr = max_floor(tr, kDetFloor);
-  t.det_fj = max_floor(det_fj, kDetFloor);
-  t.inv_sqrt_dm = 1.0f / sqrt_(t.det_m);
+  t.det_m = sqrt_(R(1) / max_floor(det33(t.mi), Num<R>::kDetFloor));
+  t.tr = max_floor(tr, Num<R>::kDetFloor);
+  t.det_fj = max_floor(det_fj, Num<R>::kDetFloor);
+  t.inv_sqrt_dm = R(1) / sqrt_(t.det_m);
   t.sqrt_dfj = sqrt_(t.det_fj);
   t.dfj32 = t.det_fj * t.sqrt_dfj;
   t.G = k.k_third * t.det_m * q225(t.tr) + k.k_g2 * t.dfj32 * t.inv_sqrt_dm;
-  t.abs_k = abs_(edet / 6.0f);
+  t.abs_k = abs_(edet / R(6));
 }
 
-template <typename T>
-__device__ __forceinline__ T reg3(const T* z, const float* dxpu) {
+template <typename T, typename R>
+__device__ __forceinline__ T reg3(const T* z, const R* dxpu) {
   T d = dxpu[0] - z[0];
   T s = d * d;
 #pragma unroll
@@ -166,30 +173,29 @@ __device__ __forceinline__ T reg3(const T* z, const float* dxpu) {
   return s;
 }
 
-template <typename C>
-__device__ __forceinline__ float energy3_unreg(const float* z, const C& cells,
-                                               const float* h, const Consts3& k) {
-  Common3<float> t;
+template <typename C, typename R>
+__device__ __forceinline__ R energy3_unreg(const R* z, const C& cells, const R* h,
+                                           const Consts3<R>& k) {
+  Common3<R> t;
   common3(z, cells, h, k, t);
   return t.abs_k * t.G;
 }
 
 // the regularized energy at z
-template <typename C>
-__device__ __forceinline__ float energy3(const float* z, const C& cells, const float* h,
-                                         const float* dxpu, const Consts3& k) {
+template <typename C, typename R>
+__device__ __forceinline__ R energy3(const R* z, const C& cells, const R* h, const R* dxpu,
+                                     const Consts3<R>& k) {
   return energy3_unreg(z, cells, h, k) + k.half_w2 * reg3(z, dxpu);
 }
 
 // masked regularized gradient into g, the unregularized energy into ih;
 // returns the regularized energy
-template <typename T, typename C>
-__device__ __forceinline__ T grad3(const T* z, const C& cells, const float* h,
-                                   const float* dxpu, const float* fr, const Consts3& k, T* g,
-                                   T& ih) {
+template <typename T, typename C, typename R>
+__device__ __forceinline__ T grad3(const T* z, const C& cells, const R* h, const R* dxpu,
+                                   const R* fr, const Consts3<R>& k, T* g, T& ih) {
   Common3<T> t;
   common3(z, cells, h, k, t);
-  T s_j = 1.5f * t.det_m * q125(t.tr);
+  T s_j = R(1.5) * t.det_m * q125(t.tr);
   T dj[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) dj[i] = s_j * t.mj[i];
@@ -202,13 +208,13 @@ __device__ __forceinline__ T grad3(const T* z, const C& cells, const float* h,
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       B[i * 3 + j] = dot3(A[i], A[3 + i], A[6 + i], A[j], A[3 + j], A[6 + j]);
-  T s_m1 = -0.5f * s_j;
+  T s_m1 = R(-0.5) * s_j;
   T s_m2 = k.k_sm2a * t.det_m * q225(t.tr) + (k.k_sm2b * t.inv_sqrt_dm * t.dfj32);
   T dgs[6];  // dGdM's symmetric entries (00, 01, 02, 11, 12, 22)
   const int sym[6] = {0, 1, 2, 4, 5, 8};
 #pragma unroll
   for (int e = 0; e < 6; ++e) dgs[e] = s_m1 * B[sym[e]] + s_m2 * t.mi[sym[e]];
-  const float sym_w[6] = {1.0f, 2.0f, 2.0f, 1.0f, 2.0f, 1.0f};
+  const R sym_w[6] = {R(1), R(2), R(2), R(1), R(2), R(1)};
 
   T tc[3];
 #pragma unroll
@@ -231,7 +237,7 @@ __device__ __forceinline__ T grad3(const T* z, const C& cells, const float* h,
   for (int j = 0; j < 3; ++j)
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      v_loc[j * 3 + c] = c1 * t.ei[j * 3 + c] + qf[j * 3 + c] - bc[c] * 0.25f;
+      v_loc[j * 3 + c] = c1 * t.ei[j * 3 + c] + qf[j * 3 + c] - bc[c] * R(0.25);
 
   T abs_k = t.abs_k;
   T raw[12];

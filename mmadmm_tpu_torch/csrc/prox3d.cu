@@ -30,17 +30,25 @@
 // the same operations in the same order; built with --fmad=false each
 // kernel agrees with its plain version bit for bit.
 //
-// Layout: channel-major [C, n] float32, channel stride n. z, dxpu, free are
+// The kernels are templates on the real type R. K4 is built in float
+// (mm_prox3d) and in double (mm_prox3d_f64), as the JAX kernel builds itself
+// in its inputs' dtype; K4', K4''a and K4''b are built in float only (their
+// double builds, which the JAX package reaches under prox_backend="pallas",
+// are ROADMAP B10). The double K4 computes in double throughout, with the
+// constants rounded as the JAX kernel rounds them in float64.
+//
+// Layout: channel-major [C, n] in R, channel stride n. z, dxpu, free are
 // [12, n] (channel v*3 + d); cells is [216, n]: per vertex, its cell's 8
 // corners as (m00, m01, m02, m11, m12, m22), then x0, x1, y0, y1, z0, z1;
 // K4' and K4''b also read ehat [9, n], row-major [d][j] = xi_{j+1, d} -
 // xi_{0, d}.
 // Outputs: zout [12, n] and ih0 [n], the unregularized energy at the input.
 //
-// What bounds them on the H100: arithmetic. A K4 element reads 252 floats
-// and writes 13, (3*12 + 216 + 12 + 1) * 4 = 1,060 bytes: 814 MB, 0.243 ms
-// at 3.35 TB/s for the 768,000 slots of a 40^3 box mesh; a K4' or K4''b
-// element reads 9 more, 1,096 bytes. A Newton sweep that goes on to its
+// What bounds them on the H100: arithmetic. A K4 element reads 252 values
+// and writes 13, (3*12 + 216 + 12 + 1) * 4 = 1,060 bytes in float (2,120
+// in double): 814 MB, 0.243 ms at 3.35 TB/s for the 768,000 slots of a
+// 40^3 box mesh (0.486 ms in double); a K4' or K4''b element reads 9 more,
+// 1,096 bytes. A Newton sweep that goes on to its
 // step does tens of thousands of float operations (the twelve dual passes
 // of the Hessian take most of them; the op counter of chip_smoke.py on the
 // plain versions gives the count for the inputs at hand); one that retires
@@ -119,13 +127,22 @@
 
 namespace {
 
-static_assert(sizeof(Consts3) == 9 * sizeof(float), "Consts3 is 9 packed floats");
+static_assert(sizeof(Consts3<float>) == 9 * sizeof(float), "Consts3 is 9 packed values");
+static_assert(sizeof(Consts3<double>) == 9 * sizeof(double), "Consts3 is 9 packed values");
 
-constexpr int kThreads = 128;  // threads per block, both kernels
 constexpr int kTri = 78;       // entries of the lower triangle of a 12x12 matrix
 constexpr int kCells = 216;    // cell channels per element
-constexpr float kDiagFloor = 1e-12f;
-constexpr float kEpsStall = 10.0f * 1.1920928955078125e-07f;
+
+// Threads per block of the Newton kernels: 128 in float (32 elements at
+// kGroup = 4), 64 in double. A block stages its elements' inputs and Hessian
+// triangles, 330 values an element (NewtonStage): 32 elements take 42.3 KB
+// in float but would take 84.5 KB in double, over the 48 KB of static
+// shared memory a block may have; 16 take 42.2 KB. (Dynamic shared memory
+// allows 32, with cudaFuncSetAttribute; scripts/cuda_k4_variants.py
+// newton64 times that block against this one.)
+template <typename R>
+constexpr int kNewtonThreads = sizeof(R) == 4 ? 128 : 64;
+constexpr int kThreads = kNewtonThreads<float>;
 
 // Lanes per element in the Newton sweeps, and the blocks of kThreads an SM
 // must hold at once, which caps the registers at 65,536 / (kThreads x
@@ -135,7 +152,10 @@ constexpr float kEpsStall = 10.0f * 1.1920928955078125e-07f;
 // has the times): 4 lanes beat 8 and 16, whose lanes idle longer in the
 // gradient, factor and solve (and 16 spill); with no cap both take 220-222
 // registers and 2 blocks an SM, and the cap's few hundred bytes of spills
-// cost less than the warps it adds.
+// cost less than the warps it adds. In double (K4 only) the blocks are of
+// 64 threads, so the same minimum of 4 blocks an SM leaves up to 255
+// registers, which the double state (twice the float one's) needs; shared
+// memory would hold 5 such blocks an SM.
 constexpr int kGroup = 4;
 constexpr int kBlocks = 4;      // K4
 constexpr int kBlocksComp = 3;  // K4''b
@@ -156,10 +176,12 @@ constexpr int kChordGroup = 2;
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
 // NaN-propagating max (torch.maximum)
-__device__ __forceinline__ float maxnan(float a, float b) { return (a > b || a != a) ? a : b; }
+template <typename R>
+__device__ __forceinline__ R maxnan(R a, R b) { return (a > b || a != a) ? a : b; }
 
-__device__ __forceinline__ float edet3(const float* z) {
-  float E[9];
+template <typename R>
+__device__ __forceinline__ R edet3(const R* z) {
+  R E[9];
 #pragma unroll
   for (int d = 0; d < 3; ++d)
 #pragma unroll
@@ -172,37 +194,37 @@ __device__ __forceinline__ float edet3(const float* z) {
 
 // column j of the lower triangle of the Hessian at z (rows i >= j), from one
 // dual pass; frj is free[j]
-template <int S, typename C>
-__device__ __forceinline__ void hess_col(int j, const float* z, const C& cells, const float* h,
-                                         const float* dxpu, const float* fr, const Consts3& k,
-                                         float frj, float* H) {
-  Dual zd[12], gd[12];
+template <int S, typename C, typename R>
+__device__ __forceinline__ void hess_col(int j, const R* z, const C& cells, const R* h,
+                                         const R* dxpu, const R* fr, const Consts3<R>& k,
+                                         R frj, R* H) {
+  Dual<R> zd[12], gd[12];
 #pragma unroll
-  for (int i = 0; i < 12; ++i) zd[i] = {z[i], i == j ? 1.0f : 0.0f};
-  Dual ihd;
-  grad3<Dual>(zd, cells, h, dxpu, fr, k, gd, ihd);
+  for (int i = 0; i < 12; ++i) zd[i] = {z[i], i == j ? R(1) : R(0)};
+  Dual<R> ihd;
+  grad3<Dual<R>>(zd, cells, h, dxpu, fr, k, gd, ihd);
 #pragma unroll
   for (int i = 0; i < 12; ++i) {
     if (i < j) continue;
-    float hv = gd[i].d * fr[i] * frj;
-    if (i == j) hv = hv + (1.0f - fr[i]) + kLevenberg;
+    R hv = gd[i].d * fr[i] * frj;
+    if (i == j) hv = hv + (R(1) - fr[i]) + Num<R>::kLevenberg;
     HS(i, j) = hv;
   }
 }
 
 // H = L D L^T in place: D on the diagonal, L below it (ops/newton.py::ldlt_c)
-template <int S>
-__device__ __forceinline__ void factor12(float* H) {
+template <int S, typename R>
+__device__ __forceinline__ void factor12(R* H) {
 #pragma unroll
   for (int j = 0; j < 12; ++j) {
-    float d = HS(j, j);
+    R d = HS(j, j);
 #pragma unroll
     for (int k = 0; k < j; ++k) d = d - HS(j, k) * HS(j, k) * HS(k, k);
-    d = fabsf(d) < kDiagFloor ? kDiagFloor : d;
+    d = abs_(d) < Num<R>::kDiagFloor ? Num<R>::kDiagFloor : d;
     HS(j, j) = d;
 #pragma unroll
     for (int i = j + 1; i < 12; ++i) {
-      float s = HS(i, j);
+      R s = HS(i, j);
 #pragma unroll
       for (int k = 0; k < j; ++k) s = s - HS(i, k) * HS(j, k) * HS(k, k);
       HS(i, j) = s / d;
@@ -211,20 +233,19 @@ __device__ __forceinline__ void factor12(float* H) {
 }
 
 // the step p = -H^{-1} g from the factored H, or -g/w^2 where it is not finite
-template <int S>
-__device__ __forceinline__ void direction(const float* H, const float* g, float inv_w2,
-                                          float* p) {
-  float zv[12];
+template <int S, typename R>
+__device__ __forceinline__ void direction(const R* H, const R* g, R inv_w2, R* p) {
+  R zv[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) {
-    float s = -g[i];
+    R s = -g[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) s = s - HS(i, k) * zv[k];
     zv[i] = s;
   }
 #pragma unroll
   for (int i = 11; i >= 0; --i) {
-    float s = zv[i] / HS(i, i);
+    R s = zv[i] / HS(i, i);
 #pragma unroll
     for (int k = i + 1; k < 12; ++k) s = s - HS(k, i) * p[k];
     p[i] = s;
@@ -242,55 +263,64 @@ __device__ __forceinline__ void direction(const float* H, const float* g, float 
 
 // the trial point z + alpha p is accepted at a finite energy not above e0
 // whose orientation determinant stays above det_floor
-template <typename C>
-__device__ __forceinline__ bool trial_ok(const float* z, const float* p, float alpha,
-                                         const C& cells, const float* h, const float* dxpu,
-                                         const Consts3& k, float e0, float det_floor) {
-  float zt[12];
+template <typename C, typename R>
+__device__ __forceinline__ bool trial_ok(const R* z, const R* p, real_t<R> alpha,
+                                         const C& cells, const R* h, const R* dxpu,
+                                         const Consts3<R>& k, R e0, R det_floor) {
+  R zt[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) zt[i] = z[i] + alpha * p[i];
-  float e_t = energy3(zt, cells, h, dxpu, k);
+  R e_t = energy3(zt, cells, h, dxpu, k);
   return isfinite(e_t) && e_t <= e0 && edet3(zt) > det_floor;
 }
 
 // the backtracking step sizes 1/16, 1/8, 1/4, 1/2, 1: 2^(a - 4), exact
-__device__ __forceinline__ float alpha_bt(int a) { return 0.0625f * (float)(1 << a); }
+template <typename R>
+__device__ __forceinline__ R alpha_bt(int a) { return R(0.0625) * (R)(1 << a); }
 
 // min(det0, 0), NaN kept (torch.clamp_max)
-__device__ __forceinline__ float floor_of(float det0) {
-  return det0 < 0.0f ? det0 : (det0 != det0 ? det0 : 0.0f);
+template <typename R>
+__device__ __forceinline__ R floor_of(R det0) {
+  return det0 < R(0) ? det0 : (det0 != det0 ? det0 : R(0));
 }
 
 // the gradient's 1-norm, in channel order
-__device__ __forceinline__ float norm1(const float* g) {
-  float s = fabsf(g[0]);
+template <typename R>
+__device__ __forceinline__ R norm1(const R* g) {
+  R s = abs_(g[0]);
 #pragma unroll
-  for (int i = 1; i < 12; ++i) s = s + fabsf(g[i]);
+  for (int i = 1; i < 12; ++i) s = s + abs_(g[i]);
   return s;
 }
 
 // max |v_i|, NaN kept, in channel order
-__device__ __forceinline__ float absmax(const float* v) {
-  float m = fabsf(v[0]);
+template <typename R>
+__device__ __forceinline__ R absmax(const R* v) {
+  R m = abs_(v[0]);
 #pragma unroll
-  for (int i = 1; i < 12; ++i) m = maxnan(m, fabsf(v[i]));
+  for (int i = 1; i < 12; ++i) m = maxnan(m, abs_(v[i]));
   return m;
 }
 
 // ---- Newton sweeps (K4, K4''b): a group of kGroup lanes per element --------
 
-// cp.async of 4 or 16 bytes from device to shared memory (a plain copy where
-// this is compiled for the host)
-__device__ __forceinline__ void copy4(float* dst, const float* src) {
+// cp.async of one value (4 or 8 bytes) or of 16 bytes from device to shared
+// memory (a plain copy where this is compiled for the host)
+template <typename R>
+__device__ __forceinline__ void copy1(R* dst, const R* src) {
 #ifdef __CUDA_ARCH__
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+  if constexpr (sizeof(R) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
 #else
   *dst = *src;
 #endif
 }
 
-__device__ __forceinline__ void copy16(float* dst, const float* src) {
+template <typename R>
+__device__ __forceinline__ void copy16(R* dst, const R* src) {
 #ifdef __CUDA_ARCH__
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
@@ -307,83 +337,85 @@ __device__ __forceinline__ void copies_done() {
 
 // A block's staged inputs and its elements' Hessian triangles, for kE
 // elements: the cells [channel][element] (see SharedCells), the rest
-// [element][channel]. 42.3 KB (K4) and 43.4 KB (K4''b) at kE = 32.
-template <bool kComp, int kE>
+// [element][channel]. In float, 42.3 KB (K4) and 43.4 KB (K4''b) at
+// kE = 32; in double, 42.2 KB (K4) at kE = 16.
+template <typename R, bool kComp, int kE>
 struct NewtonStage {
-  float cells[kCells * kE];
-  float z[kE * 12], dxpu[kE * 12], fr[kE * 12];
-  float eh[kComp ? kE * 9 : 1];
-  float hess[kE * kTri];
+  R cells[kCells * kE];
+  R z[kE * 12], dxpu[kE * 12], fr[kE * 12];
+  R eh[kComp ? kE * 9 : 1];
+  R hess[kE * kTri];
 };
 
 // rows [rows, n] of the block's elements first .. first + kE (those below n)
 // into dst [rows][kE]: 16-byte copies when every row's run is 16-byte
-// aligned and whole, else 4-byte copies
-template <int kE, int kT = kThreads>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int rows, long long n,
+// aligned and whole, else one-value copies
+template <int kE, int kT, typename R>
+__device__ __forceinline__ void stage_rows(R* dst, const R* src, int rows, long long n,
                                            long long first) {
-  static_assert(kE % 4 == 0, "a row of kE floats is whole 16-byte copies");
-  const bool whole = first + kE <= n && n % 4 == 0 && (uintptr_t)src % 16 == 0;
+  constexpr int kV = 16 / sizeof(R);  // values in a 16-byte copy
+  static_assert(kE % kV == 0, "a row of kE values is whole 16-byte copies");
+  const bool whole = first + kE <= n && n % kV == 0 && (uintptr_t)src % 16 == 0;
   if (whole) {
-    for (int q = threadIdx.x; q < rows * (kE / 4); q += kT) {
-      const int c = q / (kE / 4), i = (q % (kE / 4)) * 4;
+    for (int q = threadIdx.x; q < rows * (kE / kV); q += kT) {
+      const int c = q / (kE / kV), i = (q % (kE / kV)) * kV;
       copy16(dst + c * kE + i, src + c * n + first + i);
     }
   } else {
     for (int q = threadIdx.x; q < rows * kE; q += kT) {
       const int c = q / kE, i = q % kE;
-      if (first + i < n) copy4(dst + c * kE + i, src + c * n + first + i);
+      if (first + i < n) copy1(dst + c * kE + i, src + c * n + first + i);
     }
   }
 }
 
-// the same rows transposed into dst [kE][rows]: 4-byte copies
-template <int kE, int kT = kThreads>
-__device__ __forceinline__ void stage_cols(float* dst, const float* src, int rows, long long n,
+// the same rows transposed into dst [kE][rows]: one-value copies
+template <int kE, int kT, typename R>
+__device__ __forceinline__ void stage_cols(R* dst, const R* src, int rows, long long n,
                                            long long first) {
   for (int q = threadIdx.x; q < rows * kE; q += kT) {
     const int c = q / kE, i = q % kE;
-    if (first + i < n) copy4(dst + i * rows + c, src + c * n + first + i);
+    if (first + i < n) copy1(dst + i * rows + c, src + c * n + first + i);
   }
 }
 
 // backtracking over the group: trial a on lane a % G in round a / G; the
 // largest accepted alpha, 0 if none (what the sequential loop of
 // ops/newton.py::_backtrack returns)
-template <int G, typename C>
-__device__ __forceinline__ float backtrack_group(const float* z, const float* p, const C& cells,
-                                                 const float* h, const float* dxpu,
-                                                 const Consts3& k, float e0, float det_floor,
-                                                 int lane, int base, unsigned gmask) {
+template <int G, typename C, typename R>
+__device__ __forceinline__ R backtrack_group(const R* z, const R* p, const C& cells, const R* h,
+                                             const R* dxpu, const Consts3<R>& k, R e0,
+                                             R det_floor, int lane, int base, unsigned gmask) {
   unsigned accepted = 0;  // bit a: trial a accepted
 #pragma unroll 1
   for (int r = 0; r * G < 5; ++r) {
     const int a = r * G + lane;
-    const bool ok = a < 5 && trial_ok(z, p, alpha_bt(a), cells, h, dxpu, k, e0, det_floor);
+    const bool ok = a < 5 && trial_ok(z, p, alpha_bt<R>(a), cells, h, dxpu, k, e0, det_floor);
     const unsigned votes = __ballot_sync(gmask, ok);
     accepted |= ((votes >> base) & ((1u << G) - 1u)) << (r * G);
   }
-  return accepted ? alpha_bt(31 - __clz(accepted)) : 0.0f;
+  return accepted ? alpha_bt<R>(31 - __clz(accepted)) : R(0);
 }
 
 // K4 (kComp false, the constant Ehat eh) and K4''b (kComp true, ehat_in):
 // Newton sweeps in the JAX order, except that a sweep retires on its
 // gradient before it builds the Hessian (see the note at the top).
-template <bool kComp, int G>
-__global__ void __launch_bounds__(kThreads, kComp ? kBlocksComp : kBlocks) prox3d_newton_kernel(
-    const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
-    const float* __restrict__ free_in, const float* __restrict__ cells_in,
-    const float* __restrict__ ehat_in, float* __restrict__ zout, float* __restrict__ ih0_out,
-    long long n, Ehat3 eh, Consts3 k, int max_iters) {
+template <typename R, bool kComp, int G>
+__global__ void __launch_bounds__(kNewtonThreads<R>, kComp ? kBlocksComp : kBlocks) prox3d_newton_kernel(
+    const R* __restrict__ z_in, const R* __restrict__ dxpu_in,
+    const R* __restrict__ free_in, const R* __restrict__ cells_in,
+    const R* __restrict__ ehat_in, R* __restrict__ zout, R* __restrict__ ih0_out,
+    long long n, Ehat3<R> eh, Consts3<R> k, int max_iters) {
   static_assert(G == 4 || G == 8 || G == 16, "a group is 4, 8 or 16 lanes of one warp");
-  constexpr int kE = kThreads / G;  // elements per block
-  __shared__ __align__(16) NewtonStage<kComp, kE> st;
+  constexpr int kT = kNewtonThreads<R>;
+  constexpr int kE = kT / G;  // elements per block
+  __shared__ __align__(16) NewtonStage<R, kComp, kE> st;
   const long long first = (long long)blockIdx.x * kE;
-  stage_rows<kE>(st.cells, cells_in, kCells, n, first);
-  stage_cols<kE>(st.z, z_in, 12, n, first);
-  stage_cols<kE>(st.dxpu, dxpu_in, 12, n, first);
-  stage_cols<kE>(st.fr, free_in, 12, n, first);
-  if constexpr (kComp) stage_cols<kE>(st.eh, ehat_in, 9, n, first);
+  stage_rows<kE, kT>(st.cells, cells_in, kCells, n, first);
+  stage_cols<kE, kT>(st.z, z_in, 12, n, first);
+  stage_cols<kE, kT>(st.dxpu, dxpu_in, 12, n, first);
+  stage_cols<kE, kT>(st.fr, free_in, 12, n, first);
+  if constexpr (kComp) stage_cols<kE, kT>(st.eh, ehat_in, 9, n, first);
   copies_done();
   __syncthreads();  // the block's only barrier: every lane below is in a live group
 
@@ -392,21 +424,21 @@ __global__ void __launch_bounds__(kThreads, kComp ? kBlocksComp : kBlocks) prox3
   if (e >= n) return;
   const int base = (threadIdx.x % 32) - lane;  // the group's first lane in its warp
   const unsigned gmask = ((1u << G) - 1u) << base;
-  const SharedCells<kE> cells{st.cells + el};
-  const float* dxpu = st.dxpu + el * 12;
-  const float* fr = st.fr + el * 12;
-  const float* h = kComp ? st.eh + el * 9 : eh.h;
-  float* H = st.hess + el * kTri;
-  float z[12];
+  const SharedCells<R, kE> cells{st.cells + el};
+  const R* dxpu = st.dxpu + el * 12;
+  const R* fr = st.fr + el * 12;
+  const R* h = kComp ? st.eh + el * 9 : eh.h;
+  R* H = st.hess + el * kTri;
+  R z[12];
 #pragma unroll
   for (int c = 0; c < 12; ++c) z[c] = st.z[el * 12 + c];
 
   if (lane == 0) ih0_out[e] = energy3_unreg(z, cells, h, k);
   for (int it = 0; it < max_iters; ++it) {
     // gradient, its norm and the regularized energy at the start
-    float g[12];
-    float ih;
-    const float e0 = grad3<float>(z, cells, h, dxpu, fr, k, g, ih);
+    R g[12];
+    R ih;
+    const R e0 = grad3<R>(z, cells, h, dxpu, fr, k, g, ih);
     // retire on a small gradient from the second sweep on, before moving
     // and before the Hessian, which such an element would not use
     if (it > 0 && norm1(g) < k.tol) break;
@@ -415,18 +447,18 @@ __global__ void __launch_bounds__(kThreads, kComp ? kBlocksComp : kBlocks) prox3
 #pragma unroll 1
     for (int j = lane; j < 12; j += G) hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);
     __syncwarp(gmask);
-    float L[kTri], p[12];
+    R L[kTri], p[12];
 #pragma unroll
     for (int t = 0; t < kTri; ++t) L[t] = H[t];
     __syncwarp(gmask);  // every lane has its copy before the next sweep writes H
     factor12<1>(L);
     direction<1>(L, g, k.inv_w2, p);
 
-    const float det_floor = floor_of(edet3(z));
-    const float alpha =
+    const R det_floor = floor_of(edet3(z));
+    const R alpha =
         backtrack_group<G>(z, p, cells, h, dxpu, k, e0, det_floor, lane, base, gmask);
-    const float step_inf = alpha * absmax(p);
-    const bool stalled = step_inf <= kEpsStall * (1.0f + absmax(z));
+    const R step_inf = alpha * absmax(p);
+    const bool stalled = step_inf <= Num<R>::kEpsStall * (R(1) + absmax(z));
 #pragma unroll
     for (int i = 0; i < 12; ++i) z[i] = z[i] + alpha * p[i];
     if (stalled) break;
@@ -442,8 +474,8 @@ __global__ void __launch_bounds__(kThreads, kComp ? kBlocksComp : kBlocks) prox3
 // sweep, the sweep spills some 500 bytes at 255 registers (ptxas, the
 // "solve inlined" variant of scripts/cuda_k4_variants.py); out of line, g
 // and p pass through 96 bytes of stack and nothing spills
-__device__ __noinline__ void cached_direction(const float* H, const float* g, float inv_w2,
-                                              float* p) {
+template <typename R>
+__device__ __noinline__ void cached_direction(const R* H, const R* g, R inv_w2, R* p) {
   direction<1>(H, g, inv_w2, p);
 }
 
@@ -451,11 +483,10 @@ __device__ __noinline__ void cached_direction(const float* H, const float* g, fl
 // over the group, then one lane factors in place (every lane factoring a copy
 // in its registers, one writing it back, is no faster); every lane of the
 // group has read the old cache before this is called
-template <int G, typename C>
-__device__ __forceinline__ void chord_refresh(const float* z, const C& cells, const float* h,
-                                              const float* dxpu, const float* fr,
-                                              const Consts3& k, int lane, unsigned gmask,
-                                              float* H) {
+template <int G, typename C, typename R>
+__device__ __forceinline__ void chord_refresh(const R* z, const C& cells, const R* h,
+                                              const R* dxpu, const R* fr, const Consts3<R>& k,
+                                              int lane, unsigned gmask, R* H) {
 #pragma unroll 1
   for (int j = lane; j < 12; j += G) hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);
   __syncwarp(gmask);
@@ -476,16 +507,16 @@ __device__ __forceinline__ void chord_refresh(const float* z, const C& cells, co
 // refreshes without needing it is one that is no longer active, which never
 // moves again. An element that retires on its gradient norm does not move
 // either, so it leaves before the solve.
-template <bool kComp, int G>
+template <typename R, bool kComp, int G>
 __global__ void __launch_bounds__(kChordE * G)
-    prox3d_chord_kernel(const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
-                        const float* __restrict__ free_in, const float* __restrict__ cells_in,
-                        const float* __restrict__ ehat_in, float* __restrict__ zout,
-                        float* __restrict__ ih0_out, long long n, Ehat3 eh, Consts3 k,
+    prox3d_chord_kernel(const R* __restrict__ z_in, const R* __restrict__ dxpu_in,
+                        const R* __restrict__ free_in, const R* __restrict__ cells_in,
+                        const R* __restrict__ ehat_in, R* __restrict__ zout,
+                        R* __restrict__ ih0_out, long long n, Ehat3<R> eh, Consts3<R> k,
                         int max_iters) {
   static_assert(G == 2 || G == 4 || G == 8, "a group is 2, 4 or 8 lanes of one warp");
   constexpr int kT = kChordE * G;  // threads per block
-  __shared__ __align__(16) NewtonStage<kComp, kChordE> st;
+  __shared__ __align__(16) NewtonStage<R, kComp, kChordE> st;
   const long long first = (long long)blockIdx.x * kChordE;
   stage_rows<kChordE, kT>(st.cells, cells_in, kCells, n, first);
   stage_cols<kChordE, kT>(st.z, z_in, 12, n, first);
@@ -500,32 +531,32 @@ __global__ void __launch_bounds__(kChordE * G)
   if (e >= n) return;
   const int base = (threadIdx.x % 32) - lane;  // the group's first lane in its warp
   const unsigned gmask = ((1u << G) - 1u) << base;
-  const SharedCells<kChordE> cells{st.cells + el};
-  const float* dxpu = st.dxpu + el * 12;
-  const float* fr = st.fr + el * 12;
-  const float* h = kComp ? st.eh + el * 9 : eh.h;
-  float* H = st.hess + el * kTri;  // the chord cache, factored
-  float z[12];
+  const SharedCells<R, kChordE> cells{st.cells + el};
+  const R* dxpu = st.dxpu + el * 12;
+  const R* fr = st.fr + el * 12;
+  const R* h = kComp ? st.eh + el * 9 : eh.h;
+  R* H = st.hess + el * kTri;  // the chord cache, factored
+  R z[12];
 #pragma unroll
   for (int c = 0; c < 12; ++c) z[c] = st.z[el * 12 + c];
 
   if (max_iters <= 0 && lane == 0) ih0_out[e] = energy3_unreg(z, cells, h, k);
   for (int it = 0; it < max_iters; ++it) {
     // gradient, its norm and the regularized energy at the start
-    float g[12];
-    float ih;
-    const float e0 = grad3<float>(z, cells, h, dxpu, fr, k, g, ih);
+    R g[12];
+    R ih;
+    const R e0 = grad3<R>(z, cells, h, dxpu, fr, k, g, ih);
     if (it == 0 && lane == 0) ih0_out[e] = ih;  // the unregularized energy at the input
     // retire on a small gradient from the second sweep on, before moving
     if (it > 0 && norm1(g) < k.tol) break;
-    const float det_floor = floor_of(edet3(z));
+    const R det_floor = floor_of(edet3(z));
 
     // from the second sweep on, the cached factors' step, tried once at alpha 1
-    float p[12];
+    R p[12];
     bool ok = false;
     if (it > 0) {
       cached_direction(H, g, k.inv_w2, p);
-      ok = trial_ok(z, p, 1.0f, cells, h, dxpu, k, e0, det_floor);
+      ok = trial_ok(z, p, R(1), cells, h, dxpu, k, e0, det_floor);
     }
     if (!ok) {
       // the Hessian at z into the cache: the entry Hessian in the first
@@ -535,15 +566,15 @@ __global__ void __launch_bounds__(kChordE * G)
       __syncwarp(gmask);  // every lane has solved with the old cache, if any
       chord_refresh<G>(z, cells, h, dxpu, fr, k, lane, gmask, H);
       cached_direction(H, g, k.inv_w2, p);
-      ok = it == 0 && trial_ok(z, p, 1.0f, cells, h, dxpu, k, e0, det_floor);
+      ok = it == 0 && trial_ok(z, p, R(1), cells, h, dxpu, k, e0, det_floor);
       if (!ok) {
-        const float alpha =
+        const R alpha =
             backtrack_group<G>(z, p, cells, h, dxpu, k, e0, det_floor, lane, base, gmask);
 #pragma unroll
         for (int i = 0; i < 12; ++i) p[i] = alpha * p[i];
       }
     }
-    const bool stalled = absmax(p) <= kEpsStall * (1.0f + absmax(z));
+    const bool stalled = absmax(p) <= Num<R>::kEpsStall * (R(1) + absmax(z));
 #pragma unroll
     for (int i = 0; i < 12; ++i) z[i] = z[i] + p[i];
     if (stalled) break;
@@ -553,24 +584,23 @@ __global__ void __launch_bounds__(kChordE * G)
     if (c % G == lane) zout[c * n + e] = z[c];  // z stays in registers
 }
 
-template <bool kChord, bool kComp>
-int launch(const float* z, const float* dxpu, const float* free_, const float* cells,
-           const float* ehat, float* zout, float* ih0, long long n, const float* consts,
-           int max_iters, void* stream) {
+template <typename R, bool kChord, bool kComp>
+int launch(const R* z, const R* dxpu, const R* free_, const R* cells, const R* ehat, R* zout,
+           R* ih0, long long n, const R* consts, int max_iters, void* stream) {
   if (n <= 0) return 0;
-  Ehat3 eh{};
-  Consts3 k;
+  Ehat3<R> eh{};
+  Consts3<R> k;
   if constexpr (!kComp) std::memcpy(&eh, consts, sizeof(eh));
   std::memcpy(&k, consts + (kComp ? 0 : 9), sizeof(k));
   if constexpr (kChord) {
     const long long blocks = (n + kChordE - 1) / kChordE;
-    prox3d_chord_kernel<kComp, kChordGroup>
+    prox3d_chord_kernel<R, kComp, kChordGroup>
         <<<(unsigned)blocks, kChordE * kChordGroup, 0, (cudaStream_t)stream>>>(
             z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
   } else {
-    constexpr int kE = kThreads / kGroup;
+    constexpr int kT = kNewtonThreads<R>, kE = kT / kGroup;
     const long long blocks = (n + kE - 1) / kE;
-    prox3d_newton_kernel<kComp, kGroup><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    prox3d_newton_kernel<R, kComp, kGroup><<<(unsigned)blocks, kT, 0, (cudaStream_t)stream>>>(
         z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
   }
   return (int)cudaGetLastError();
@@ -578,35 +608,42 @@ int launch(const float* z, const float* dxpu, const float* free_, const float* c
 
 }  // namespace
 
-// consts: K4 and K4''a take 18 floats, Ehat row-major, then the 9 of
-// Consts3 (w^2, w^2/2, 1/w^2, tol, then the five f32 constants of
-// ops/prox3d.py); K4' and K4''b take the 9 of Consts3 and ehat [9, n], each
-// element's own Ehat.
+// consts: K4 and K4''a take 18 values, Ehat row-major, then the 9 of
+// Consts3 (w^2, w^2/2, 1/w^2, tol, then the five constants of
+// ops/prox3d.py), all in the kernel's real type; K4' and K4''b take the 9
+// of Consts3 and ehat [9, n], each element's own Ehat.
 extern "C" int mm_prox3d(const float* z, const float* dxpu, const float* free_,
                          const float* cells, float* zout, float* ih0, long long n,
                          const float* consts, int max_iters, void* stream) {
-  return launch<false, false>(z, dxpu, free_, cells, nullptr, zout, ih0, n, consts, max_iters,
-                              stream);
+  return launch<float, false, false>(z, dxpu, free_, cells, nullptr, zout, ih0, n, consts,
+                                     max_iters, stream);
+}
+
+extern "C" int mm_prox3d_f64(const double* z, const double* dxpu, const double* free_,
+                             const double* cells, double* zout, double* ih0, long long n,
+                             const double* consts, int max_iters, void* stream) {
+  return launch<double, false, false>(z, dxpu, free_, cells, nullptr, zout, ih0, n, consts,
+                                      max_iters, stream);
 }
 
 extern "C" int mm_prox3d_chord_comp(const float* z, const float* dxpu, const float* free_,
                                     const float* cells, const float* ehat, float* zout,
                                     float* ih0, long long n, const float* consts, int max_iters,
                                     void* stream) {
-  return launch<true, true>(z, dxpu, free_, cells, ehat, zout, ih0, n, consts, max_iters,
-                            stream);
+  return launch<float, true, true>(z, dxpu, free_, cells, ehat, zout, ih0, n, consts,
+                                   max_iters, stream);
 }
 
 extern "C" int mm_prox3d_chord(const float* z, const float* dxpu, const float* free_,
                                const float* cells, float* zout, float* ih0, long long n,
                                const float* consts, int max_iters, void* stream) {
-  return launch<true, false>(z, dxpu, free_, cells, nullptr, zout, ih0, n, consts, max_iters,
-                             stream);
+  return launch<float, true, false>(z, dxpu, free_, cells, nullptr, zout, ih0, n, consts,
+                                    max_iters, stream);
 }
 
 extern "C" int mm_prox3d_comp(const float* z, const float* dxpu, const float* free_,
                               const float* cells, const float* ehat, float* zout, float* ih0,
                               long long n, const float* consts, int max_iters, void* stream) {
-  return launch<false, true>(z, dxpu, free_, cells, ehat, zout, ih0, n, consts, max_iters,
-                             stream);
+  return launch<float, false, true>(z, dxpu, free_, cells, ehat, zout, ih0, n, consts,
+                                    max_iters, stream);
 }

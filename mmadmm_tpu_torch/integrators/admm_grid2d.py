@@ -13,7 +13,10 @@ sums and the residuals).
 Reorientation swaps (v1 <-> v2 on negative-det triangles) come from the
 mesh's actual F, so the prox inputs equal those of the compact path.
 
-Each step is ``admm_base.ADMMBase``'s MM-ADMM step, its prox kernel K1.
+Each step is ``admm_base.ADMMBase``'s MM-ADMM step, its prox kernel K1 in
+the mesh's dtype (float32 or float64, as the JAX engine builds its kernel
+in the mesh's dtype); the energy and residual sums are float64 either way
+(``ops/reductions.py``).
 """
 
 from __future__ import annotations
@@ -61,11 +64,6 @@ class GridADMM2D(ADMMBase):
         stride = (nx + 1) * (ny + 1)
         if NP != stride + nx * ny:
             raise ValueError("node layout is not the uncompacted rect grid")
-        if mesh.dtype != torch.float32:
-            raise NotImplementedError(
-                "the prox kernel K1 is float32; float64 runs take the stock engine's "
-                "generic prox, float64 kernels are ROADMAP item A20"
-            )
         self.mesh = mesh
         self.dt = float(dt)
         self.admm_iters = int(admm_iters)

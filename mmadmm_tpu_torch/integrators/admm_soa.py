@@ -15,9 +15,9 @@ the card needs no chunks.
 Each step is the reference's MM-ADMM step (``MeshIntegrator.cpp``): an
 energy-guarded predictor (its gradient in plain batched PyTorch, as in
 the JAX package, which has no 3D element-gradient kernel), then at most
-``admm_iters`` iterations of prox z-update (kernel K4, one launch over
-all slots), dual update and the diagonal x-update, with the primal and
-dual residual stop. Control flow runs on the host: one synchronisation
+``admm_iters`` iterations of prox z-update (kernel K4 in the mesh's
+dtype, float32 or float64, one launch over all slots), dual update and
+the diagonal x-update, with the primal and dual residual stop. Control flow runs on the host: one synchronisation
 per ADMM iteration reads both residuals.
 """
 
@@ -69,11 +69,6 @@ class SoAADMM3D(ADMMBase):
         ncell = nx * ny * nz
         if NP != (nx + 1) * (ny + 1) * (nz + 1) + ncell:
             raise ValueError("node layout is not the uncompacted box grid")
-        if mesh.dtype != torch.float32:
-            raise NotImplementedError(
-                "the prox kernel K4 is float32; float64 runs take the stock engine's "
-                "generic prox, float64 kernels are ROADMAP item A20"
-            )
         self.mesh = mesh
         self.dt = float(dt)
         self.admm_iters = int(admm_iters)

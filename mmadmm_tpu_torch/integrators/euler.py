@@ -33,14 +33,9 @@ class EulerInfo(NamedTuple):
 
 
 def dense_eg_or_raise(mesh: MovingMesh, nx: int, ny: int, method: str, item: str):
-    """The stencil engine's evaluator for ``mesh``, or
-    ``NotImplementedError`` naming the ROADMAP item of the path the mesh
-    would need."""
-    if mesh.dtype != torch.float32:
-        raise NotImplementedError(
-            f"kernels K2 and K3 are float32; float64 {method} runs need the "
-            f"compact path (ROADMAP item {item})"
-        )
+    """The stencil engine's evaluator for ``mesh`` (float32 or float64:
+    kernels K2 and K3 are built in both), or ``NotImplementedError`` naming
+    the ROADMAP item of the compact path a mesh off the gate would need."""
     eg = make_dense_eg2d(mesh, nx, ny)
     if eg is None:
         raise NotImplementedError(

@@ -22,14 +22,17 @@ package) is one of two routes, ``prox_backend``:
 * ``"pallas"``, the kernels: K1 in 2D (``ops/prox2d.py``); in 3D K4, K4'
   or K4'' (``ops/prox3d.py``), chosen by the computational mesh and
   ``prox_chord``. Each launches its CUDA kernel on a CUDA tensor and runs
-  its plain PyTorch version on a CPU tensor. The kernels are float32, and
-  K1 has no computational-mesh mode;
+  its plain PyTorch version on a CPU tensor. K1 has no computational-mesh
+  mode. In float64 the route takes K1 and K4, built in float64; K4', K4''a
+  and K4''b in float64 are ROADMAP B10 and refused;
 * ``"vmap"``, the generic batched prox (``ops/prox.py``) in the mesh's
   dtype, the JAX package's default.
 
-``"auto"`` takes the kernels where a kernel computes the function (float32,
-and not a 2D computational mesh) and the generic prox elsewhere: float64,
-and 2D computational meshes.
+``"auto"`` takes the kernels where a float32 kernel computes the function
+(not a 2D computational mesh) and the generic prox elsewhere: float64 (the
+JAX package's default, ``mesh.py:126``), and 2D computational meshes. The
+stencil engines take their own kernel in the mesh's dtype whatever the
+route (``problems.py``).
 """
 
 from __future__ import annotations
@@ -124,18 +127,22 @@ class MovingMesh:
         """Set ``prox_backend``, ``prox_chord``, ``jac_batch`` and
         ``prox_fn(grid, z, xi, dxpu, free_mask, tol, max_iters[,
         J_state])``."""
-        kernels_ok = self.dtype == torch.float32 and not (self.dim == 2 and self.comp_mesh)
+        self.prox_chord = self.comp_mesh if chord is None else bool(chord)
+        f32 = self.dtype == torch.float32
         if backend == "auto":
-            backend = "pallas" if kernels_ok else "vmap"
-        if backend == "pallas" and not kernels_ok:
-            raise ValueError(
-                "prox_backend 'pallas': the prox kernels are float32, and K1 has no "
-                "computational-mesh mode; use 'vmap' or 'auto'"
-            )
+            backend = "pallas" if f32 and not (self.dim == 2 and self.comp_mesh) else "vmap"
         if backend not in ("pallas", "vmap"):
             raise ValueError(f"unknown prox_backend {backend!r}")
+        if backend == "pallas" and self.dim == 2 and self.comp_mesh:
+            raise ValueError(
+                "prox_backend 'pallas': K1 has no computational-mesh mode; use 'vmap' or 'auto'"
+            )
+        if backend == "pallas" and not f32 and (self.comp_mesh or self.prox_chord):
+            raise ValueError(
+                "prox_backend 'pallas' in float64: K4', K4''a and K4''b have no float64 "
+                "kernel yet (ROADMAP item B10); use 'vmap' or 'auto'"
+            )
         self.prox_backend = backend
-        self.prox_chord = self.comp_mesh if chord is None else bool(chord)
         w = self.w
         if jac_batch is None:
             jac_batch = 131_072 if self.dim == 3 and self.n_elements > 300_000 else 0

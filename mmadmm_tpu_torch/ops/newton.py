@@ -14,9 +14,10 @@ tensors ``[N]`` (``n = 6`` in 2D, 12 in 3D).
 
 Every operation is written so that the CUDA kernels (``csrc/*.cu``,
 built with ``--fmad=false``) can repeat it bit for bit: the same order of
-operations, IEEE division and square root, and f32 constants rounded as
-JAX rounds them (a Python float that meets an f32 tile is cast to f32
-first).
+operations, IEEE division and square root, and constants rounded as JAX
+rounds them in the working dtype (a Python float that meets a tile is cast
+to the tile's dtype first: to f32 in a float32 run, nothing in a float64
+one). Everything runs in float32 or float64, the dtype of the inputs.
 """
 
 from __future__ import annotations
@@ -26,17 +27,38 @@ import functools
 import numpy as np
 import torch
 
-F32 = np.float32
 DET_FLOOR = 1e-30
 DIAG_FLOOR = 1e-12
 LEVENBERG = 1e-9
 ALPHAS_BT = (0.0625, 0.125, 0.25, 0.5, 1.0)  # small -> large
-EPS_STALL = float(F32(10.0 * np.finfo(np.float32).eps))
+# the dtypes the prox kernels are built in, with their NumPy scalar types
+DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def rnd(v: float, dtype) -> float:
+    """A Python float rounded to ``dtype`` (float32 or float64), as JAX
+    casts it where it meets a tile of that dtype."""
+    return float(DTYPES[dtype](v))
 
 
 def f32(v: float) -> float:
     """A Python float rounded to float32, as JAX casts it."""
-    return float(F32(v))
+    return rnd(v, torch.float32)
+
+
+def eps_stall(dtype) -> float:
+    """The stall tolerance ``10 * finfo(dtype).eps`` in ``dtype``
+    (``prox_pallas2d.py:346``)."""
+    return rnd(10.0 * np.finfo(DTYPES[dtype]).eps, dtype)
+
+
+def count_launch(fn, dtype) -> None:
+    """Count a launch of ``fn``'s kernel built in ``dtype``: in
+    ``fn.launches`` (float32) or ``fn.launches_f64`` (float64)."""
+    if dtype == torch.float64:
+        fn.launches_f64 += 1
+    else:
+        fn.launches += 1
 
 
 class Dual:
@@ -86,6 +108,11 @@ class Dual:
     def __rtruediv__(self, o):
         r = 1.0 / (self.v * self.v)
         return Dual(o / self.v, (-self.d * o) * r)
+
+
+def dtype_of(x):
+    """The dtype of a channel tensor or of a dual number's value."""
+    return x.v.dtype if isinstance(x, Dual) else x.dtype
 
 
 def sqrt(x):
@@ -187,8 +214,8 @@ def _backtrack(zc, p, energy_fn, edet_fn, e0, det_floor):
 
 
 def _stalled(step_inf, zc):
-    """A step no larger than ``EPS_STALL`` relative to ``1 + max |z|``."""
-    return step_inf <= EPS_STALL * (1.0 + rmax([torch.abs(zi) for zi in zc]))
+    """A step no larger than ``eps_stall`` relative to ``1 + max |z|``."""
+    return step_inf <= eps_stall(zc[0].dtype) * (1.0 + rmax([torch.abs(zi) for zi in zc]))
 
 
 def _gnorm(g):
@@ -353,17 +380,19 @@ def run_sweeps(z, max_iters, sweep, stats=None, carry=None):
     return out
 
 
-def consts(w: float):
-    """f32 prox constants ``(w^2, w^2/2, 1/w^2)`` as the JAX kernels
-    round them."""
-    return f32(w * w), f32(0.5 * w * w), f32(1.0 / (w * w))
+def consts(w: float, dtype=torch.float32):
+    """The prox constants ``(w^2, w^2/2, 1/w^2)`` in ``dtype``, as the JAX
+    kernels round them."""
+    return rnd(w * w, dtype), rnd(0.5 * w * w, dtype), rnd(1.0 / (w * w), dtype)
 
 
-def check(name, t, rows, n, device):
-    """Raise unless ``t`` is a contiguous float32 ``[rows, n]`` tensor on
-    ``device``."""
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32 on {device}, got {t.dtype} on {t.device}")
+def check(name, t, rows, n, device, dtype):
+    """Raise unless ``t`` is a contiguous ``dtype`` ``[rows, n]`` tensor on
+    ``device``; ``dtype`` must be one the kernels are built in."""
+    if dtype not in DTYPES:
+        raise ValueError(f"{name}: the kernels take float32 or float64, not {dtype}")
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
     if tuple(t.shape) != (rows, n):
         raise ValueError(f"{name}: expected shape {(rows, n)}, got {tuple(t.shape)}")
     if not t.is_contiguous():

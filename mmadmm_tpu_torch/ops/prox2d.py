@@ -16,17 +16,20 @@ For every triangle it runs up to ``max_iters`` damped-Newton sweeps on
 An element retires on ``gnorm < tol`` from the second sweep on, or when its
 step stalls. The unregularized energy at the input z comes out as ``ih0``.
 
-Layout: channel-major ``[C, N]`` float32 tensors (the JAX kernel's
-``[C, T, 8, 128]`` tiles are the same memory as ``[C, T*1024]``):
+Layout: channel-major ``[C, N]`` tensors, float32 or float64 (the JAX
+kernel's ``[C, T, 8, 128]`` tiles are the same memory as ``[C, T*1024]``),
+the kernel and its constants in the tensors' dtype:
 ``z, dxpu, free [6, N]`` (channel ``v*2 + d``), ``cells [48, N]`` (three
 16-wide cell-table rows, vertex-major).
 
 ``prox2d`` is the entry point on channel tensors, ``prox_elements`` the
 element-major one of the stock engine. On a CPU tensor they run
 ``prox2d_plain``; on a CUDA tensor they launch the CUDA kernel
-``csrc/prox2d.cu`` or raise. The plain version repeats the kernel's arithmetic operation by
-operation (the Hessian through the same forward-mode dual numbers), so the
-kernel built with ``--fmad=false`` can agree with it bit for bit.
+``csrc/prox2d.cu`` built in the tensors' dtype (``mm_prox2d`` in float32,
+``mm_prox2d_f64`` in float64) or raise. The plain version repeats the
+kernel's arithmetic operation by operation (the Hessian through the same
+forward-mode dual numbers), so the kernel built with ``--fmad=false`` can
+agree with it bit for bit.
 """
 
 from __future__ import annotations
@@ -38,21 +41,27 @@ import torch
 
 from ..cuda_build import load_library
 from .monitor_grid import element_cell_rows
-from .newton import (F32, DET_FLOOR, absolute, cols_of, f32, hessian, ldlt_c, max_floor,
-                     newton_sweep, run_sweeps, sqrt)
+from .newton import (DET_FLOOR, DTYPES, absolute, cols_of, count_launch, dtype_of, hessian,
+                     ldlt_c, max_floor, newton_sweep, rnd, run_sweeps, sqrt)
 from .newton import check as _check
 from .newton import consts as _consts
 
 ROW_W = 16
 
-# float32 constants, rounded exactly as the JAX kernel rounds them (a
-# Python float meets an f32 tile there, so it is cast to f32 first)
-_THIRD = f32(1.0 / 3.0)
-_C_D32 = F32(2.0) * np.sqrt(F32(2.0))  # 2^1.5 in f32
-_K_G2 = float(F32(1.0 / 3.0) * _C_D32)  # third * c_d32
-_K_DGDDET = float(F32(1.5 * (1.0 / 3.0)) * _C_D32)  # 1.5 * third * c_d32
-_K_SM2A = f32(0.5 * (1.0 / 3.0))  # (0.5 * third)
-_K_SM2B = float(F32((0.5 - 1.0 / 3.0) * (1.0 - 1.5)) * _C_D32)
+
+def _k2(np_t):
+    """The kernel's constants in the NumPy type ``np_t``, rounded exactly as
+    the JAX kernel rounds them in that dtype: a Python float (or a product
+    of Python floats) that meets a tile is cast to the tile's dtype first,
+    and ``c_d32 = 2 sqrt(2)`` is computed in it. Returns ``(third, third *
+    c_d32, 1.5 third c_d32, 0.5 third, (0.5 - third)(1 - 1.5) c_d32)``."""
+    c_d32 = np_t(2.0) * np.sqrt(np_t(2.0))  # 2^1.5
+    return (float(np_t(1.0 / 3.0)), float(np_t(1.0 / 3.0) * c_d32),
+            float(np_t(1.5 * (1.0 / 3.0)) * c_d32), float(np_t(0.5 * (1.0 / 3.0))),
+            float(np_t((0.5 - 1.0 / 3.0) * (1.0 - 1.5)) * c_d32))
+
+
+_K2 = {dt: _k2(np_t) for dt, np_t in DTYPES.items()}
 
 
 def _sample_m(cell, x, y):
@@ -120,7 +129,8 @@ def _common_c(z, cells, ehat):
     sqrt_dfj = sqrt(det_fj_c)
     dfj32 = det_fj_c * sqrt_dfj
     inv_sqrt_dm = 1.0 / sqrt(det_m)
-    G = _THIRD * det_m * tr32 + _K_G2 * dfj32 * inv_sqrt_dm
+    third, k_g2 = _K2[dtype_of(z[0])][:2]
+    G = third * det_m * tr32 + k_g2 * dfj32 * inv_sqrt_dm
     abs_k = absolute(edet * 0.5)
     return dict(
         m=m, mi00=mi00, mi01=mi01, mi11=mi11,
@@ -155,13 +165,14 @@ def grad_c(z, cells, ehat, dxpu, w2, half_w2, free):
     fj00, fj01, fj10, fj11 = t["fj00"], t["fj01"], t["fj10"], t["fj11"]
     mj00, mj01, mj10, mj11 = t["mj00"], t["mj01"], t["mj10"], t["mj11"]
     ei00, ei01, ei10, ei11 = t["ei00"], t["ei01"], t["ei10"], t["ei11"]
+    third, _, k_dgddet, k_sm2a, k_sm2b = _K2[dtype_of(z[0])]
 
     s_j = det_m * sqrt_tr  # dGdJ = det_m tr^(1/2) minv_jt
     dj00 = s_j * mj00
     dj01 = s_j * mj01
     dj10 = s_j * mj10
     dj11 = s_j * mj11
-    dgddet = _K_DGDDET * t["inv_sqrt_dm"] * sqrt_dfj
+    dgddet = k_dgddet * t["inv_sqrt_dm"] * sqrt_dfj
 
     a00 = fj00 * mi00 + fj01 * mi01  # A = fj minv
     a01 = fj00 * mi01 + fj01 * mi11
@@ -173,7 +184,7 @@ def grad_c(z, cells, ehat, dxpu, w2, half_w2, free):
     s_m1 = -0.5 * s_j
     tr32 = tr * sqrt_tr
     dfj32 = det_fj * sqrt_dfj
-    s_m2 = _K_SM2A * det_m * tr32 + (_K_SM2B * t["inv_sqrt_dm"] * dfj32)
+    s_m2 = k_sm2a * det_m * tr32 + (k_sm2b * t["inv_sqrt_dm"] * dfj32)
     dm00 = s_m1 * b00 + s_m2 * mi00  # dGdM (symmetric)
     dm01 = s_m1 * b01 + s_m2 * mi01
     dm11 = s_m1 * b11 + s_m2 * mi11
@@ -191,10 +202,10 @@ def grad_c(z, cells, ehat, dxpu, w2, half_w2, free):
     q01 = ei00 * dj01 + ei01 * dj11
     q10 = ei10 * dj00 + ei11 * dj10
     q11 = ei10 * dj01 + ei11 * dj11
-    v00 = c1 * ei00 + q00 * fj00 + q01 * fj10 - bc0 * _THIRD
-    v01 = c1 * ei01 + q00 * fj01 + q01 * fj11 - bc1 * _THIRD
-    v10 = c1 * ei10 + q10 * fj00 + q11 * fj10 - bc0 * _THIRD
-    v11 = c1 * ei11 + q10 * fj01 + q11 * fj11 - bc1 * _THIRD
+    v00 = c1 * ei00 + q00 * fj00 + q01 * fj10 - bc0 * third
+    v01 = c1 * ei01 + q00 * fj01 + q01 * fj11 - bc1 * third
+    v10 = c1 * ei10 + q10 * fj00 + q11 * fj10 - bc0 * third
+    v11 = c1 * ei11 + q10 * fj01 + q11 * fj11 - bc1 * third
 
     g0x = v00 + v10 + bc0
     g0y = v01 + v11 + bc1
@@ -229,8 +240,8 @@ def prox2d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
     given, receives ``sweeps``, ``element_sweeps``, ``hessians`` and
     ``gnorm_retired`` (``ops/newton.py::newton_sweep``)."""
     ehat = tuple(float(v) for v in ehat)
-    w2, half_w2, inv_w2 = _consts(w)
-    tol = f32(tol)
+    w2, half_w2, inv_w2 = _consts(w, z.dtype)
+    tol = rnd(tol, z.dtype)
 
     def rows(c):
         return [[c[v * ROW_W + k] for k in range(ROW_W)] for v in range(3)]
@@ -251,15 +262,17 @@ def prox2d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None):
 
 
 def prox2d(z, dxpu, free, cells, ehat, w, tol, max_iters):
-    """K1: the prox z-update on ``[C, N]`` float32 channel tensors.
+    """K1: the prox z-update on ``[C, N]`` channel tensors, all float32
+    or all float64.
 
     A CPU tensor goes to ``prox2d_plain``. A CUDA tensor launches the
-    kernel from ``csrc/prox2d.cu`` on the current stream (built at first
-    use) and counts the launch in ``prox2d.launches``."""
+    kernel from ``csrc/prox2d.cu`` built in its dtype on the current stream
+    (built at first use) and counts the launch in ``prox2d.launches``
+    (float32) or ``prox2d.launches_f64`` (float64)."""
     n = z.shape[1]
     for name, t, rows in (("z", z, 6), ("dxpu", dxpu, 6), ("free", free, 6),
                           ("cells", cells, 3 * ROW_W)):
-        _check(name, t, rows, n, z.device)
+        _check(name, t, rows, n, z.device, z.dtype)
     if z.device.type == "cpu":
         return prox2d_plain(z, dxpu, free, cells, ehat, w, tol, max_iters)
     if z.device.type != "cuda":
@@ -267,21 +280,21 @@ def prox2d(z, dxpu, free, cells, ehat, w, tol, max_iters):
     lib = library()
     zout = torch.empty_like(z)
     ih0 = torch.empty(n, dtype=z.dtype, device=z.device)
-    w2, half_w2, inv_w2 = _consts(w)
+    w2, half_w2, inv_w2 = _consts(w, z.dtype)
     h = [float(v) for v in ehat]
     stream = torch.cuda.current_stream(z.device).cuda_stream
-    rc = lib.mm_prox2d(
+    rc = (lib.mm_prox2d_f64 if z.dtype == torch.float64 else lib.mm_prox2d)(
         z.data_ptr(), dxpu.data_ptr(), free.data_ptr(), cells.data_ptr(),
         zout.data_ptr(), ih0.data_ptr(), n, h[0], h[1], h[2], h[3],
-        w2, half_w2, inv_w2, float(tol), int(max_iters), stream,
+        w2, half_w2, inv_w2, rnd(tol, z.dtype), int(max_iters), stream,
     )
     if rc != 0:
         raise RuntimeError(f"prox2d kernel launch failed: CUDA error {rc}")
-    prox2d.launches += 1
+    count_launch(prox2d, z.dtype)
     return zout, ih0
 
 
-prox2d.launches = 0
+prox2d.launches = prox2d.launches_f64 = 0
 
 
 def prox_elements(grid, z, dxpu, free, ehat, w, tol, max_iters):
@@ -298,13 +311,13 @@ def prox_elements(grid, z, dxpu, free, ehat, w, tol, max_iters):
                      max_iters)
     return zo.T.reshape(nf, 3, 2), ih0
 
-# mm_prox2d(z, dxpu, free, cells, zout, ih0, n, h00, h01, h10, h11, w2,
-#           half_w2, inv_w2, tol, max_iters, stream) in csrc/prox2d.cu
-_SIGNATURES = {"mm_prox2d": (
-    [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_float] * 8
-    + [ctypes.c_int, ctypes.c_void_p],
+# mm_prox2d and mm_prox2d_f64(z, dxpu, free, cells, zout, ih0, n, h00, h01,
+# h10, h11, w2, half_w2, inv_w2, tol, max_iters, stream) in csrc/prox2d.cu,
+# the eight constants in float and in double
+_SIGNATURES = {name: (
+    [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [real] * 8 + [ctypes.c_int, ctypes.c_void_p],
     ctypes.c_int,
-)}
+) for name, real in (("mm_prox2d", ctypes.c_float), ("mm_prox2d_f64", ctypes.c_double))}
 
 
 def library() -> ctypes.CDLL:

@@ -12,7 +12,8 @@ Levenberg term on fixed coordinates), an unrolled LDL^T solve with the
 ``-g/w^2`` fallback and 5 backtracking trials (``ops/newton.py``). The
 unregularized energy at the input z comes out as ``ih0``.
 
-Layout: channel-major ``[C, N]`` float32 tensors: ``z, dxpu, free
+Layout: channel-major ``[C, N]`` tensors, float32 (every variant) or
+float64 (K4; the other three in float64 are ROADMAP B10): ``z, dxpu, free
 [12, N]`` (channel ``v*3 + d``) and ``cells [216, N]``: per vertex,
 vertex-major, its cell's 8 corners as ``(m00, m01, m02, m11, m12, m22)``
 and then ``x0, x1, y0, y1, z0, z1`` (``ops/monitor_grid.py::
@@ -39,10 +40,11 @@ Ehat).
 ``prox_elements`` the element-major one of the stock engine. On a CPU
 tensor each runs its plain version (``prox3d_plain``,
 ``prox3d_chord_comp_plain``, ``prox3d_chord_plain``,
-``prox3d_comp_plain``); on a CUDA tensor it launches its CUDA kernel from
-``csrc/prox3d.cu`` or raises. The plain versions repeat the kernels'
-arithmetic operation by operation, so the kernels built with
-``--fmad=false`` can agree with them bit for bit.
+``prox3d_comp_plain``), in either dtype; on a CUDA tensor it launches its
+CUDA kernel from ``csrc/prox3d.cu`` built in the tensors' dtype (K4:
+``mm_prox3d`` in float32, ``mm_prox3d_f64`` in float64) or raises. The
+plain versions repeat the kernels' arithmetic operation by operation, so
+the kernels built with ``--fmad=false`` can agree with them bit for bit.
 """
 
 from __future__ import annotations
@@ -53,22 +55,23 @@ import torch
 
 from ..cuda_build import load_library
 from .monitor_grid import element_cell_rows
-from .newton import (DET_FLOOR, Dual, absolute, check, chord_sweep, cols_of, consts, f32,
-                     hessian, max_floor, newton_sweep, run_sweeps, sqrt, tri_index)
+from .newton import (DET_FLOOR, DTYPES, Dual, absolute, check, chord_sweep, cols_of, consts,
+                     count_launch, dtype_of, hessian, max_floor, newton_sweep, rnd, run_sweeps,
+                     sqrt, tri_index)
 
 ROW_W3 = 54  # per vertex: 48 corner entries + x0, x1, y0, y1, z0, z1
 _SYM_W = (1.0, 2.0, 2.0, 1.0, 2.0, 1.0)  # contraction weights of the sym pairs
 
 # d = 3, p = 3/2, theta = 1/3 (AdaptationFunctional.cpp:210-220). Python
-# floats and their products are rounded to f32 where they meet a tile, as
-# in the JAX kernel (``prox_pallas3d.py:143, :173, :182-184``).
+# floats and their products are rounded to the tile's dtype where they meet
+# a tile, as in the JAX kernel (``prox_pallas3d.py:143, :173, :182-184``):
+# to f32 in a float32 run, nothing in a float64 one. By dtype: (third,
+# third d_dp2, 1.5 third d_dp2, 0.5 third, (0.5 - third)(1 - 1.5) d_dp2).
 _D_DP2 = 3.0 ** 2.25  # d^(d p / 2)
 _THIRD = 1.0 / 3.0
-K_THIRD = f32(_THIRD)
-K_G2 = f32(_THIRD * _D_DP2)
-K_DGDDET = f32(1.5 * _THIRD * _D_DP2)
-K_SM2A = f32(0.5 * _THIRD)
-K_SM2B = f32((0.5 - _THIRD) * (1.0 - 1.5) * _D_DP2)
+_K3 = {dt: tuple(rnd(v, dt) for v in (
+    _THIRD, _THIRD * _D_DP2, 1.5 * _THIRD * _D_DP2, 0.5 * _THIRD,
+    (0.5 - _THIRD) * (1.0 - 1.5) * _D_DP2)) for dt in DTYPES}
 
 
 def _div(x, c: float):
@@ -173,7 +176,8 @@ def _common_c3(z, cells, ehat):
     inv_sqrt_dm = 1.0 / sqrt(det_m)
     sqrt_dfj = sqrt(det_fj_c)
     dfj32 = det_fj_c * sqrt_dfj
-    G = K_THIRD * det_m * _q225(tr_c) + K_G2 * dfj32 * inv_sqrt_dm
+    k_third, k_g2 = _K3[dtype_of(z[0])][:2]
+    G = k_third * det_m * _q225(tr_c) + k_g2 * dfj32 * inv_sqrt_dm
     return dict(m=m, mi=mi, ei=ei, fj=fj, mj=mj, tr=tr_c, det_m=det_m, det_fj=det_fj_c,
                 G=G, abs_k=absolute(_div(edet, 6.0)), inv_sqrt_dm=inv_sqrt_dm,
                 sqrt_dfj=sqrt_dfj, dfj32=dfj32)
@@ -205,16 +209,17 @@ def grad_c3(z, cells, ehat, dxpu, w2, half_w2, free):
     t = _common_c3(z, cells, ehat)
     G, det_m, tr, det_fj = t["G"], t["det_m"], t["tr"], t["det_fj"]
     mi, ei, fj, mj = t["mi"], t["ei"], t["fj"], t["mj"]
+    k_dgddet, k_sm2a, k_sm2b = _K3[dtype_of(z[0])][2:]
 
     s_j = 1.5 * det_m * _q125(tr)  # dGdJ = d p theta det_m tr^(dp2-1) minv_jt
     dj = [s_j * v for v in mj]
-    dgddet = K_DGDDET * t["inv_sqrt_dm"] * t["sqrt_dfj"]
+    dgddet = k_dgddet * t["inv_sqrt_dm"] * t["sqrt_dfj"]
 
     A = _mm33(fj, mi)  # B = (fj minv)^T (fj minv)
     B = [_dot3([A[i], A[3 + i], A[6 + i]], [A[j], A[3 + j], A[6 + j]])
          for i in range(3) for j in range(3)]
     s_m1 = -0.5 * s_j
-    s_m2 = K_SM2A * det_m * _q225(tr) + (K_SM2B * t["inv_sqrt_dm"] * t["dfj32"])
+    s_m2 = k_sm2a * det_m * _q225(tr) + (k_sm2b * t["inv_sqrt_dm"] * t["dfj32"])
     dgdm = [s_m1 * B[i] + s_m2 * mi[i] for i in range(9)]
     dgdm_sym = [dgdm[0], dgdm[1], dgdm[2], dgdm[4], dgdm[5], dgdm[8]]
 
@@ -280,8 +285,8 @@ def _element_fns(dxpu, free, cells, ehat_of, w2, half_w2):
 
 def _newton_plain(z, dxpu, free, cells, ehat_of, w, tol, max_iters, stats):
     """Up to ``max_iters`` Newton sweeps of the elements still active."""
-    w2, half_w2, inv_w2 = consts(w)
-    tol = f32(tol)
+    w2, half_w2, inv_w2 = consts(w, z.dtype)
+    tol = rnd(tol, z.dtype)
     ih0, _ = energy_c3(list(z), _rows(cells), ehat_of(slice(None)))
     fns = _element_fns(dxpu, free, cells, ehat_of, w2, half_w2)
 
@@ -300,8 +305,8 @@ def _chord_plain(z, dxpu, free, cells, ehat_of, w, tol, max_iters, stats):
     ``stats`` also receives ``hessians`` (the entry ones and the
     refreshes), ``refreshes`` and ``gnorm_retired``
     (``ops/newton.py::chord_sweep``)."""
-    w2, half_w2, inv_w2 = consts(w)
-    tol = f32(tol)
+    w2, half_w2, inv_w2 = consts(w, z.dtype)
+    tol = rnd(tol, z.dtype)
     if stats is not None:
         stats.update(refreshes=0, gnorm_retired=0, hessians=0)
     if max_iters <= 0:
@@ -352,36 +357,47 @@ def prox3d_chord_plain(z, dxpu, free, cells, ehat, w, tol, max_iters, stats=None
     return _chord_plain(z, dxpu, free, cells, _ehat_of(ehat), w, tol, max_iters, stats)
 
 
-def _consts3(w, tol):
-    """The f32 constants of ``Consts3`` in ``csrc/huang3d.cuh``, in order."""
-    return (*consts(w), tol, K_THIRD, K_G2, K_DGDDET, K_SM2A, K_SM2B)
+def _consts3(w, tol, dtype=torch.float32):
+    """The constants of ``Consts3`` in ``csrc/huang3d.cuh``, in ``dtype``,
+    in order."""
+    return (*consts(w, dtype), rnd(tol, dtype), *_K3[dtype])
+
+
+# the kernels of csrc/prox3d.cu built in float64 (ROADMAP B10: the others)
+_ENTRIES_F64 = {"mm_prox3d": "mm_prox3d_f64"}
 
 
 def _launch(entry, plain, z, dxpu, free, cells, ehat, w, tol, max_iters):
-    """Run one of the four variants on ``[C, N]`` float32 channel tensors:
-    ``plain`` on CPU tensors; on CUDA tensors the kernel ``entry`` of
-    ``csrc/prox3d.cu`` on the current stream (built at first use). ``ehat``
-    is 9 floats or the channels ``[9, N]``. Returns ``(z_out, ih0)`` and
-    whether the kernel was launched."""
+    """Run one of the four variants on ``[C, N]`` channel tensors, all
+    float32 or all float64: ``plain`` on CPU tensors; on CUDA tensors the
+    kernel ``entry`` of ``csrc/prox3d.cu`` built in their dtype, on the
+    current stream (built at first use). ``ehat`` is 9 floats or the
+    channels ``[9, N]``. Returns ``(z_out, ih0)`` and whether the kernel
+    was launched."""
     n = z.shape[1]
     per_element = isinstance(ehat, torch.Tensor) and ehat.dim() == 2
     checks = [("z", z, 12), ("dxpu", dxpu, 12), ("free", free, 12), ("cells", cells, 4 * ROW_W3)]
     if per_element:
         checks.append(("ehat_e", ehat, 9))
     for name, t, rows in checks:
-        check(name, t, rows, n, z.device)
+        check(name, t, rows, n, z.device, z.dtype)
     if z.device.type == "cpu":
         return plain(z, dxpu, free, cells, ehat, w, tol, max_iters), False
     if z.device.type != "cuda":
         raise ValueError(f"{entry} runs on cpu or cuda, not {z.device}")
+    real = ctypes.c_float
+    if z.dtype == torch.float64:
+        if entry not in _ENTRIES_F64:
+            raise ValueError(f"{entry} has no float64 kernel yet (ROADMAP B10)")
+        entry, real = _ENTRIES_F64[entry], ctypes.c_double
     lib = library()
     zout = torch.empty_like(z)
     ih0 = torch.empty(n, dtype=z.dtype, device=z.device)
     if per_element:
-        k = (ctypes.c_float * 9)(*_consts3(w, tol))
+        k = (real * 9)(*_consts3(w, tol, z.dtype))
         tensors = (z, dxpu, free, cells, ehat, zout, ih0)
     else:
-        k = (ctypes.c_float * 18)(*ehat, *_consts3(w, tol))
+        k = (real * 18)(*ehat, *_consts3(w, tol, z.dtype))
         tensors = (z, dxpu, free, cells, zout, ih0)
     stream = torch.cuda.current_stream(z.device).cuda_stream
     rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors), n, k, int(max_iters), stream)
@@ -391,14 +407,17 @@ def _launch(entry, plain, z, dxpu, free, cells, ehat, w, tol, max_iters):
 
 
 def prox3d(z, dxpu, free, cells, ehat, w, tol, max_iters):
-    """K4: the 3D prox z-update on ``[C, N]`` float32 channel tensors.
+    """K4: the 3D prox z-update on ``[C, N]`` channel tensors, all float32
+    or all float64.
 
     A CPU tensor goes to ``prox3d_plain``. A CUDA tensor launches the
-    kernel from ``csrc/prox3d.cu`` on the current stream (built at first
-    use) and counts the launch in ``prox3d.launches``."""
+    kernel from ``csrc/prox3d.cu`` built in its dtype on the current stream
+    (built at first use) and counts the launch in ``prox3d.launches``
+    (float32) or ``prox3d.launches_f64`` (float64)."""
     out, launched = _launch("mm_prox3d", prox3d_plain, z, dxpu, free, cells, ehat, w, tol,
                             max_iters)
-    prox3d.launches += launched
+    if launched:
+        count_launch(prox3d, z.dtype)
     return out
 
 
@@ -439,6 +458,7 @@ def prox3d_comp(z, dxpu, free, cells, ehat_e, w, tol, max_iters):
 
 for _fn in (prox3d, prox3d_chord_comp, prox3d_chord, prox3d_comp):
     _fn.launches = 0
+prox3d.launches_f64 = 0
 
 
 def prox_elements(grid, z, xi, dxpu, free, w, tol, max_iters, ehat=None, chord=None):
@@ -472,10 +492,12 @@ def prox_elements(grid, z, xi, dxpu, free, w, tol, max_iters, ehat=None, chord=N
 # mm_prox3d and mm_prox3d_chord (z, dxpu, free, cells, zout, ih0, n,
 # consts[18], max_iters, stream); mm_prox3d_chord_comp and mm_prox3d_comp
 # (z, dxpu, free, cells, ehat, zout, ih0, n, consts[9], max_iters, stream);
-# all in csrc/prox3d.cu
+# mm_prox3d_f64 as mm_prox3d with double consts; all in csrc/prox3d.cu
 _TAIL = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
+_TAIL_F64 = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
     "mm_prox3d": ([ctypes.c_void_p] * 6 + _TAIL, ctypes.c_int),
+    "mm_prox3d_f64": ([ctypes.c_void_p] * 6 + _TAIL_F64, ctypes.c_int),
     "mm_prox3d_chord": ([ctypes.c_void_p] * 6 + _TAIL, ctypes.c_int),
     "mm_prox3d_chord_comp": ([ctypes.c_void_p] * 7 + _TAIL, ctypes.c_int),
     "mm_prox3d_comp": ([ctypes.c_void_p] * 7 + _TAIL, ctypes.c_int),

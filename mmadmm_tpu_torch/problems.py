@@ -6,27 +6,28 @@ Euler (method 2) on the 2D stencil engine, MM-ADMM on the 3D stencil
 engine (the JAX package's ``SoAADMM3D`` in stencil mode), and MM-ADMM on
 the stock element-major engine (``ADMMIntegrator``) for every other mesh.
 
-The mesh's prox route decides the engine (``MovingMesh``'s
-``prox_backend``). On the generic route, every float64 run, every
-``prox_backend="vmap"`` run and every 2D computational mesh, MM-ADMM runs
-on the stock engine, box meshes included. This is deliberate: the JAX
-package runs its float64 box meshes on its stencil engines with its Pallas
-kernels built in float64 (``admm_grid2d.py:158-163``,
-``admm_soa.py:241-246``), and the port's kernels are float32 (ROADMAP
-A20). A configuration loaded from a JSON file (float64, ``"auto"``) thus
-runs as loaded, as ``python run.py <config>`` runs it in the JAX package:
-the stock engine with the generic prox and the carried chord Jacobian.
+Box meshes (SquareGrid, Shoulder) on the stencil gate take their
+stencil engine in float32 and in float64, with the engine's kernels built
+in the mesh's dtype (K1, K2 and K3 in 2D, K4 in 3D), as the JAX package
+builds its Pallas kernels in the mesh's dtype (``admm_grid2d.py:158-163``,
+``admm_soa.py:241-246``, ``backward_euler.py:233-249``). A box mesh from a
+JSON configuration (float64, ``"auto"``) thus runs as ``python run.py
+<config>`` runs it in the JAX package. The exceptions, on the stock
+engine: ``prox_backend="vmap"`` (the generic prox, asked for), a
+computational mesh, and a 3D box mesh with ``prox_chord=True``: the JAX SoA
+engine builds its kernel with ``chord=False`` (``admm_soa.py:244``) and
+sends box meshes under 500,000 tets to the stock engine anyway
+(``problems.py:93-103``).
 
-On the kernel route (float32), FromFile and LevelSet meshes, 2D meshes off
-the stencil gate and 3D computational meshes take the stock engine (which
-the JAX package keeps off its SoA engine, ``problems.py:106-111``), as
-does a 3D box mesh with ``prox_chord=True``: the JAX SoA engine builds its
-kernel with ``chord=False`` (``admm_soa.py:244``) and sends box meshes
-under 500,000 tets to the stock engine anyway (``problems.py:93-103``).
-Every other float32 box mesh takes its stencil engine; the JAX package
-also gates those on mesh size (and, for Euler and backward Euler, on
-environment switches), the port on the mesh alone. What the port does not
-run raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Every other mesh takes the stock engine on the mesh's prox route
+(``MovingMesh``'s ``prox_backend``): FromFile and LevelSet meshes, 2D
+meshes off the stencil gate and computational meshes (which the JAX
+package keeps off its SoA engine, ``problems.py:106-111``). In float64
+under ``"auto"`` that is the generic prox with the carried chord Jacobian,
+the JAX package's default. The JAX package also gates the stencil engines
+on mesh size (and, for Euler and backward Euler, on environment switches),
+the port on the mesh alone. What the port does not run raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -105,14 +106,13 @@ def build_problem(cfg: ExperimentConfig, device=None, *, prox_chord: bool | None
 
         return mesh, BackwardEulerIntegrator(mesh, cfg.dt, cfg.nx, cfg.ny,
                                              tol=cfg.step_tol)
-    if mesh.prox_backend == "vmap" or not box:
+    if cfg.prox_backend == "vmap" or cfg.comp_mesh or not box:
         return mesh, _stock(cfg, mesh)
     if cfg.dim == 3:
         # the 3D stencil engine's gate (problems.py:93-127 in the JAX
         # package, without the size threshold; the monitor grid is constant
         # or 48-wide, since build_monitor_grid builds no other 3D grid)
-        if (not cfg.comp_mesh and not mesh.prox_chord
-                and dense_layout_3d(cfg.nx, cfg.ny, cfg.nz, mesh) is not None):
+        if not mesh.prox_chord and dense_layout_3d(cfg.nx, cfg.ny, cfg.nz, mesh) is not None:
             return mesh, _soa3d(cfg, mesh)
         return mesh, _stock(cfg, mesh)
     # the stencil engine's gate (problems.py:136-161 in the JAX package)

@@ -1,20 +1,23 @@
 """Where a step spends its time on the card, for each path.
 
-    python3 -m mmadmm_tpu_torch.profile_step [NAME ...]
+    python3 -m mmadmm_tpu_torch.profile_step [--dtype float64] [NAME ...]
 
 For MM-ADMM (method 0), explicit Euler (1) and backward Euler (2) at
 Shoulder-320, then 3D MM-ADMM at 3D Shoulder-40 (the identity monitor,
 768,000 tet slots) on the 3D stencil engine and at 3D CompSquare-20 (a
 computational mesh, 96,000 tets) on the stock engine, then Monitor3320r as
 a user loads it (float64, the generic prox with the carried Jacobian), in
-turn (or only the runs whose names contain one of the NAMEs): runs 5
+turn (or only the runs whose names contain one of the NAMEs), the
+generated meshes in ``--dtype`` (float32 by default; in float64 the
+stencil engines run their kernels built in float64): runs 5
 steps, then traces 5 more with ``torch.profiler`` (CPU and CUDA
 activities) and prints wall ms per step (host clock, ending in
 ``torch.cuda.synchronize()``), the device's busy share (the sum of kernel
 times over the wall time; kernels do not overlap on the one stream the
 port uses), the time of each of the port's kernels (K1 ``prox2d``, K2
 ``eg2d``, K3 ``hess2d``, K4 and K4''b, the instantiations of
-``prox3d_newton_kernel``, and K4' and K4''a, of ``prox3d_chord_kernel``), the number of kernel launches per step, and the
+``prox3d_newton_kernel``, and K4' and K4''a, of ``prox3d_chord_kernel``;
+each in the run's dtype), the number of kernel launches per step, and the
 kernels with the most device time. On the generic route it also prints
 the device time and launches of the prox's Jacobian builds
 (``ElementKernels.masked_jac``) and of its LDL^T solves
@@ -24,8 +27,8 @@ the device time and launches of the prox's Jacobian builds
 
 from __future__ import annotations
 
+import argparse
 import os
-import sys
 import time
 
 import torch
@@ -36,10 +39,11 @@ from .ops.prox import RANGES  # the generic prox's traced ranges
 
 WARM = 5
 STEPS = 5
-# kernel: the name its device time is found by
-KERNELS = {"prox2d": "prox2d_kernel", "eg2d": "eg2d_kernel", "hess2d": "hess2d_kernel",
-           "K4": "prox3d_newton_kernel<false,", "K4'": "prox3d_chord_kernel<true,",
-           "K4''a": "prox3d_chord_kernel<false,", "K4''b": "prox3d_newton_kernel<true,"}
+# kernel: the name its device time is found by, after the real type
+KERNELS = {"prox2d": "prox2d_kernel<", "eg2d": "eg2d_kernel<", "hess2d": "hess2d_kernel<",
+           "K4": "prox3d_newton_kernel<{}, false,", "K4'": "prox3d_chord_kernel<{}, true,",
+           "K4''a": "prox3d_chord_kernel<{}, false,", "K4''b": "prox3d_newton_kernel<{}, true,"}
+_REAL = {"float32": "float", "float64": "double"}
 M3320R = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "Experiments", "InputFiles", "Monitor3320r.json")
 _2D = dict(test_type="Shoulder", dim=2, mon_type=1, nx=320, ny=320)
@@ -56,11 +60,11 @@ RUNS = {
 }
 
 
-def profile_run(name: str) -> None:
+def profile_run(name: str, dtype: str = "float32") -> None:
     if isinstance(RUNS[name], str):
         cfg = load_experiment_config(RUNS[name])
     else:
-        cfg = ExperimentConfig(**dict(dict(dt=5e-3, tau=0.1, rho=50.0, dtype="float32"),
+        cfg = ExperimentConfig(**dict(dict(dt=5e-3, tau=0.1, rho=50.0, dtype=dtype),
                                       **RUNS[name]))
     mesh, integ = build_problem(cfg)
     state = integ.init_state()
@@ -82,14 +86,15 @@ def profile_run(name: str) -> None:
     launches = sum(e.count for e in kernels)
     inner = "".join(f", {f} {[getattr(i, f) for i in infos]}" for f in ("n_iters", "n_newton")
                     if hasattr(infos[0], f))
-    print(f"{name} on {torch.cuda.get_device_name(0)}: {STEPS} traced steps "
-          f"after {WARM}{inner}")
+    print(f"{name}, {cfg.dtype}, {type(integ).__name__} on {torch.cuda.get_device_name(0)}: "
+          f"{STEPS} traced steps after {WARM}{inner}")
 
     def kernel_ms(key):
         us = sum(e.self_device_time_total for e in kernels if key in e.key)
         return 1e-3 * us / STEPS
 
-    per_kernel = "; ".join(f"{k} {kernel_ms(key):.3f} ms/step" for k, key in KERNELS.items())
+    per_kernel = "; ".join(f"{k} {kernel_ms(key.format(_REAL[cfg.dtype])):.3f} ms/step"
+                           for k, key in KERNELS.items())
     print(f"wall {wall_ms / STEPS:.3f} ms/step (traced); device busy "
           f"{1e-3 * dev_us / STEPS:.3f} ms/step = {100 * 1e-3 * dev_us / wall_ms:.1f} % of wall; "
           f"{per_kernel}; {launches / STEPS:.0f} kernel launches/step")
@@ -119,9 +124,14 @@ def _kernels(event):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description="Trace a few steps of each path on the card.")
+    ap.add_argument("names", nargs="*", help="run only the paths whose names contain one")
+    ap.add_argument("--dtype", choices=sorted(_REAL), default="float32",
+                    help="the generated meshes' dtype (Monitor3320r runs as loaded)")
+    args = ap.parse_args()
     for name in RUNS:
-        if len(sys.argv) < 2 or any(a in name for a in sys.argv[1:]):
-            profile_run(name)
+        if not args.names or any(a in name for a in args.names):
+            profile_run(name, args.dtype)
 
 
 if __name__ == "__main__":

@@ -1,35 +1,38 @@
-"""Run kernels K1, K4, K4' and K4'' as host code against their plain
-PyTorch versions: a rehearsal of their arithmetic where there is no card
-and no ``nvcc``.
+"""Run kernels K1-K4, K4' and K4'' as host code against their plain
+PyTorch versions, in float32 and (K1-K4, as the card builds them) in
+float64: a rehearsal of their arithmetic where there is no card and no
+``nvcc``.
 
     python scripts/cuda_host_rehearsal.py
 
-Compiles ``mmadmm_tpu_torch/csrc/prox2d.cu`` and ``prox3d.cu`` with
-``g++ -ffp-contract=off`` (no fused multiply-add, as ``nvcc --fmad=false``)
-against a stub ``cuda_runtime.h`` that defines ``__device__``, ``__ldg``,
-``threadIdx`` and the like as host code, into a temporary directory. The
-one-thread-per-element kernel K1 is called once per element, one after
-another. The 3D kernels, where a group of lanes shares an element, run a
-block at a time with one host thread per lane (``threadIdx`` is
-thread-local), ``__syncthreads``, ``__syncwarp`` and ``__ballot_sync``
-being host barriers over the block or the mask's lanes: the Newton kernels
-K4 and K4''b with 4, 8 and 16 lanes per element, the chord kernels K4' and
-K4''a with 2, 4 and 8; each also on the first 1, 30 and 131
-columns of its inputs at the lanes ``prox3d.cu`` launches it with (4 and
-2; the block's copies then take the 4-byte path). Their outputs are
-compared bit for bit
-with ``prox2d_plain`` (Shoulder nx=16), ``prox3d_plain`` (3D SquareGrid
-and Shoulder nx=4 and SquareGrid nx=6), ``prox3d_chord_comp_plain``
-(3D SquareGrid nx=4 and 6 on a computational mesh, mon_type 5, rho 10,
-through the stock engine's element-major blocks), ``prox3d_chord_plain``
-(3D SquareGrid nx=4 with ``prox_chord=True``) and ``prox3d_comp_plain``
-(the nx=4 computational mesh with ``prox_chord=False``), on the step-0 prox
-inputs with their dual perturbed by a seeded normal. PyTorch's CPU
-``sqrt`` need not be correctly rounded (the card's is, like the
-kernels'), so the script first prints the share of f32 square roots where
-it differs from the correctly rounded one, then runs the plain versions
-with a correctly rounded square root. Exits 1 unless every run is
-bit-equal. Needs ``g++``; runs on the CPU.
+Compiles ``mmadmm_tpu_torch/csrc/prox2d.cu``, ``be2d.cu`` and
+``prox3d.cu`` with ``g++ -ffp-contract=off`` (no fused multiply-add, as
+``nvcc --fmad=false``) against a stub ``cuda_runtime.h`` that defines
+``__device__``, ``__ldg``, ``threadIdx`` and the like as host code, into a
+temporary directory, each kernel through one ``extern "C"`` entry per real
+type. The one-thread-per-element kernels K1, K2 and K3 are called once per
+element, one after another. The 3D kernels, where a group of lanes shares
+an element, run a block at a time with one host thread per lane
+(``threadIdx`` is thread-local), ``__syncthreads``, ``__syncwarp`` and
+``__ballot_sync`` being host barriers over the block or the mask's lanes:
+the Newton kernels K4 and K4''b with 4, 8 and 16 lanes per element, the
+chord kernels K4' and K4''a with 2, 4 and 8; each also on the first 1, 30
+and 131 columns of its inputs at the lanes ``prox3d.cu`` launches it with
+(4 and 2; the block's copies then take the one-value path). Their outputs
+are compared bit for bit with ``prox2d_plain``, ``eg2d_plain`` and
+``hess2d_plain`` (Shoulder nx=16), ``prox3d_plain`` (3D SquareGrid and
+Shoulder nx=4 and SquareGrid nx=6), ``prox3d_chord_comp_plain`` (3D
+SquareGrid nx=4 and 6 on a computational mesh, mon_type 5, rho 10, through
+the stock engine's element-major blocks), ``prox3d_chord_plain`` (3D
+SquareGrid nx=4 with ``prox_chord=True``) and ``prox3d_comp_plain`` (the
+nx=4 computational mesh with ``prox_chord=False``), on the step-0 prox
+inputs with their dual perturbed by a seeded normal; then K1-K4 again in
+float64, on the float64 stencil engines' inputs. PyTorch's CPU ``sqrt``
+need not be correctly rounded in either dtype (the card's is, like the
+kernels'), so the script first prints the share of f32 and f64 square
+roots where it differs from the correctly rounded one, then runs the
+plain versions with a correctly rounded square root. Exits 1 unless every
+run is bit-equal. Needs ``g++``; runs on the CPU.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ sys.path.insert(0, os.getcwd())
 from mmadmm_tpu_torch import ExperimentConfig, build_problem  # noqa: E402
 from mmadmm_tpu_torch.cuda_build import CSRC  # noqa: E402
 from mmadmm_tpu_torch.ops.monitor_grid import element_cell_rows  # noqa: E402
+from mmadmm_tpu_torch.ops import be2d as B  # noqa: E402
 from mmadmm_tpu_torch.ops import newton as N  # noqa: E402
 from mmadmm_tpu_torch.ops import prox2d as P2  # noqa: E402
 from mmadmm_tpu_torch.ops import prox3d as P3  # noqa: E402
@@ -126,16 +130,35 @@ inline unsigned __ballot_sync(unsigned mask, bool p) {
 }
 """
 
-# one host entry per kernel: the launch becomes a loop over the elements
+# one host entry per kernel and real type: the launch becomes a loop over
+# the elements (the one-thread kernels) or over the blocks (the group
+# kernels); each entry exists as host_<name>_f32 and host_<name>_f64
 HOST_ENTRIES = {
     "prox2d": """
-extern "C" int host_prox2d(const float* z, const float* dxpu, const float* fr, const float* cells,
-                           float* zout, float* ih0, long long n, const float* c, int max_iters) {
-  Consts k{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
+template <typename R>
+int host_prox2d(const R* z, const R* dxpu, const R* fr, const R* cells, R* zout, R* ih0,
+                long long n, const R* c, int max_iters) {
+  Consts<R> k{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
   blockDim.x = 128;
   for (long long e = 0; e < n; ++e) {
     blockIdx.x = e / 128; threadIdx.x = e % 128;
-    prox2d_kernel(z, dxpu, fr, cells, zout, ih0, n, k, max_iters);
+    prox2d_kernel<R>(z, dxpu, fr, cells, zout, ih0, n, k, max_iters);
+  }
+  return 0;
+}
+""",
+    "be2d": """
+// K2 (hess 0) or K3 (hess 1): out is g [6, n] then ih [n], or H [21, n]
+template <typename R>
+int host_be2d(int hess, const R* z, const R* cells, R* out, long long n, const R* c) {
+  Consts<R> k{c[0], c[1], c[2], c[3], R(0), R(0), R(0), R(0)};
+  blockDim.x = 128;
+  for (long long e = 0; e < n; ++e) {
+    blockIdx.x = e / 128; threadIdx.x = e % 128;
+    if (hess)
+      hess2d_kernel<R>(z, cells, out, n, k);
+    else
+      eg2d_kernel<R>(z, cells, out, out + 6 * n, n, k);
   }
   return 0;
 }
@@ -146,12 +169,11 @@ extern "C" int host_prox2d(const float* z, const float* dxpu, const float* fr, c
 
 // the chord kernels (K4', K4''a) with G lanes per element: a block of
 // kChordE elements at a time, one host thread per lane
-template <bool kComp, int G>
-int host_chord(const float* z, const float* dxpu, const float* fr, const float* cells,
-               const float* ehat, float* zout, float* ih0, long long n, const float* c,
-               int max_iters) {
-  Ehat3 eh{};
-  Consts3 k;
+template <typename R, bool kComp, int G>
+int host_chord(const R* z, const R* dxpu, const R* fr, const R* cells, const R* ehat, R* zout,
+               R* ih0, long long n, const R* c, int max_iters) {
+  Ehat3<R> eh{};
+  Consts3<R> k;
   if (!kComp) std::memcpy(&eh, c, sizeof(eh));
   std::memcpy(&k, c + (kComp ? 0 : 9), sizeof(k));
   blockDim.x = kChordE * G;
@@ -161,89 +183,118 @@ int host_chord(const float* z, const float* dxpu, const float* fr, const float* 
     for (unsigned t = 0; t < (unsigned)(kChordE * G); ++t)
       lanes.emplace_back([=] {
         threadIdx.x = t;
-        prox3d_chord_kernel<kComp, G>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
-                                      max_iters);
+        prox3d_chord_kernel<R, kComp, G>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
+                                         max_iters);
       });
     for (auto& l : lanes) l.join();
   }
   return 0;
 }
 
-template <bool kComp>
-int host_chord_g(int g, const float* z, const float* dxpu, const float* fr, const float* cells,
-                 const float* ehat, float* zout, float* ih0, long long n, const float* c,
-                 int max_iters) {
+template <typename R, bool kComp>
+int host_chord_g(int g, const R* z, const R* dxpu, const R* fr, const R* cells, const R* ehat,
+                 R* zout, R* ih0, long long n, const R* c, int max_iters) {
   switch (g) {
-    case 2: return host_chord<kComp, 2>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-    case 4: return host_chord<kComp, 4>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-    case 8: return host_chord<kComp, 8>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+    case 2: return host_chord<R, kComp, 2>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+    case 4: return host_chord<R, kComp, 4>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+    case 8: return host_chord<R, kComp, 8>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
   }
   return 1;
 }
 
 // the Newton kernels (K4, K4''b) with G lanes per element: a block at a
 // time, one host thread per lane, the barriers and ballots as above
-template <bool kComp, int G>
-int host_newton(const float* z, const float* dxpu, const float* fr, const float* cells,
-                const float* ehat, float* zout, float* ih0, long long n, const float* c,
-                int max_iters) {
-  Ehat3 eh{};
-  Consts3 k;
+template <typename R, bool kComp, int G>
+int host_newton(const R* z, const R* dxpu, const R* fr, const R* cells, const R* ehat, R* zout,
+                R* ih0, long long n, const R* c, int max_iters) {
+  Ehat3<R> eh{};
+  Consts3<R> k;
   if (!kComp) std::memcpy(&eh, c, sizeof(eh));
   std::memcpy(&k, c + (kComp ? 0 : 9), sizeof(k));
-  blockDim.x = kThreads;
-  const long long per_block = kThreads / G;
+  constexpr int kT = kNewtonThreads<R>;
+  blockDim.x = kT;
+  const long long per_block = kT / G;
   for (long long b = 0; b * per_block < n; ++b) {
     blockIdx.x = b;
     std::vector<std::thread> lanes;
-    for (unsigned t = 0; t < (unsigned)kThreads; ++t)
+    for (unsigned t = 0; t < (unsigned)kT; ++t)
       lanes.emplace_back([=] {
         threadIdx.x = t;
-        prox3d_newton_kernel<kComp, G>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
-                                       max_iters);
+        prox3d_newton_kernel<R, kComp, G>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
+                                          max_iters);
       });
     for (auto& l : lanes) l.join();
   }
   return 0;
 }
 
-template <bool kComp>
-int host_newton_g(int g, const float* z, const float* dxpu, const float* fr, const float* cells,
-                  const float* ehat, float* zout, float* ih0, long long n, const float* c,
-                  int max_iters) {
+template <typename R, bool kComp>
+int host_newton_g(int g, const R* z, const R* dxpu, const R* fr, const R* cells, const R* ehat,
+                  R* zout, R* ih0, long long n, const R* c, int max_iters) {
   switch (g) {
-    case 4: return host_newton<kComp, 4>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-    case 8: return host_newton<kComp, 8>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-    case 16: return host_newton<kComp, 16>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+    case 4: return host_newton<R, kComp, 4>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+    case 8: return host_newton<R, kComp, 8>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+    case 16: return host_newton<R, kComp, 16>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
   }
   return 1;
 }
 
-extern "C" int host_prox3d(int g, const float* z, const float* dxpu, const float* fr,
-                           const float* cells, float* zout, float* ih0, long long n,
-                           const float* c, int max_iters) {
-  return host_newton_g<false>(g, z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
+template <typename R>
+int host_prox3d(int g, const R* z, const R* dxpu, const R* fr, const R* cells, R* zout, R* ih0,
+                long long n, const R* c, int max_iters) {
+  return host_newton_g<R, false>(g, z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
 }
 
-extern "C" int host_prox3d_chord(int g, const float* z, const float* dxpu, const float* fr,
-                                 const float* cells, float* zout, float* ih0, long long n,
-                                 const float* c, int max_iters) {
-  return host_chord_g<false>(g, z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
+template <typename R>
+int host_prox3d_chord(int g, const R* z, const R* dxpu, const R* fr, const R* cells, R* zout,
+                      R* ih0, long long n, const R* c, int max_iters) {
+  return host_chord_g<R, false>(g, z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
 }
 
-extern "C" int host_prox3d_chord_comp(int g, const float* z, const float* dxpu, const float* fr,
-                                      const float* cells, const float* ehat, float* zout,
-                                      float* ih0, long long n, const float* c, int max_iters) {
-  return host_chord_g<true>(g, z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+template <typename R>
+int host_prox3d_chord_comp(int g, const R* z, const R* dxpu, const R* fr, const R* cells,
+                           const R* ehat, R* zout, R* ih0, long long n, const R* c,
+                           int max_iters) {
+  return host_chord_g<R, true>(g, z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
 }
 
-extern "C" int host_prox3d_comp(int g, const float* z, const float* dxpu, const float* fr,
-                                const float* cells, const float* ehat, float* zout, float* ih0,
-                                long long n, const float* c, int max_iters) {
-  return host_newton_g<true>(g, z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
+template <typename R>
+int host_prox3d_comp(int g, const R* z, const R* dxpu, const R* fr, const R* cells,
+                     const R* ehat, R* zout, R* ih0, long long n, const R* c, int max_iters) {
+  return host_newton_g<R, true>(g, z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
 }
 """,
 }
+
+# each template entry in float and double, with a C name: (arguments
+# before the real pointers, real pointers, then the tail)
+ENTRY_ARGS = {
+    "host_prox2d": ("", 6), "host_be2d": ("int", 3), "host_prox3d": ("int", 6),
+    "host_prox3d_chord": ("int", 6), "host_prox3d_chord_comp": ("int", 7),
+    "host_prox3d_comp": ("int", 7),
+}
+
+
+def _c_entries(name):
+    """``extern "C"`` wrappers of the template entries of ``name``'s source,
+    host_<entry>_f32 and host_<entry>_f64."""
+    out = []
+    for entry, (lead, nptr) in ENTRY_ARGS.items():
+        if f"int {entry}(" not in HOST_ENTRIES[name]:
+            continue
+        for suffix, real in (("f32", "float"), ("f64", "double")):
+            params = ([f"int a{i}" for i in range(1 if lead else 0)]
+                      + [f"{real}* p{i}" for i in range(nptr)])
+            args = [f"a{i}" for i in range(1 if lead else 0)] + [f"p{i}" for i in range(nptr)]
+            if entry == "host_be2d":
+                params += ["long long n", f"const {real}* c"]
+                args += ["n", "c"]
+            else:
+                params += ["long long n", f"const {real}* c", "int max_iters"]
+                args += ["n", "c", "max_iters"]
+            out.append(f'extern "C" int {entry}_{suffix}({", ".join(params)}) {{\n'
+                       f'  return {entry}<{real}>({", ".join(args)});\n}}\n')
+    return "".join(out)
 
 
 # lanes per element that the group entries are run with
@@ -262,7 +313,7 @@ def build(tmp: str) -> dict:
     libs = {}
     for name, entries in HOST_ENTRIES.items():
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
-            src = re.sub(r"<<<[^>]*>>>", "", f.read()) + entries
+            src = re.sub(r"<<<[^>]*>>>", "", f.read()) + entries + _c_entries(name)
         cpp, so = os.path.join(tmp, f"{name}.cpp"), os.path.join(tmp, f"lib{name}.so")
         with open(cpp, "w") as f:
             f.write(src)
@@ -270,24 +321,55 @@ def build(tmp: str) -> dict:
                         "-shared", "-fPIC", "-pthread", "-w", "-I", tmp, cpp, "-o", so],
                        check=True)
         lib = ctypes.CDLL(so)
-        tail = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float), ctypes.c_int]
-        if name == "prox3d":  # the group entries take G first
-            lib.host_prox3d.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail
-            lib.host_prox3d_chord.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail
-            lib.host_prox3d_chord_comp.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + tail
-            lib.host_prox3d_comp.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + tail
-        else:
-            lib.host_prox2d.argtypes = [ctypes.c_void_p] * 6 + tail
+        for entry, (lead, nptr) in ENTRY_ARGS.items():
+            for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+                fn = getattr(lib, f"{entry}_{suffix}", None)
+                if fn is None:
+                    continue
+                tail = [ctypes.c_longlong, ctypes.POINTER(real)]
+                if entry != "host_be2d":
+                    tail.append(ctypes.c_int)
+                fn.argtypes = [ctypes.c_int] * bool(lead) + [ctypes.c_void_p] * nptr + tail
         libs[name] = lib
     return libs
 
 
 def correctly_rounded_sqrt(x):
-    """f32 square root through f64, which rounds correctly."""
+    """A correctly rounded square root: f32 through f64; f64 through NumPy
+    (the hardware's IEEE square root)."""
     if isinstance(x, N.Dual):
         s = correctly_rounded_sqrt(x.v)
         return N.Dual(s, x.d * (0.5 / s))
+    if x.dtype == torch.float64:
+        return torch.from_numpy(np.sqrt(x.numpy()))
     return torch.sqrt(x.double()).float()
+
+
+# (configuration, prox_chord) of each run; the float64 ones take the
+# float64 kernels, K1, K2, K3 and K4
+CASES = [
+    (dict(test_type="Shoulder", dim=2, mon_type=1, nx=16, ny=16), None),
+    (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4), None),
+    (dict(test_type="Shoulder", dim=3, mon_type=0, nx=4, ny=4, nz=4), None),
+    (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=6, ny=6, nz=6), None),
+    (dict(test_type="SquareGrid", dim=3, mon_type=5, nx=4, ny=4, nz=4, comp_mesh=True,
+          rho=10.0), True),
+    (dict(test_type="SquareGrid", dim=3, mon_type=5, nx=6, ny=6, nz=6, comp_mesh=True,
+          rho=10.0), True),
+    (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4), True),
+    (dict(test_type="SquareGrid", dim=3, mon_type=5, nx=4, ny=4, nz=4, comp_mesh=True,
+          rho=10.0), False),
+    (dict(test_type="Shoulder", dim=2, mon_type=1, nx=16, ny=16, dtype="float64"), None),
+    (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4, dtype="float64"), None),
+    (dict(test_type="Shoulder", dim=3, mon_type=0, nx=4, ny=4, nz=4, dtype="float64"), None),
+    (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=6, ny=6, nz=6, dtype="float64"), None),
+]
+
+
+def _report(label, kw, m, same):
+    print(f"{label} at {kw['test_type']} {kw['dim']}D nx={kw['nx']} {kw['dtype']}, {m} slots: "
+          f"host kernel bit-equal to the plain version on {100 * same:.2f} % of elements",
+          flush=True)
 
 
 def main() -> int:
@@ -295,31 +377,26 @@ def main() -> int:
     differ = float((torch.sqrt(a) != correctly_rounded_sqrt(a)).float().mean())
     print(f"PyTorch CPU sqrt differs from the correctly rounded f32 sqrt on {100 * differ:.2f} % "
           f"of 1,000,003 uniform inputs", flush=True)
+    a = a.double() * (1.0 + 1e-9)
+    differ = float((torch.sqrt(a) != correctly_rounded_sqrt(a)).float().mean())
+    print(f"... and from the correctly rounded f64 sqrt on {100 * differ:.2f} %", flush=True)
     P2.sqrt = P3.sqrt = correctly_rounded_sqrt
     rng = np.random.default_rng(0)
     failed = 0
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(tmp)
-        for kw, chord in ((dict(test_type="Shoulder", dim=2, mon_type=1, nx=16, ny=16), None),
-                          (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4), None),
-                          (dict(test_type="Shoulder", dim=3, mon_type=0, nx=4, ny=4, nz=4), None),
-                          (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=6, ny=6, nz=6), None),
-                          (dict(test_type="SquareGrid", dim=3, mon_type=5, nx=4, ny=4, nz=4,
-                                comp_mesh=True, rho=10.0), True),
-                          (dict(test_type="SquareGrid", dim=3, mon_type=5, nx=6, ny=6, nz=6,
-                                comp_mesh=True, rho=10.0), True),
-                          (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4),
-                           True),
-                          (dict(test_type="SquareGrid", dim=3, mon_type=5, nx=4, ny=4, nz=4,
-                                comp_mesh=True, rho=10.0), False)):
+        for kw, chord in CASES:
             kw = dict(dict(method=0, dt=5e-3, tau=0.1, rho=50.0, dtype="float32"), **kw)
+            dtype = getattr(torch, kw["dtype"])
+            sfx, real = (("_f64", ctypes.c_double) if dtype == torch.float64
+                         else ("_f32", ctypes.c_float))
             _, integ = build_problem(ExperimentConfig(**kw), device="cpu", prox_chord=chord)
             _, x, z, u = integ.start(integ.init_state())
-            noise = torch.tensor(rng.normal(scale=3e-3, size=tuple(u.shape)), dtype=torch.float32)
+            noise = torch.tensor(rng.normal(scale=3e-3, size=tuple(u.shape)), dtype=dtype)
             dxpu = integ.gather(x) + u + noise
             ehat = [float(v) for v in integ.mesh.ehat_np.reshape(-1)]
-            consts = [*N.consts(integ.w), N.f32(integ.prox_tol)]
-            k3 = [*consts, P3.K_THIRD, P3.K_G2, P3.K_DGDDET, P3.K_SM2A, P3.K_SM2B]
+            consts = [*N.consts(integ.w, dtype), N.rnd(integ.prox_tol, dtype)]
+            k3 = list(P3._consts3(integ.w, integ.prox_tol, dtype))
             if chord is not None:  # the stock engine: element-major blocks to channels
                 nf = z.shape[0]
                 name = "prox3d"
@@ -353,18 +430,27 @@ def main() -> int:
                 a_m = tuple(a[:, :m].contiguous() for a in args)
                 if cut:
                     zp, ihp = plain(*a_m, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
-                zo, ih = torch.empty_like(a_m[0]), torch.empty(m)
-                getattr(libs[name], entry)(
+                zo, ih = torch.empty_like(a_m[0]), torch.empty(m, dtype=dtype)
+                getattr(libs[name], entry + sfx)(
                     *(() if g is None else (g,)), *[t.data_ptr() for t in (*a_m, zo, ih)], m,
-                    (ctypes.c_float * len(k))(*k), integ.prox_max_iters)
+                    (real * len(k))(*k), integ.prox_max_iters)
                 same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
                 failed += same < 1.0
-                label = entry[5:] + (f", {g} lanes per element" if g else "") + (
+                _report(entry[5:] + (f", {g} lanes per element" if g else "") + (
                     " (computational mesh)" if kw.get("comp_mesh") else "") + (
-                    f", first {m} columns" if cut else "")
-                print(f"{label} at {kw['test_type']} {kw['dim']}D nx={kw['nx']}, {m} slots: host "
-                      f"kernel bit-equal to the plain version on {100 * same:.2f} % of elements",
-                      flush=True)
+                    f", first {m} columns" if cut else ""), kw, m, same)
+            if kw["dim"] == 2:  # K2 and K3 on the same slots
+                zb = z.contiguous()
+                cb = integ.cells(zb)
+                for hess, plain_be, rows in ((0, B.eg2d_plain, 7), (1, B.hess2d_plain, 21)):
+                    out = torch.empty((rows, n), dtype=dtype)
+                    getattr(libs["be2d"], "host_be2d" + sfx)(
+                        hess, zb.data_ptr(), cb.data_ptr(), out.data_ptr(), n, (real * 4)(*ehat))
+                    ref = plain_be(zb, cb, ehat)
+                    ref = torch.cat([ref[0], ref[1][None]]) if hess == 0 else ref
+                    same = float((out == ref).all(0).float().mean())
+                    failed += same < 1.0
+                    _report("be2d " + ("K3 hess2d" if hess else "K2 eg2d"), kw, n, same)
     print(f"{failed} runs not bit-equal", flush=True)
     return int(failed > 0)
 

@@ -2,10 +2,11 @@
 one-thread-per-element designs and against variants of their group
 design, timed on the card.
 
-    python3 scripts/cuda_k4_variants.py [newton] [chord]
+    python3 scripts/cuda_k4_variants.py [newton] [chord] [newton64]
 
 ``newton`` times the Newton-sweep kernels K4 and K4''b, ``chord`` the
-chord-sweep kernels K4' and K4''a; with no argument, both. Builds, by plain
+chord-sweep kernels K4' and K4''a, ``newton64`` K4's float64 build; with
+no argument, all three. Builds, by plain
 ``nvcc`` into the git-ignored ``mmadmm_tpu_torch/_build/k4_variants/``,
 copies of ``csrc/``, all started together:
 
@@ -35,7 +36,12 @@ copies of ``csrc/``, all started together:
   function of its own (``__noinline__``); at G = 2 the sweep loop kept
   rolled (``#pragma unroll 1``); and at G = 2, without a cap and with 6
   blocks an SM, the solve with the cached factors (``cached_direction``)
-  inlined.
+  inlined;
+- float64 variants of K4 (``newton64``): 8 and 16 lanes per element in
+  blocks of 64 threads (8 and 4 elements), and 32 elements a block of 128
+  threads at 4 lanes, whose 84.5 KB stage is dynamic shared memory (set
+  with ``cudaFuncSetAttribute``, at least 2 blocks an SM), against the
+  shipped 16 elements of static shared memory.
 
 It prints each build's ``-Xptxas -v`` registers, stack, spills and shared
 bytes for the selected kernels, then times every variant (median of 20
@@ -48,7 +54,9 @@ bit for bit to the plain version, on:
 - K4' at the stock engine's step-0 inputs of 3D CompSquare-40 (768,000
   tets) and CompSquare-20 (96,000), and K4''a at those of 3D
   SquareGrid-40 with ``prox_chord=True`` (768,000), against
-  ``prox3d_chord_comp_plain`` and ``prox3d_chord_plain``.
+  ``prox3d_chord_comp_plain`` and ``prox3d_chord_plain``;
+- K4's float64 build at the step-0 prox inputs of 3D Shoulder-40 and 3D
+  SquareGrid-40 in float64, against ``prox3d_plain`` in float64.
 
 Prints the card's name and power limit first. Needs a CUDA card; run it
 from the root of the repo.
@@ -73,7 +81,7 @@ from mmadmm_tpu_torch import cuda_build  # noqa: E402
 from mmadmm_tpu_torch.ops import prox3d as P3  # noqa: E402
 
 OUT = os.path.join(cuda_build.BUILD_DIR, "k4_variants")
-LAUNCH = "template <bool kChord, bool kComp>\nint launch("
+LAUNCH = "template <typename R, bool kChord, bool kComp>\nint launch("
 
 # The one-thread-per-element designs, on prox3d.cu's helpers: the Newton
 # sweep with the retire test after the step (kLate, the JAX order) or
@@ -90,7 +98,7 @@ struct Cells {
 // the lower triangle of the Hessian at z into H (this thread's column of
 // the shared array, H[tri(i, j) * kThreads]), one dual pass per column
 __device__ __forceinline__ void hess12(const float* z, const Cells& cells, const float* h,
-                                       const float* dxpu, const float* fr, const Consts3& k,
+                                       const float* dxpu, const float* fr, const Consts3<float>& k,
                                        const float* free_col, long long n, float* H) {
 #pragma unroll 1
   for (int j = 0; j < 12; ++j)
@@ -99,12 +107,12 @@ __device__ __forceinline__ void hess12(const float* z, const Cells& cells, const
 
 // backtracking: the largest accepted alpha, 0 if none
 __device__ __forceinline__ float backtrack(const float* z, const float* p, const Cells& cells,
-                                           const float* h, const float* dxpu, const Consts3& k,
+                                           const float* h, const float* dxpu, const Consts3<float>& k,
                                            float e0, float det_floor) {
   float alpha = 0.0f;
 #pragma unroll 1
   for (int a = 0; a < 5; ++a)
-    if (trial_ok(z, p, alpha_bt(a), cells, h, dxpu, k, e0, det_floor)) alpha = alpha_bt(a);
+    if (trial_ok(z, p, alpha_bt<float>(a), cells, h, dxpu, k, e0, det_floor)) alpha = alpha_bt<float>(a);
   return alpha;
 }
 
@@ -131,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) prox3d_thread_kernel(
     const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
     const float* __restrict__ free_in, const float* __restrict__ cells_in,
     const float* __restrict__ ehat_in, float* __restrict__ zout, float* __restrict__ ih0_out,
-    long long n, Ehat3 eh, Consts3 k, int max_iters) {
+    long long n, Ehat3<float> eh, Consts3<float> k, int max_iters) {
   __shared__ float hess[kTri * kThreads];
   long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
@@ -154,7 +162,7 @@ __global__ void __launch_bounds__(kThreads) prox3d_thread_kernel(
     float det_floor = floor_of(edet3(z));
     float alpha = backtrack(z, p, cells, h, dxpu, k, e0, det_floor);
     float step_inf = alpha * absmax(p);
-    bool stalled = step_inf <= kEpsStall * (1.0f + absmax(z));
+    bool stalled = step_inf <= Num<float>::kEpsStall * (1.0f + absmax(z));
     if (kLate && it > 0 && gnorm < k.tol) break;
 #pragma unroll
     for (int i = 0; i < 12; ++i) z[i] = z[i] + alpha * p[i];
@@ -169,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) prox3d_chord_thread_kernel(
     const float* __restrict__ z_in, const float* __restrict__ dxpu_in,
     const float* __restrict__ free_in, const float* __restrict__ cells_in,
     const float* __restrict__ ehat_in, float* __restrict__ zout, float* __restrict__ ih0_out,
-    long long n, Ehat3 eh, Consts3 k, int max_iters) {
+    long long n, Ehat3<float> eh, Consts3<float> k, int max_iters) {
   __shared__ float hess[kTri * kThreads];
   long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
@@ -197,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) prox3d_chord_thread_kernel(
 #pragma unroll
       for (int i = 0; i < 12; ++i) p[i] = alpha * p[i];
     }
-    bool stalled = absmax(p) <= kEpsStall * (1.0f + absmax(z));
+    bool stalled = absmax(p) <= Num<float>::kEpsStall * (1.0f + absmax(z));
 #pragma unroll
     for (int i = 0; i < 12; ++i) z[i] = z[i] + p[i];
     if (stalled) break;
@@ -213,8 +221,8 @@ int launch_thread(int design, const float* z, const float* dxpu, const float* fr
                   const float* cells, const float* ehat, float* zout, float* ih0, long long n,
                   const float* consts, int max_iters) {
   if (n <= 0) return 0;
-  Ehat3 eh{};
-  Consts3 k;
+  Ehat3<float> eh{};
+  Consts3<float> k;
   if constexpr (!kComp) std::memcpy(&eh, consts, sizeof(eh));
   std::memcpy(&k, consts + (kComp ? 0 : 9), sizeof(k));
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
@@ -251,13 +259,14 @@ def _sub(s, old, new):
     return s.replace(old, new)
 
 
-NEWTON_BOUNDS = "__launch_bounds__(kThreads, kComp ? kBlocksComp : kBlocks) prox3d_newton_kernel("
+NEWTON_BOUNDS = ("__launch_bounds__(kNewtonThreads<R>, kComp ? kBlocksComp : kBlocks) "
+                 "prox3d_newton_kernel(")
 CHORD_BOUNDS = "__launch_bounds__(kChordE * G)\n    prox3d_chord_kernel("
 CHORD_GROUPS = ('static_assert(G == 2 || G == 4 || G == 8, "a group is 2, 4 or 8 lanes of one '
                 'warp");')
 FACTOR = "  if (lane == 0) factor12<1>(H);\n"
 # every lane factors a copy of the triangle in its registers, one writes it back
-FACTOR_IN_REGISTERS = """  float L[kTri];
+FACTOR_IN_REGISTERS = """  R L[kTri];
 #pragma unroll
   for (int t = 0; t < kTri; ++t) L[t] = H[t];
   factor12<1>(L);
@@ -270,10 +279,10 @@ FACTOR_IN_REGISTERS = """  float L[kTri];
 
 
 def _newton(g, blocks):
-    """kGroup = g and ``__launch_bounds__(kThreads, blocks)`` on the Newton
+    """kGroup = g and ``__launch_bounds__(kNewtonThreads<R>, blocks)`` on the Newton
     kernels (no minimum where ``blocks`` is 0)."""
     def edit(s):
-        bounds = f"(kThreads, {blocks})" if blocks else "(kThreads)"
+        bounds = f"(kNewtonThreads<R>, {blocks})" if blocks else "(kNewtonThreads<R>)"
         s = re.sub(r"constexpr int kGroup = \d+;", f"constexpr int kGroup = {g};", s)
         return _sub(s, NEWTON_BOUNDS, f"__launch_bounds__{bounds} prox3d_newton_kernel(")
     return edit
@@ -309,6 +318,31 @@ def _chord(g, blocks, factor_one_lane=True, *edits):
     return edit
 
 
+# K4's float64 stage of 32 elements in dynamic shared memory, in blocks of
+# 128 threads; at 84.5 KB a stage an SM holds 2 such blocks
+DYNAMIC_STAGE = (
+    ("constexpr int kNewtonThreads = sizeof(R) == 4 ? 128 : 64;",
+     "constexpr int kNewtonThreads = 128;"),
+    ("  __shared__ __align__(16) NewtonStage<R, kComp, kE> st;",
+     "  extern __shared__ __align__(16) unsigned char stage_bytes[];\n"
+     "  NewtonStage<R, kComp, kE>& st = *reinterpret_cast<NewtonStage<R, kComp, kE>*>"
+     "(stage_bytes);"),
+    ("    prox3d_newton_kernel<R, kComp, kGroup><<<(unsigned)blocks, kT, 0, "
+     "(cudaStream_t)stream>>>(",
+     "    constexpr int kStage = (int)sizeof(NewtonStage<R, kComp, kE>);\n"
+     "    cudaFuncSetAttribute(prox3d_newton_kernel<R, kComp, kGroup>,\n"
+     "                         cudaFuncAttributeMaxDynamicSharedMemorySize, kStage);\n"
+     "    prox3d_newton_kernel<R, kComp, kGroup><<<(unsigned)blocks, kT, kStage, "
+     "(cudaStream_t)stream>>>("),
+)
+
+
+def _dynamic(s):
+    for old, new in DYNAMIC_STAGE:
+        s = _sub(s, old, new)
+    return _newton(4, 2)(s)
+
+
 BUILDS = {
     "thread": lambda s: _sub(s, LAUNCH, THREAD_KERNELS + LAUNCH) + THREAD_ENTRY,
     "as it is": lambda s: s,
@@ -336,6 +370,12 @@ CHORD_BUILDS = {
     "chord G=2, no block minimum, solve inlined": _chord(2, 0, True, INLINED),
     "chord G=2, 6 blocks an SM, solve inlined": _chord(2, 6, True, INLINED),
 }
+NEWTON64_BUILDS = {
+    "float64 K4, G=8 (8 elements a block of 64)": _newton(8, 4),
+    "float64 K4, G=16 (4 elements a block of 64)": _newton(16, 4),
+    "float64 K4, 32 elements a block of 128, dynamic shared memory": _dynamic,
+}
+FAMILY_BUILDS = {"newton": NEWTON_BUILDS, "chord": CHORD_BUILDS, "newton64": NEWTON64_BUILDS}
 THREAD_NAMES = {
     "newton": {0: "one thread per element, retire before the Hessian",
                1: "one thread per element, retire after the step"},
@@ -363,17 +403,18 @@ def _ptxas(out: str, family: str):
         smem = re.search(r"(\d+) bytes smem", line)
         smem = int(smem.group(1)) if smem else 0
         if family == "newton":
-            t = re.search(r"prox3d_newton_kernelILb([01])ELi(\d+)E", name)
+            t = re.search(r"prox3d_newton_kernelI([fd])Lb([01])ELi(\d+)E", name)
             u = re.search(r"prox3d_thread_kernelILb([01])ELb([01])E", name)
             if t:
-                kernel = ("K4''b" if t.group(1) == "1" else "K4") + f", {t.group(2)} lanes"
+                kernel = (("K4''b" if t.group(2) == "1" else "K4") + f", {t.group(3)} lanes"
+                          + (", float64" if t.group(1) == "d" else ""))
             elif u:
                 kernel = ("K4''b" if u.group(1) == "1" else "K4") + ", " + THREAD_NAMES[
                     "newton"][int(u.group(2))]
             else:
                 continue
         else:
-            t = re.search(r"prox3d_chord_kernelILb([01])ELi(\d+)E", name)
+            t = re.search(r"prox3d_chord_kernelIfLb([01])ELi(\d+)E", name)
             u = re.search(r"prox3d_chord_thread_kernelILb([01])E", name)
             if t:
                 kernel = ("K4'" if t.group(1) == "1" else "K4''a") + f", {t.group(2)} lanes"
@@ -406,7 +447,7 @@ def build_all(builds, families):
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed\n{out}")
         print(f"{name}: built in {time.perf_counter() - t0:.1f} s", flush=True)
-        for family in families:
+        for family in dict.fromkeys("newton" if f == "newton64" else f for f in families):
             for kernel, regs, stack, st, ld, smem in _ptxas(out, family):
                 print(f"  ptxas {kernel}: {regs} registers, {stack} bytes stack frame, {st} "
                       f"bytes spill stores, {ld} bytes spill loads, {smem} bytes shared",
@@ -433,6 +474,12 @@ def cases(families):
                                               "mm_prox3d", P3.prox3d_plain)
         out["K4''b at 3D CompSquare-40 step 0"] = ("newton", C.stock_inputs(comp), None, comp,
                                                    "mm_prox3d_comp", P3.prox3d_comp_plain)
+    if "newton64" in families:
+        for tt, mon in (("Shoulder", 0), ("SquareGrid", 1)):
+            integ = C.box3d(tt, mon, 40, dtype="float64")[2]
+            out[f"K4 float64 at 3D {tt}-40 float64 step 0"] = (
+                "newton64", C.prox_inputs(integ), integ.mesh.ehat_np.reshape(-1), integ,
+                "mm_prox3d_f64", P3.prox3d_plain)
     if "chord" in families:
         for n in (40, 20):
             comp = C.comp_square(n)[2]
@@ -450,31 +497,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("cuda_k4_variants: no CUDA device", file=sys.stderr)
         return 1
-    families = [a for a in sys.argv[1:] if a in ("newton", "chord")] or ["newton", "chord"]
+    families = [a for a in sys.argv[1:] if a in FAMILY_BUILDS] or list(FAMILY_BUILDS)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)}; {smi}; torch {torch.__version__}", flush=True)
     builds = dict(BUILDS)
-    if "newton" in families:
-        builds.update(NEWTON_BUILDS)
-    if "chord" in families:
-        builds.update(CHORD_BUILDS)
+    for family in families:
+        builds.update(FAMILY_BUILDS[family])
     libs = build_all(builds, families)
     for label, (family, inputs, ehat, integ, entry, plain) in cases(families).items():
         z, n = inputs[0], inputs[0].shape[1]
         comp_mesh = ehat is None
-        consts = P3._consts3(integ.w, integ.prox_tol)
-        k = ((ctypes.c_float * 9)(*consts) if comp_mesh
-             else (ctypes.c_float * 18)(*ehat, *consts))
+        real = ctypes.c_double if z.dtype == torch.float64 else ctypes.c_float
+        consts = P3._consts3(integ.w, integ.prox_tol, z.dtype)
+        k = (real * 9)(*consts) if comp_mesh else (real * 18)(*ehat, *consts)
         pargs = () if comp_mesh else (ehat,)
         zp, ihp = plain(*inputs, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
         ptrs = [t.data_ptr() for t in inputs[:4]]
         eh_ptr = inputs[4].data_ptr() if comp_mesh else None
-        own = NEWTON_BUILDS if family == "newton" else CHORD_BUILDS
-        order = [*THREAD_NAMES[family], "as it is", *own]
+        order = [*THREAD_NAMES.get(family, {}), "as it is", *FAMILY_BUILDS[family]]
         times = {v: [] for v in order}
         for v in order + order[::-1]:
-            zo, ih = torch.empty_like(z), torch.empty(n, device=z.device)
+            zo, ih = torch.empty_like(z), torch.empty(n, dtype=z.dtype, device=z.device)
             if isinstance(v, int):
                 def call(design=v):
                     return libs["thread"].mm_prox3d_thread(
@@ -498,7 +542,7 @@ def main() -> int:
         print(f"{label} ({n} slots), bit-equal to the plain version in every variant:",
               flush=True)
         for v in order:
-            name = THREAD_NAMES[family].get(v, v)
+            name = THREAD_NAMES.get(family, {}).get(v, v)
             print(f"  {name}: {' and '.join(f'{t:.4f}' for t in times[v])} ms", flush=True)
     return 0
 

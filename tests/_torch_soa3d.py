@@ -40,9 +40,9 @@ STEPS = 4
 X_ATOL = 2e-6
 
 
-def config(test_type: str, mon_type: int) -> dict:
+def config(test_type: str, mon_type: int, dtype: str = "float32") -> dict:
     return dict(test_type=test_type, dim=3, mon_type=mon_type, method=0, nx=4, ny=4, nz=4,
-                dt=5e-3, tau=0.1, rho=50.0, dtype="float32")
+                dt=5e-3, tau=0.1, rho=50.0, dtype=dtype)
 
 
 def release_jax_memory():
@@ -122,15 +122,15 @@ def run_port(integ, state):
     return infos, state
 
 
-def check_step(jax_infos, port_infos, k):
+def check_step(jax_infos, port_infos, k, rel=2e-6):
     ih_j, it_j = jax_infos[k]
     info = port_infos[k]
     assert info.n_iters == it_j
-    assert info.ih == pytest.approx(ih_j, rel=2e-6)
+    assert info.ih == pytest.approx(ih_j, rel=rel)
 
 
-def check_final_state(j, s_p):
-    np.testing.assert_allclose(s_p.x.numpy(), j["x"], rtol=0, atol=X_ATOL)
+def check_final_state(j, s_p, atol=X_ATOL):
+    np.testing.assert_allclose(s_p.x.numpy(), j["x"], rtol=0, atol=atol)
     assert s_p.steps == j["steps"] and s_p.rises == j["rises"] and s_p.rose == j["rose"]
 
 

@@ -120,23 +120,27 @@ def test_run_loop_dt_tol_stop(method):
     assert steps == 3 and trace[2] < trace[0]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("test_type", ["SquareGrid", "Shoulder"])
 @pytest.mark.parametrize("method,cls", [(1, EulerIntegrator), (2, BackwardEulerIntegrator)],
                          ids=["euler", "be"])
-def test_build_problem_routes_to_the_stencil_engine(test_type, method, cls):
-    kw = dict(KW, test_type=test_type, method=method)
+def test_build_problem_routes_to_the_stencil_engine(test_type, method, cls, dtype):
+    """Both dtypes take the stencil engine, K2 and K3 built in the mesh's
+    dtype (the float64 ones since ROADMAP A20, B8)."""
+    kw = dict(KW, test_type=test_type, method=method, dtype=dtype)
     mesh, integ = build_problem(ExperimentConfig(**kw), device="cpu")
     assert type(integ) is cls
     assert integ.eg.NFd == 1024
     live = {"SquareGrid": 1024, "Shoulder": 768}[test_type]
     assert int(integ.eg.valid.sum()) == live == mesh.n_elements
+    assert integ.eg.valid.dtype == integ.init_state().x.dtype == getattr(torch, dtype)
 
 
 @pytest.mark.parametrize("method,item", [(1, "A11"), (2, "A12")], ids=["euler", "be"])
 @pytest.mark.parametrize("change,change_item", [
-    (dict(test_type="LevelSet"), None), (dict(dtype="float64"), None),
-    (dict(n_devices=2), "A15"), (dict(nx=8, ny=8), None),
-], ids=["levelset", "float64", "sharded", "off_gate"])
+    (dict(test_type="LevelSet"), None), (dict(n_devices=2), "A15"), (dict(nx=8, ny=8), None),
+    (dict(nx=8, ny=8, dtype="float64"), None),
+], ids=["levelset", "sharded", "off_gate", "off_gate_float64"])
 def test_unported_routes_raise(method, item, change, change_item):
     kw = dict(KW, method=method, **change)
     with pytest.raises(NotImplementedError, match=change_item or item):

@@ -17,7 +17,8 @@ atol 1e-6; the same for K4' (``csrc/prox3d.cu`` vs ``ops/prox3d.py::
 prox3d_chord_comp_plain``, tests/test_torch_prox3d_chord.py), on the
 stock engine's inputs. K4, K4', K4''a and K4''b (``prox3d``,
 ``prox3d_chord_comp``, ``prox3d_chord``, ``prox3d_comp``) are also held
-bit for bit to their plain versions."""
+bit for bit to their plain versions, and so are the float64 builds of K1,
+K2, K3 and K4."""
 
 import pytest
 import torch
@@ -564,3 +565,123 @@ def test_chord_kernels_bit_equal_to_plain(variant, case, monkeypatch):
     if case == "mixed refresh":
         assert stats["refreshes"] >= 1 and built[0] == 32
         assert len(built) > 1 and all(0 < k < 32 for k in built[1:])
+
+
+# The float64 builds of K1, K2, K3 and K4 (``mm_prox2d_f64``, ``mm_eg2d_f64``,
+# ``mm_hess2d_f64``, ``mm_prox3d_f64``), bit for bit against their plain
+# versions in float64, on the float64 stencil engines' inputs at nx=16 (2D)
+# and nx=4 (3D), at ragged sizes, and the float64 paths' launches, counted
+# apart from the float32 ones.
+def _problem64(dim=2, method=0, test_type="Shoulder", mon_type=1):
+    kw = dict(test_type=test_type, dim=dim, mon_type=mon_type, method=method, nx=16, ny=16,
+              dtype="float64")
+    if dim == 3:
+        kw.update(nx=4, ny=4, nz=4)
+    return build_problem(ExperimentConfig(**kw))
+
+
+F64_CASES = ["path", "max_iters=1", "n=1", "n=5", "n=127", "n=129", "n=700"]
+
+
+def _cut(inputs, args, case):
+    args = list(args)
+    if case.startswith("max_iters="):
+        args[-1] = int(case.split("=")[1])
+    elif case.startswith("n="):
+        inputs = tuple(t[:, :int(case[2:])].contiguous() for t in inputs)
+    return inputs, args
+
+
+@pytest.mark.parametrize("case", F64_CASES)
+def test_k1_f64_bit_equal_to_plain(case):
+    _card()
+    _, integ = _problem64()
+    inputs, args = _cut(*_inputs(integ), case)
+    assert inputs[0].dtype == torch.float64
+    before = (P.prox2d.launches, P.prox2d.launches_f64)
+    zk, ihk = P.prox2d(*inputs, *args)
+    torch.cuda.synchronize()
+    assert (P.prox2d.launches, P.prox2d.launches_f64) == (before[0], before[1] + 1)
+    zp, ihp = P.prox2d_plain(*inputs, *args)
+    assert zk.dtype == torch.float64 and torch.equal(zk, zp) and torch.equal(ihk, ihp)
+
+
+@pytest.mark.parametrize("n", [None, 1, 127, 129, 1000])
+def test_k2_k3_f64_bit_equal_to_plain(n):
+    _card()
+    _, integ = _problem64(method=2)
+    z = integ.eg.gather(integ.mesh.X0).contiguous()
+    cells, ehat = integ.eg.cells(z), integ.mesh.ehat_np.reshape(-1)
+    if n is not None:
+        z, cells = z[:, :n].contiguous(), cells[:, :n].contiguous()
+    before = (B.eg2d.launches_f64, B.hess2d.launches_f64)
+    gk, ihk = B.eg2d(z, cells, ehat)
+    Hk = B.hess2d(z, cells, ehat)
+    torch.cuda.synchronize()
+    assert (B.eg2d.launches_f64, B.hess2d.launches_f64) == (before[0] + 1, before[1] + 1)
+    gp, ihp = B.eg2d_plain(z, cells, ehat)
+    assert gk.dtype == torch.float64
+    assert torch.equal(gk, gp) and torch.equal(ihk, ihp)
+    assert torch.equal(Hk, B.hess2d_plain(z, cells, ehat))
+
+
+@pytest.mark.parametrize("case", F64_CASES)
+@pytest.mark.parametrize("test_type,mon_type", [("SquareGrid", 1), ("Shoulder", 0)])
+def test_k4_f64_bit_equal_to_plain(test_type, mon_type, case):
+    _card()
+    _, integ = _problem64(3, 0, test_type, mon_type)
+    inputs, args = _cut(*_inputs(integ), case)
+    assert inputs[0].dtype == torch.float64
+    before = (P3.prox3d.launches, P3.prox3d.launches_f64)
+    zk, ihk = P3.prox3d(*inputs, *args)
+    torch.cuda.synchronize()
+    assert (P3.prox3d.launches, P3.prox3d.launches_f64) == (before[0], before[1] + 1)
+    zp, ihp = P3.prox3d_plain(*inputs, *args)
+    assert zk.dtype == torch.float64 and torch.equal(zk, zp) and torch.equal(ihk, ihp)
+
+
+@pytest.mark.parametrize("dim,method", [(2, 0), (2, 1), (2, 2), (3, 0)],
+                         ids=["admm", "euler", "be", "admm3d"])
+def test_float64_paths_launch_the_float64_kernels(dim, method):
+    """K1 or K4 once per ADMM iteration, K2 once per Euler step, K2 and K3
+    as backward Euler counts them: all in their float64 counters, the
+    float32 counters at 0."""
+    _card()
+    _, integ = _problem64(dim, method)
+    fns = (P.prox2d, B.eg2d, B.hess2d, P3.prox3d)
+    for fn in fns:
+        fn.launches = fn.launches_f64 = 0
+    infos = []
+    _, trace, steps = run(integ, integ.init_state(), cap=3, dt_tol=0.0,
+                          on_step=lambda k, info: infos.append(info))
+    assert steps == 3 and trace[2] < trace[0]
+    assert all(fn.launches == 0 for fn in fns)
+    got = tuple(fn.launches_f64 for fn in fns)
+    if method == 0:
+        iters = sum(i.n_iters for i in infos)
+        assert got == ((iters, 0, 0, 0) if dim == 2 else (0, 0, 0, iters)) and iters > 0
+    elif method == 1:
+        assert got == (0, 3, 0, 0)
+    else:
+        assert got == (0, sum(i.n_newton for i in infos) + 3 * 3, 3, 0)
+
+
+def test_float64_kernels_never_cast():
+    """Mixed float32 and float64 inputs raise; the float64 builds of K4',
+    K4''a and K4''b (ROADMAP B10) raise on the card and launch nothing."""
+    _card()
+    _, integ = _problem64(3)
+    (z, dxpu, free, cells), args = _inputs(integ)
+    with pytest.raises(ValueError):
+        P3.prox3d(z, dxpu.float(), free, cells, *args)
+    _, integ2 = _problem64()
+    (z2, dxpu2, free2, cells2), args2 = _inputs(integ2)
+    with pytest.raises(ValueError):
+        P.prox2d(z2, dxpu2, free2.float(), cells2, *args2)
+    eh = torch.ones((9, z.shape[1]), dtype=torch.float64, device=z.device)
+    for fn, extra in ((P3.prox3d_chord, (args[0],)), (P3.prox3d_comp, (eh,)),
+                      (P3.prox3d_chord_comp, (eh,))):
+        before = fn.launches
+        with pytest.raises(ValueError, match="B10"):
+            fn(z, dxpu, free, cells, *extra, *args[1:])
+        assert fn.launches == before

@@ -157,13 +157,27 @@ def test_unported_routes_name_their_roadmap_item(change, item):
     (dict(nx=8, ny=8), "ADMMIntegrator", "pallas"),
     (dict(), "GridADMM2D", "pallas"), (dict(dim=3, nz=4), "SoAADMM3D", "pallas"),
     (dict(prox_backend="pallas"), "GridADMM2D", "pallas"),
-    # the generic route (ROADMAP A10, A14): float64, "vmap" and 2D
-    # computational meshes take the stock engine, box meshes too
-    (dict(dim=3, nz=4, dtype="float64"), "ADMMIntegrator", "vmap"),
+    # float64 box meshes on the stencil gate: the stencil engines with K1
+    # and K4 built in float64 (ROADMAP A20, B7, B9); the mesh's own route
+    # stays the JAX package's float64 default, the generic prox
+    (dict(dim=3, nz=4, dtype="float64"), "SoAADMM3D", "vmap"),
+    (dict(dtype="float64"), "GridADMM2D", "vmap"),
+    (dict(dtype="float64", prox_backend="pallas"), "GridADMM2D", "pallas"),
+    (dict(dim=3, nz=4, dtype="float64", prox_backend="pallas"), "SoAADMM3D", "pallas"),
+    # the generic route (ROADMAP A10, A14): float64 off the stencil gate,
+    # "vmap" and 2D computational meshes take the stock engine
     (dict(comp_mesh=True), "ADMMIntegrator", "vmap"),
-    (dict(dtype="float64"), "ADMMIntegrator", "vmap"),
     (dict(nx=8, ny=8, dtype="float64"), "ADMMIntegrator", "vmap"),
     (dict(prox_backend="vmap"), "ADMMIntegrator", "vmap"),
+    (dict(dtype="float64", prox_backend="vmap"), "ADMMIntegrator", "vmap"),
+    (dict(dim=3, nz=4, dtype="float64", prox_backend="vmap"), "ADMMIntegrator", "vmap"),
+    (dict(dim=3, nz=4, dtype="float64", test_type="LevelSet"), "ADMMIntegrator", "vmap"),
+    (dict(dtype="float64", comp_mesh=True), "ADMMIntegrator", "vmap"),
+    # "pallas" in float64 off the stencil gate: the stock engine with K1 or
+    # K4 built in float64 behind their element-major entries
+    (dict(nx=8, ny=8, dtype="float64", prox_backend="pallas"), "ADMMIntegrator", "pallas"),
+    (dict(dim=3, nz=4, dtype="float64", test_type="LevelSet", prox_backend="pallas"),
+     "ADMMIntegrator", "pallas"),
     # LevelSet meshes: the stock engine, on the kernels in float32 (K1, K4)
     (dict(dim=3, nz=4, test_type="LevelSet"), "ADMMIntegrator", "pallas"),
     (dict(test_type="LevelSet"), "ADMMIntegrator", "pallas"),
@@ -180,14 +194,25 @@ def test_ported_routes_build_their_engine(change, engine, backend):
     assert mesh.comp_mesh == bool(change.get("comp_mesh"))
 
 
-@pytest.mark.parametrize("change", [dict(dtype="float64"), dict(comp_mesh=True)])
-def test_kernel_route_refuses_what_no_kernel_computes(change):
-    """``prox_backend="pallas"`` in float64 or on a 2D computational mesh:
-    the kernels are float32 and K1 has no computational-mesh mode."""
+@pytest.mark.parametrize("change,item", [
+    # K4' (chord sweeps, a computational mesh) in float64 is ROADMAP B10
+    (dict(dtype="float64", dim=3, nz=4, comp_mesh=True), "B10"),
+    (dict(comp_mesh=True), "computational-mesh"),
+    # K4''a and K4''b in float64, B10 too
+    (dict(dtype="float64", dim=3, nz=4, prox_chord=True), "B10"),
+    (dict(dtype="float64", dim=3, nz=4, comp_mesh=True, prox_chord=False), "B10"),
+    (dict(dtype="float64", comp_mesh=True), "computational-mesh"),
+], ids=["float64", "comp_mesh", "float64_k4pp_a", "float64_k4pp_b", "float64_comp_mesh_2d"])
+def test_kernel_route_refuses_what_no_kernel_computes(change, item):
+    """``prox_backend="pallas"`` where no kernel computes the function: the
+    float64 builds of K4', K4''a and K4''b (ROADMAP B10), and a 2D
+    computational mesh (K1 has no computational-mesh mode)."""
     kw = dict(KW, test_type="Shoulder", prox_backend="pallas")
     kw.update(change)
-    with pytest.raises(ValueError, match="pallas"):
-        build_problem(ExperimentConfig(**kw), device="cpu")
+    chord = kw.pop("prox_chord", None)
+    with pytest.raises(ValueError, match="pallas") as err:
+        build_problem(ExperimentConfig(**kw), device="cpu", prox_chord=chord)
+    assert item in str(err.value)
 
 
 def test_device_default_is_cuda():
@@ -214,3 +239,25 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("name,headers", [
+    ("prox2d", {"huang2d.cuh", "dual.cuh"}), ("be2d", {"huang2d.cuh", "dual.cuh"}),
+    ("prox3d", {"huang3d.cuh", "dual.cuh"}),
+])
+def test_build_hash_covers_every_header(name, headers, tmp_path, monkeypatch):
+    """Each library's hash covers its source and every header it includes,
+    so an edit to a header (the float and double builds share them)
+    builds the library anew."""
+    import shutil
+
+    from mmadmm_tpu_torch import cuda_build
+
+    assert set(cuda_build._sources(name)) == {f"{name}.cu"} | headers
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", str(csrc))
+    before = cuda_build._paths(name)
+    with open(csrc / "dual.cuh", "a") as f:
+        f.write("\n// an edit\n")
+    assert cuda_build._paths(name)[0] != before[0]
