@@ -7,8 +7,8 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: kernel K1 (``csrc/prox2d.cu``), kernels K2 and K3
    (``csrc/be2d.cu``) and kernels K4, K4' and K4'' (``csrc/prox3d.cu``),
-   one ``nvcc`` per source, started together, and their registers and
-   spills (``-Xptxas -v``);
+   each in float and double, one ``nvcc`` per source, started together,
+   and their registers and spills (``-Xptxas -v``);
 3. kernel vs plain: every kernel against its plain PyTorch version on the
    same inputs: K1-K3 at Shoulder nx=16 and on the step-0 inputs of
    Shoulder-320 (409,600 element slots), K4 at 3D SquareGrid nx=4 and on
@@ -20,8 +20,10 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    inputs of 3D SquareGrid and CompSquare at nx=4, nx=20 and, in their
    main paths, nx=40 (768,000 tets); K4, K4' and K4'' bit for bit; and
    the float64 builds of K1, K2 and K3 on the step-0 inputs of
-   Shoulder-320 in float64 and of K4 on those of 3D Shoulder-40 and 3D
-   SquareGrid-40 in float64, each bit for bit;
+   Shoulder-320 in float64, of K4 on those of 3D Shoulder-40 and 3D
+   SquareGrid-40 in float64, and of K4', K4''a and K4''b on the float64
+   kernel route's at nx=4 and (in their paths) at CompSquare-20/-40 and
+   SquareGrid-40, each bit for bit;
 4. main paths, each through ``problems.build_problem`` and
    ``integrators.run_loop.run`` with the DtTol stop, with every launch
    count set to 0 just before and read just after: at Shoulder-320, at
@@ -65,12 +67,21 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    within rtol 1e-6 and, for backward Euler, the post-step energy within
    its neumann band, rtol 1e-5), and card against CPU in float64 at
    Shoulder nx=16 (methods 0-2) and 3D SquareGrid nx=4 (``I_h`` within
-   rtol 1e-10, the same inner counts);
+   rtol 1e-10, the same inner counts); then the stock engine on the
+   float64 kernel route (``prox_backend="pallas"``, ``F64_STOCK``, at most
+   ``F64_CAP`` steps each): 3D CompSquare-20 and -40 with K4', 3D
+   SquareGrid-40 with ``prox_chord=True`` and K4''a, CompSquare-40 with
+   ``prox_chord=False`` and K4''b (the float64 launches = ADMM iterations,
+   every other counter 0; ``I_h`` finite and falling; the CompSquare
+   paths' step-0 ``I_h`` within rtol 1e-12 of the JAX package's and
+   CompSquare-20's step 1 within rtol 1e-7, the ADMM counts printed beside
+   the JAX package's), and card against CPU on that route at nx=4 (rtol
+   1e-10, the same ADMM counts);
 5. timing: each kernel alone (median of 20 launches, CUDA events), its
    plain version once, and its bound (float64 rows: 8-byte values, the
    float64 operation rate); one JSON line ``{"kernels": [...]}`` (K4' on
    CompSquare-40's step-0 inputs, and on CompSquare-20's on a line of its
-   own).
+   own, in each dtype).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 1
@@ -110,6 +121,20 @@ GENERIC_CAPS = {"Monitor3320r float64": 20, "3D CompSquare-40 float64": 3,
                 "3D CompSquare-20 float64": 10, "LevelSet-320 float64": 10,
                 "2D CompSquare-320 float32": 10}
 K4PP_CAP = 10
+# The float64 kernel-route paths on the stock engine (prox_backend="pallas"
+# in float64), F64_CAP steps each: (label, wrapper, the JAX_GENERIC path of
+# the same configuration, the steps held to it). Their step-0 I_h is the
+# initial mesh's energy, which needs no prox (rtol 1e-12); CompSquare-20's
+# step 1, past one prox, within rtol 1e-7 of the JAX package's chord-Jacobian
+# prox (measured 9.7e-11 on an H100; at nx=4 the JAX package's own kernel and
+# vmap routes part by up to 4.8e-7 over 4 steps, scripts/stock_jax_gap.py).
+F64_STOCK = (
+    ("3D CompSquare-20 float64 K4'", "prox3d_chord_comp", "3D CompSquare-20 float64", (0, 1)),
+    ("3D CompSquare-40 float64 K4'", "prox3d_chord_comp", "3D CompSquare-40 float64", (0,)),
+    ("3D SquareGrid-40 float64 K4''a", "prox3d_chord", None, ()),
+    ("3D CompSquare-40 float64 K4''b", "prox3d_comp", "3D CompSquare-40 float64", (0,)),
+)
+F64_STOCK_RTOL = {0: 1e-12, 1: 1e-7}
 # The circle's explicit-Euler predictor is stiff at its near-boundary
 # slivers: at nx=320 the dt of tests/test_harness.py (1e-4, at nx=12)
 # diverges (I_h 1.98 -> 524 at step 1) and 1e-5 rises at step 4; at 1e-6
@@ -203,28 +228,32 @@ def box3d(test_type: str, mon_type: int, n: int, device: str = "cuda",
     return cfg, mesh, integ
 
 
-def comp_square(n: int, device: str = "cuda", dtype: str = "float32", prox_chord=None):
+def comp_square(n: int, device: str = "cuda", dtype: str = "float32", prox_chord=None,
+                prox_backend: str = "auto"):
     """3D MM-ADMM on the stock engine: an n^3 SquareGrid box mesh on its
     computational mesh, MonType 5, rho 10 (the 3DMonitor3 family as the
-    JAX package's tests set it, tests/test_prox_pallas3d.py:137-143)."""
+    JAX package's tests set it, tests/test_prox_pallas3d.py:137-143). In
+    float64, ``prox_backend="pallas"`` takes the float64 kernels, "auto"
+    the generic prox."""
     from mmadmm_tpu_torch import ExperimentConfig, build_problem
 
     cfg = ExperimentConfig(
         test_type="SquareGrid", dim=3, mon_type=5, method=0, comp_mesh=True, nx=n, ny=n,
-        nz=n, dt=5e-3, tau=0.1, rho=10.0, dtype=dtype,
+        nz=n, dt=5e-3, tau=0.1, rho=10.0, dtype=dtype, prox_backend=prox_backend,
     )
     mesh, integ = build_problem(cfg, device=device, prox_chord=prox_chord)
     return cfg, mesh, integ
 
 
-def square_chord(n: int, device: str = "cuda"):
+def square_chord(n: int, device: str = "cuda", dtype: str = "float32"):
     """3D MM-ADMM on the stock engine with chord sweeps (K4''a): an n^3
-    SquareGrid box mesh with the radial bump (MonType 1)."""
+    SquareGrid box mesh with the radial bump (MonType 1), on the kernel
+    route in either dtype."""
     from mmadmm_tpu_torch import ExperimentConfig, build_problem
 
     cfg = ExperimentConfig(
         test_type="SquareGrid", dim=3, mon_type=1, method=0, nx=n, ny=n, nz=n,
-        dt=5e-3, tau=0.1, rho=50.0, dtype="float32",
+        dt=5e-3, tau=0.1, rho=50.0, dtype=dtype, prox_backend="pallas",
     )
     mesh, integ = build_problem(cfg, device=device, prox_chord=True)
     return cfg, mesh, integ
@@ -293,6 +322,16 @@ def stock_inputs(integ):
     if integ.mesh.comp_mesh:
         args += (ch(integ.mesh.elem_ehat),)
     return args
+
+
+def stock_call(integ):
+    """``(inputs, args)`` of the stock engine's first prox call of step 0 on
+    the kernel route: ``stock_inputs`` and ``([ehat,] w, tol, max_iters)``,
+    the constant Ehat only on a box mesh."""
+    args = (integ.w, integ.prox_tol, integ.prox_max_iters)
+    if not integ.mesh.comp_mesh:
+        args = (integ.mesh.ehat_np.reshape(-1),) + args
+    return stock_inputs(integ), args
 
 
 def be_inputs(integ):
@@ -442,12 +481,9 @@ def compare4pp(label, integ, variant):
 
     kernel, plain = ((P3.prox3d_chord, P3.prox3d_chord_plain) if variant == "chord"
                      else (P3.prox3d_comp, P3.prox3d_comp_plain))
-    inputs = stock_inputs(integ)
+    inputs, args = stock_call(integ)
     z, dxpu, free, cells = inputs[:4]
     ehat = list(inputs[4]) if variant == "comp" else tuple(integ.mesh.ehat_np.reshape(-1))
-    args = (integ.w, integ.prox_tol, integ.prox_max_iters)
-    if variant == "chord":
-        args = (integ.mesh.ehat_np.reshape(-1),) + args
     zk, ihk = kernel(*inputs, *args)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -576,8 +612,10 @@ def _wrappers():
             "prox3d_comp": P3.prox3d_comp}
 
 
-# the wrappers with a float64 build, whose launches count apart as <name>_f64
-F64_KERNELS = ("prox2d", "eg2d", "hess2d", "prox3d")
+# the wrappers with a float64 build (all of them), whose launches count
+# apart as <name>_f64
+F64_KERNELS = ("prox2d", "eg2d", "hess2d", "prox3d", "prox3d_chord_comp", "prox3d_chord",
+               "prox3d_comp")
 
 
 def counts():
@@ -737,6 +775,31 @@ def compare_f64(label, kernel, plain, inputs, args):
     say(f"{label}: {inputs[0].shape[1]} slots; float64, bit-equal on 100.00% of elements; "
         f"plain version {plain_s:.2f} s")
     return err, plain_s
+
+
+def f64_stock(label, n, device="cuda"):
+    """The float64 kernel-route configuration of a ``F64_STOCK`` label at
+    nx=n: ``(cfg, mesh, integ)``."""
+    if "K4''a" in label:
+        return square_chord(n, device, "float64")
+    return comp_square(n, device, "float64", prox_chord="K4''b" not in label,
+                       prox_backend="pallas")
+
+
+def check_jax_f64(label, infos, ref_label, steps):
+    """A float64 kernel-route path against the JAX package's float64 values
+    of the same configuration (its generic route, ``JAX_GENERIC``): the
+    steps ``steps`` within ``F64_STOCK_RTOL``; the ADMM counts are printed
+    beside the JAX package's."""
+    for k in steps:
+        ref, iters, _ = JAX_GENERIC[ref_label][k]
+        ih, rtol = infos[k].ih, F64_STOCK_RTOL[k]
+        if not math.isclose(ih, ref, rel_tol=rtol):
+            raise AssertionError(f"{label} step {k}: Ih {ih!r} vs the JAX package's {ref!r}, "
+                                 f"outside rtol {rtol}")
+        say(f"{label} step {k}: Ih {ih!r} within rtol {rtol} of the JAX package's {ref!r} (rel "
+            f"{abs(ih / ref - 1):.2e}); {infos[k].n_iters} ADMM iterations, the JAX package "
+            f"{iters if iters is not None else 'not recorded'}")
 
 
 def drive_f64(label, cfg, mesh, integ, engine, f32_ih0):
@@ -911,6 +974,12 @@ def main() -> int:
                 *prox_call(shoulder(16, dtype="float64")[2]))
     compare_f64("K4 float64 vs plain, 3D SquareGrid nx=4", P3.prox3d, P3.prox3d_plain,
                 *prox_call(box3d("SquareGrid", 1, 4, dtype="float64")[2]))
+    # the float64 builds of K4', K4''a and K4''b on the float64 kernel
+    # route's step-0 inputs at nx=4 (and, below, on their paths' at -20/-40)
+    for label, name, *_ in F64_STOCK[1:]:
+        compare_f64(f"{name} float64 vs plain, {label.replace('-40', '')} nx=4",
+                    _wrappers()[name], getattr(P3, f"{name}_plain"),
+                    *stock_call(f64_stock(label, 4)[2]))
     f64 = {}
     for label, make in (("MM-ADMM float64", lambda: shoulder(320, 0, dtype="float64")),
                         ("Euler float64", lambda: shoulder(320, 1, dtype="float64")),
@@ -1083,6 +1152,38 @@ def main() -> int:
                         lambda device: shoulder(16, method, device, "float64")[2])
     card_vs_cpu_f64("3D MM-ADMM at SquareGrid nx=4 float64 (3D stencil engine, K4 float64)",
                     lambda device: box3d("SquareGrid", 1, 4, device, "float64")[2])
+    # the stock engine on the float64 kernel route: K4', K4''a and K4''b
+    # built in float64
+    launched64s, k4_64s = {}, {}
+    for label, name, ref_label, jax_steps in F64_STOCK:
+        t = time.perf_counter()
+        cfg_k, mesh_k, integ_k = f64_stock(label, 20 if "-20" in label else 40)
+        say(f"{label} set-up: {mesh_k.n_elements} tets, {type(integ_k).__name__}, prox "
+            f"{mesh_k.prox_backend}, chord {mesh_k.prox_chord}, {mesh_k.dtype} "
+            f"({time.perf_counter() - t:.2f} s)")
+        if (type(integ_k).__name__ != "ADMMIntegrator" or mesh_k.prox_backend != "pallas"
+                or mesh_k.dtype != torch.float64):
+            raise AssertionError(f"{label}: not the stock engine on the float64 kernel route")
+        # the kernel against its plain version on this path's step-0 inputs,
+        # which also make its row of the kernels line (the -40 paths')
+        call = stock_call(integ_k)
+        k4_64s[label] = (name, call, *compare_f64(f"{name} float64 vs plain, {label} step 0",
+                                                  _wrappers()[name],
+                                                  getattr(P3, f"{name}_plain"), *call))
+        t = time.perf_counter()
+        infos_k, ih_k, launched64s[label] = drive(label, cfg_k, integ_k, F64_CAP)
+        wall = time.perf_counter() - t
+        iters_k = [i.n_iters for i in infos_k]
+        expect(label, launched64s[label], {f"{name}_f64": sum(iters_k)})
+        say(f"{label}: {name}_f64 launches {launched64s[label][f'{name}_f64']} = ADMM iterations "
+            f"{sum(iters_k)} over {len(infos_k)} steps (per step {iters_k}), float32 kernels 0, "
+            f"{1e3 * wall / len(infos_k):.1f} ms per step; Ih trace {[float(v) for v in ih_k]}")
+        if ref_label is not None:
+            check_jax_f64(label, infos_k, ref_label, jax_steps)
+        del cfg_k, mesh_k, integ_k
+    for label, _, _, _ in F64_STOCK[1:]:
+        card_vs_cpu_f64(f"3D MM-ADMM at {label.replace('-40', '')} nx=4 (stock engine, kernel "
+                        f"route)", lambda device, label=label: f64_stock(label, 4, device)[2])
 
     # ---- timing --------------------------------------------------------------
     z, dxpu, free, cells = inputs
@@ -1221,9 +1322,28 @@ def main() -> int:
             bound(lambda: P3.prox3d_plain(*inp, *a4, stats=stats64),
                   inp[0].shape[1] * (12 + 12 + 12 + 216 + 12 + 1), f64=True), f64=True)
         say(f"K4 float64 step-0 work at {label}: {work(stats64)}")
+    # K4', K4''a and K4''b in float64: K4' on CompSquare-20's step-0 inputs on
+    # a line of its own, each row on its -40 path's
+    for label, (name, (inp, a4), err, plain_s) in k4_64s.items():
+        kernel, plain = _wrappers()[name], getattr(P3, f"{name}_plain")
+        ms = time_kernel(lambda: kernel(*inp, *a4))
+        if "-20" in label:
+            say(f"{name} float64 at {label} step 0 ({inp[0].shape[1]} tets): {ms:.4f} ms (median "
+                f"of 20); plain {1e3 * plain_s:.1f} ms")
+            continue
+        stats_p = {}
+        per_elem = 12 + 12 + 12 + 216 + (0 if name == "prox3d_chord" else 9) + 12 + 1
+        row(f"{name}_f64", "mmadmm_tpu_torch/csrc/prox3d.cu",
+            "mmadmm_tpu/ops/prox_pallas3d.py:418",
+            sum(v[f"{name}_f64"] for v in launched64s.values()), err, ms,
+            time_plain(lambda: plain(*inp, *a4)),
+            bound(lambda: plain(*inp, *a4, stats=stats_p), inp[0].shape[1] * per_elem,
+                  f64=True), f64=True)
+        say(f"{name} float64 step-0 work at {label}: {work(stats_p)}")
     say(f"launches by path: MM-ADMM {launched}, Euler {launched_e}, backward Euler {launched_b}, "
         f"3D MM-ADMM {launched3}, stock engine {launched_s}, generic route {launched_g}, "
-        f"K4'' {launched_k}, float64 stencil engines {launched64}")
+        f"K4'' {launched_k}, float64 stencil engines {launched64}, float64 kernel route "
+        f"{launched64s}")
     print(json.dumps({"kernels": rows}), flush=True)
     say(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -30,12 +30,13 @@
 // the same operations in the same order; built with --fmad=false each
 // kernel agrees with its plain version bit for bit.
 //
-// The kernels are templates on the real type R. K4 is built in float
-// (mm_prox3d) and in double (mm_prox3d_f64), as the JAX kernel builds itself
-// in its inputs' dtype; K4', K4''a and K4''b are built in float only (their
-// double builds, which the JAX package reaches under prox_backend="pallas",
-// are ROADMAP B10). The double K4 computes in double throughout, with the
-// constants rounded as the JAX kernel rounds them in float64.
+// The kernels are templates on the real type R, and each is built in float
+// and in double (mm_prox3d and mm_prox3d_f64, mm_prox3d_chord_comp and
+// mm_prox3d_chord_comp_f64, ...), as the JAX kernel builds itself in its
+// inputs' dtype. A double build computes in double throughout, with the
+// constants rounded as the JAX kernel rounds them in float64 (R(...)
+// literals, the sqrt_/abs_ overloads and Num<R> of dual.cuh: no double is
+// rounded through float).
 //
 // Layout: channel-major [C, n] in R, channel stride n. z, dxpu, free are
 // [12, n] (channel v*3 + d); cells is [216, n]: per vertex, its cell's 8
@@ -48,7 +49,7 @@
 // and writes 13, (3*12 + 216 + 12 + 1) * 4 = 1,060 bytes in float (2,120
 // in double): 814 MB, 0.243 ms at 3.35 TB/s for the 768,000 slots of a
 // 40^3 box mesh (0.486 ms in double); a K4' or K4''b element reads 9 more,
-// 1,096 bytes. A Newton sweep that goes on to its
+// 1,096 bytes (2,192 in double). A Newton sweep that goes on to its
 // step does tens of thousands of float operations (the twelve dual passes
 // of the Hessian take most of them; the op counter of chip_smoke.py on the
 // plain versions gives the count for the inputs at hand); one that retires
@@ -152,25 +153,33 @@ constexpr int kThreads = kNewtonThreads<float>;
 // has the times): 4 lanes beat 8 and 16, whose lanes idle longer in the
 // gradient, factor and solve (and 16 spill); with no cap both take 220-222
 // registers and 2 blocks an SM, and the cap's few hundred bytes of spills
-// cost less than the warps it adds. In double (K4 only) the blocks are of
-// 64 threads, so the same minimum of 4 blocks an SM leaves up to 255
-// registers, which the double state (twice the float one's) needs; shared
-// memory would hold 5 such blocks an SM.
+// cost less than the warps it adds. In double the blocks are of 64
+// threads, so the same minimums of 4 (K4) and 3 (K4''b) blocks an SM leave
+// up to 255 registers, which the double state (twice the float one's)
+// needs; shared memory would hold 5 such blocks an SM.
 constexpr int kGroup = 4;
 constexpr int kBlocks = 4;      // K4
 constexpr int kBlocksComp = 3;  // K4''b
 
-// The chord sweeps: kChordE elements a block, kChordGroup lanes each (a
-// block of kChordE x kChordGroup threads, with the Newton kernels' staging
-// of 42-44 KB), and no register cap. Of the variants that
+// The chord sweeps: kChordE<R> elements a block, kChordGroup lanes each (a
+// block of kChordE<R> x kChordGroup threads, with the Newton kernels' staging
+// of 42-44 KB), and no register cap. The stage (NewtonStage) holds the
+// inputs and the 78-entry chord cache of each element: 43,392 bytes for 32
+// float elements and for 16 double ones; 32 double ones would take 86.8 KB,
+// over the 48 KB of static shared memory a block may have, so a double
+// block has 16 elements (at 2 lanes, one warp). Of the variants that
 // scripts/cuda_k4_variants.py times on the H100 at the step-0 inputs of 3D
 // CompSquare-40 (K4') and 3D SquareGrid-40 with prox_chord=True (K4''a),
 // these are the fastest (PERF.md has the times): 2 lanes beat 4 and 8,
 // which repeat the common sweep (gradient, solve, trial) on more lanes for
 // each element, and 1, which builds the whole Hessian alone; at 218-221
 // registers an SM holds 4 blocks (128 elements), and a cap to 168 registers
-// (6 blocks) spills more than the warps it gains are worth.
-constexpr int kChordE = 32;
+// (6 blocks) spills more than the warps it gains are worth. In double the
+// same script (its chord64 family) times 2 and 4 lanes at 16 elements a
+// block, at 255 registers and some 900 bytes of spills either way: 2 lanes
+// (a block of one warp) are the faster there too, by 3-4 %.
+template <typename R>
+constexpr int kChordE = sizeof(R) == 4 ? 32 : 16;
 constexpr int kChordGroup = 2;
 
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
@@ -337,8 +346,8 @@ __device__ __forceinline__ void copies_done() {
 
 // A block's staged inputs and its elements' Hessian triangles, for kE
 // elements: the cells [channel][element] (see SharedCells), the rest
-// [element][channel]. In float, 42.3 KB (K4) and 43.4 KB (K4''b) at
-// kE = 32; in double, 42.2 KB (K4) at kE = 16.
+// [element][channel]. In float, 42.3 KB (K4, K4''a) and 43.4 KB (K4''b,
+// K4') at kE = 32; in double, 42.2 KB and 43.4 KB at kE = 16.
 template <typename R, bool kComp, int kE>
 struct NewtonStage {
   R cells[kCells * kE];
@@ -508,21 +517,22 @@ __device__ __forceinline__ void chord_refresh(const R* z, const C& cells, const 
 // moves again. An element that retires on its gradient norm does not move
 // either, so it leaves before the solve.
 template <typename R, bool kComp, int G>
-__global__ void __launch_bounds__(kChordE * G)
+__global__ void __launch_bounds__(kChordE<R> * G)
     prox3d_chord_kernel(const R* __restrict__ z_in, const R* __restrict__ dxpu_in,
                         const R* __restrict__ free_in, const R* __restrict__ cells_in,
                         const R* __restrict__ ehat_in, R* __restrict__ zout,
                         R* __restrict__ ih0_out, long long n, Ehat3<R> eh, Consts3<R> k,
                         int max_iters) {
   static_assert(G == 2 || G == 4 || G == 8, "a group is 2, 4 or 8 lanes of one warp");
-  constexpr int kT = kChordE * G;  // threads per block
-  __shared__ __align__(16) NewtonStage<R, kComp, kChordE> st;
-  const long long first = (long long)blockIdx.x * kChordE;
-  stage_rows<kChordE, kT>(st.cells, cells_in, kCells, n, first);
-  stage_cols<kChordE, kT>(st.z, z_in, 12, n, first);
-  stage_cols<kChordE, kT>(st.dxpu, dxpu_in, 12, n, first);
-  stage_cols<kChordE, kT>(st.fr, free_in, 12, n, first);
-  if constexpr (kComp) stage_cols<kChordE, kT>(st.eh, ehat_in, 9, n, first);
+  constexpr int kE = kChordE<R>;  // elements per block
+  constexpr int kT = kE * G;       // threads per block
+  __shared__ __align__(16) NewtonStage<R, kComp, kE> st;
+  const long long first = (long long)blockIdx.x * kE;
+  stage_rows<kE, kT>(st.cells, cells_in, kCells, n, first);
+  stage_cols<kE, kT>(st.z, z_in, 12, n, first);
+  stage_cols<kE, kT>(st.dxpu, dxpu_in, 12, n, first);
+  stage_cols<kE, kT>(st.fr, free_in, 12, n, first);
+  if constexpr (kComp) stage_cols<kE, kT>(st.eh, ehat_in, 9, n, first);
   copies_done();
   __syncthreads();  // the block's only barrier: every lane below is in a live group
 
@@ -531,7 +541,7 @@ __global__ void __launch_bounds__(kChordE * G)
   if (e >= n) return;
   const int base = (threadIdx.x % 32) - lane;  // the group's first lane in its warp
   const unsigned gmask = ((1u << G) - 1u) << base;
-  const SharedCells<R, kChordE> cells{st.cells + el};
+  const SharedCells<R, kE> cells{st.cells + el};
   const R* dxpu = st.dxpu + el * 12;
   const R* fr = st.fr + el * 12;
   const R* h = kComp ? st.eh + el * 9 : eh.h;
@@ -593,9 +603,10 @@ int launch(const R* z, const R* dxpu, const R* free_, const R* cells, const R* e
   if constexpr (!kComp) std::memcpy(&eh, consts, sizeof(eh));
   std::memcpy(&k, consts + (kComp ? 0 : 9), sizeof(k));
   if constexpr (kChord) {
-    const long long blocks = (n + kChordE - 1) / kChordE;
+    constexpr int kE = kChordE<R>;
+    const long long blocks = (n + kE - 1) / kE;
     prox3d_chord_kernel<R, kComp, kChordGroup>
-        <<<(unsigned)blocks, kChordE * kChordGroup, 0, (cudaStream_t)stream>>>(
+        <<<(unsigned)blocks, kE * kChordGroup, 0, (cudaStream_t)stream>>>(
             z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
   } else {
     constexpr int kT = kNewtonThreads<R>, kE = kT / kGroup;
@@ -646,4 +657,27 @@ extern "C" int mm_prox3d_comp(const float* z, const float* dxpu, const float* fr
                               long long n, const float* consts, int max_iters, void* stream) {
   return launch<float, false, true>(z, dxpu, free_, cells, ehat, zout, ih0, n, consts,
                                     max_iters, stream);
+}
+
+extern "C" int mm_prox3d_chord_comp_f64(const double* z, const double* dxpu, const double* free_,
+                                        const double* cells, const double* ehat, double* zout,
+                                        double* ih0, long long n, const double* consts,
+                                        int max_iters, void* stream) {
+  return launch<double, true, true>(z, dxpu, free_, cells, ehat, zout, ih0, n, consts,
+                                    max_iters, stream);
+}
+
+extern "C" int mm_prox3d_chord_f64(const double* z, const double* dxpu, const double* free_,
+                                   const double* cells, double* zout, double* ih0, long long n,
+                                   const double* consts, int max_iters, void* stream) {
+  return launch<double, true, false>(z, dxpu, free_, cells, nullptr, zout, ih0, n, consts,
+                                     max_iters, stream);
+}
+
+extern "C" int mm_prox3d_comp_f64(const double* z, const double* dxpu, const double* free_,
+                                  const double* cells, const double* ehat, double* zout,
+                                  double* ih0, long long n, const double* consts, int max_iters,
+                                  void* stream) {
+  return launch<double, false, true>(z, dxpu, free_, cells, ehat, zout, ih0, n, consts,
+                                     max_iters, stream);
 }

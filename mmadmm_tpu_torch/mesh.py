@@ -21,16 +21,16 @@ package) is one of two routes, ``prox_backend``:
 
 * ``"pallas"``, the kernels: K1 in 2D (``ops/prox2d.py``); in 3D K4, K4'
   or K4'' (``ops/prox3d.py``), chosen by the computational mesh and
-  ``prox_chord``. Each launches its CUDA kernel on a CUDA tensor and runs
-  its plain PyTorch version on a CPU tensor. K1 has no computational-mesh
-  mode. In float64 the route takes K1 and K4, built in float64; K4', K4''a
-  and K4''b in float64 are ROADMAP B10 and refused;
+  ``prox_chord``. Each launches its CUDA kernel, built in the mesh's
+  dtype (float32 or float64), on a CUDA tensor and runs its plain PyTorch
+  version on a CPU tensor. K1 has no computational-mesh mode;
 * ``"vmap"``, the generic batched prox (``ops/prox.py``) in the mesh's
   dtype, the JAX package's default.
 
 ``"auto"`` takes the kernels where a float32 kernel computes the function
 (not a 2D computational mesh) and the generic prox elsewhere: float64 (the
-JAX package's default, ``mesh.py:126``), and 2D computational meshes. The
+JAX package's default, ``mesh.py:126``, which also reaches its float64
+kernels only through ``"pallas"``), and 2D computational meshes. The
 stencil engines take their own kernel in the mesh's dtype whatever the
 route (``problems.py``).
 """
@@ -136,11 +136,6 @@ class MovingMesh:
         if backend == "pallas" and self.dim == 2 and self.comp_mesh:
             raise ValueError(
                 "prox_backend 'pallas': K1 has no computational-mesh mode; use 'vmap' or 'auto'"
-            )
-        if backend == "pallas" and not f32 and (self.comp_mesh or self.prox_chord):
-            raise ValueError(
-                "prox_backend 'pallas' in float64: K4', K4''a and K4''b have no float64 "
-                "kernel yet (ROADMAP item B10); use 'vmap' or 'auto'"
             )
         self.prox_backend = backend
         w = self.w

@@ -124,7 +124,7 @@ def build_monitor_grid_np(X: np.ndarray, monitor, num_smooth: Optional[int] = No
     grid = _smooth_grid(mon_vals[nn].reshape(n + 1, n + 1, D * D), num_smooth)
     if not np.array_equal(grid[..., 1], grid[..., 2]):
         raise NotImplementedError(
-            "non-symmetric monitors need the 20-wide cell table (not ported)"
+            "non-symmetric monitors need the 20-wide cell table (ROADMAP item A16)"
         )
     ax, ay = axes
     ny, nx = n, n

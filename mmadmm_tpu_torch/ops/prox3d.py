@@ -12,9 +12,9 @@ Levenberg term on fixed coordinates), an unrolled LDL^T solve with the
 ``-g/w^2`` fallback and 5 backtracking trials (``ops/newton.py``). The
 unregularized energy at the input z comes out as ``ih0``.
 
-Layout: channel-major ``[C, N]`` tensors, float32 (every variant) or
-float64 (K4; the other three in float64 are ROADMAP B10): ``z, dxpu, free
-[12, N]`` (channel ``v*3 + d``) and ``cells [216, N]``: per vertex,
+Layout: channel-major ``[C, N]`` tensors, all float32 or all float64
+(every variant is built in both): ``z, dxpu, free [12, N]`` (channel
+``v*3 + d``) and ``cells [216, N]``: per vertex,
 vertex-major, its cell's 8 corners as ``(m00, m01, m02, m11, m12, m22)``
 and then ``x0, x1, y0, y1, z0, z1`` (``ops/monitor_grid.py::
 cell_rows216``).
@@ -42,7 +42,9 @@ tensor each runs its plain version (``prox3d_plain``,
 ``prox3d_chord_comp_plain``, ``prox3d_chord_plain``,
 ``prox3d_comp_plain``), in either dtype; on a CUDA tensor it launches its
 CUDA kernel from ``csrc/prox3d.cu`` built in the tensors' dtype (K4:
-``mm_prox3d`` in float32, ``mm_prox3d_f64`` in float64) or raises. The
+``mm_prox3d`` in float32, ``mm_prox3d_f64`` in float64; the others
+likewise) or raises, and counts the launch in the wrapper's ``launches``
+(float32) or ``launches_f64`` (float64). The
 plain versions repeat the kernels' arithmetic operation by operation, so
 the kernels built with ``--fmad=false`` can agree with them bit for bit.
 """
@@ -363,17 +365,18 @@ def _consts3(w, tol, dtype=torch.float32):
     return (*consts(w, dtype), rnd(tol, dtype), *_K3[dtype])
 
 
-# the kernels of csrc/prox3d.cu built in float64 (ROADMAP B10: the others)
-_ENTRIES_F64 = {"mm_prox3d": "mm_prox3d_f64"}
+# the float64 builds of the kernels of csrc/prox3d.cu
+_ENTRIES_F64 = {name: f"{name}_f64" for name in
+                ("mm_prox3d", "mm_prox3d_chord_comp", "mm_prox3d_chord", "mm_prox3d_comp")}
 
 
-def _launch(entry, plain, z, dxpu, free, cells, ehat, w, tol, max_iters):
+def _launch(wrapper, entry, plain, z, dxpu, free, cells, ehat, w, tol, max_iters):
     """Run one of the four variants on ``[C, N]`` channel tensors, all
     float32 or all float64: ``plain`` on CPU tensors; on CUDA tensors the
     kernel ``entry`` of ``csrc/prox3d.cu`` built in their dtype, on the
-    current stream (built at first use). ``ehat`` is 9 floats or the
-    channels ``[9, N]``. Returns ``(z_out, ih0)`` and whether the kernel
-    was launched."""
+    current stream (built at first use), counted on ``wrapper``
+    (``count_launch``). ``ehat`` is 9 floats or the channels ``[9, N]``.
+    Returns ``(z_out, ih0)``."""
     n = z.shape[1]
     per_element = isinstance(ehat, torch.Tensor) and ehat.dim() == 2
     checks = [("z", z, 12), ("dxpu", dxpu, 12), ("free", free, 12), ("cells", cells, 4 * ROW_W3)]
@@ -382,13 +385,11 @@ def _launch(entry, plain, z, dxpu, free, cells, ehat, w, tol, max_iters):
     for name, t, rows in checks:
         check(name, t, rows, n, z.device, z.dtype)
     if z.device.type == "cpu":
-        return plain(z, dxpu, free, cells, ehat, w, tol, max_iters), False
+        return plain(z, dxpu, free, cells, ehat, w, tol, max_iters)
     if z.device.type != "cuda":
         raise ValueError(f"{entry} runs on cpu or cuda, not {z.device}")
     real = ctypes.c_float
     if z.dtype == torch.float64:
-        if entry not in _ENTRIES_F64:
-            raise ValueError(f"{entry} has no float64 kernel yet (ROADMAP B10)")
         entry, real = _ENTRIES_F64[entry], ctypes.c_double
     lib = library()
     zout = torch.empty_like(z)
@@ -403,7 +404,8 @@ def _launch(entry, plain, z, dxpu, free, cells, ehat, w, tol, max_iters):
     rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors), n, k, int(max_iters), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    return (zout, ih0), True
+    count_launch(wrapper, z.dtype)
+    return zout, ih0
 
 
 def prox3d(z, dxpu, free, cells, ehat, w, tol, max_iters):
@@ -414,51 +416,44 @@ def prox3d(z, dxpu, free, cells, ehat, w, tol, max_iters):
     kernel from ``csrc/prox3d.cu`` built in its dtype on the current stream
     (built at first use) and counts the launch in ``prox3d.launches``
     (float32) or ``prox3d.launches_f64`` (float64)."""
-    out, launched = _launch("mm_prox3d", prox3d_plain, z, dxpu, free, cells, ehat, w, tol,
-                            max_iters)
-    if launched:
-        count_launch(prox3d, z.dtype)
-    return out
+    return _launch(prox3d, "mm_prox3d", prox3d_plain, z, dxpu, free, cells, ehat, w, tol,
+                   max_iters)
 
 
 def prox3d_chord_comp(z, dxpu, free, cells, ehat_e, w, tol, max_iters):
     """K4': the 3D chord prox on a computational mesh, on ``[C, N]``
-    float32 channel tensors (``ehat_e [9, N]`` the per-element Ehat).
+    channel tensors, all float32 or all float64 (``ehat_e [9, N]`` the
+    per-element Ehat).
 
     A CPU tensor goes to ``prox3d_chord_comp_plain``. A CUDA tensor
-    launches the kernel from ``csrc/prox3d.cu`` on the current stream
-    (built at first use) and counts the launch in
-    ``prox3d_chord_comp.launches``."""
-    out, launched = _launch("mm_prox3d_chord_comp", prox3d_chord_comp_plain, z, dxpu, free,
-                            cells, ehat_e, w, tol, max_iters)
-    prox3d_chord_comp.launches += launched
-    return out
+    launches the kernel from ``csrc/prox3d.cu`` built in its dtype on the
+    current stream (built at first use) and counts the launch in
+    ``prox3d_chord_comp.launches`` or ``.launches_f64``."""
+    return _launch(prox3d_chord_comp, "mm_prox3d_chord_comp", prox3d_chord_comp_plain, z, dxpu,
+                   free, cells, ehat_e, w, tol, max_iters)
 
 
 def prox3d_chord(z, dxpu, free, cells, ehat, w, tol, max_iters):
     """K4''a: chord sweeps with the constant Ehat (9 floats), on ``[C, N]``
-    float32 channel tensors; ``prox3d_chord_plain`` on a CPU tensor, the
-    kernel on a CUDA tensor (counted in ``prox3d_chord.launches``)."""
-    out, launched = _launch("mm_prox3d_chord", prox3d_chord_plain, z, dxpu, free, cells, ehat,
-                            w, tol, max_iters)
-    prox3d_chord.launches += launched
-    return out
+    channel tensors, all float32 or all float64; ``prox3d_chord_plain`` on
+    a CPU tensor, the kernel built in its dtype on a CUDA tensor (counted
+    in ``prox3d_chord.launches`` or ``.launches_f64``)."""
+    return _launch(prox3d_chord, "mm_prox3d_chord", prox3d_chord_plain, z, dxpu, free, cells,
+                   ehat, w, tol, max_iters)
 
 
 def prox3d_comp(z, dxpu, free, cells, ehat_e, w, tol, max_iters):
     """K4''b: Newton sweeps with each element's Ehat (``ehat_e [9, N]``),
-    on ``[C, N]`` float32 channel tensors; ``prox3d_comp_plain`` on a CPU
-    tensor, the kernel on a CUDA tensor (counted in
-    ``prox3d_comp.launches``)."""
-    out, launched = _launch("mm_prox3d_comp", prox3d_comp_plain, z, dxpu, free, cells, ehat_e,
-                            w, tol, max_iters)
-    prox3d_comp.launches += launched
-    return out
+    on ``[C, N]`` channel tensors, all float32 or all float64;
+    ``prox3d_comp_plain`` on a CPU tensor, the kernel built in its dtype on
+    a CUDA tensor (counted in ``prox3d_comp.launches`` or
+    ``.launches_f64``)."""
+    return _launch(prox3d_comp, "mm_prox3d_comp", prox3d_comp_plain, z, dxpu, free, cells,
+                   ehat_e, w, tol, max_iters)
 
 
 for _fn in (prox3d, prox3d_chord_comp, prox3d_chord, prox3d_comp):
-    _fn.launches = 0
-prox3d.launches_f64 = 0
+    _fn.launches = _fn.launches_f64 = 0
 
 
 def prox_elements(grid, z, xi, dxpu, free, w, tol, max_iters, ehat=None, chord=None):
@@ -492,15 +487,15 @@ def prox_elements(grid, z, xi, dxpu, free, w, tol, max_iters, ehat=None, chord=N
 # mm_prox3d and mm_prox3d_chord (z, dxpu, free, cells, zout, ih0, n,
 # consts[18], max_iters, stream); mm_prox3d_chord_comp and mm_prox3d_comp
 # (z, dxpu, free, cells, ehat, zout, ih0, n, consts[9], max_iters, stream);
-# mm_prox3d_f64 as mm_prox3d with double consts; all in csrc/prox3d.cu
+# each <name>_f64 as <name> with double consts; all in csrc/prox3d.cu
 _TAIL = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
 _TAIL_F64 = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_void_p]
+_POINTERS = {"mm_prox3d": 6, "mm_prox3d_chord": 6, "mm_prox3d_chord_comp": 7,
+             "mm_prox3d_comp": 7}
 _SIGNATURES = {
-    "mm_prox3d": ([ctypes.c_void_p] * 6 + _TAIL, ctypes.c_int),
-    "mm_prox3d_f64": ([ctypes.c_void_p] * 6 + _TAIL_F64, ctypes.c_int),
-    "mm_prox3d_chord": ([ctypes.c_void_p] * 6 + _TAIL, ctypes.c_int),
-    "mm_prox3d_chord_comp": ([ctypes.c_void_p] * 7 + _TAIL, ctypes.c_int),
-    "mm_prox3d_comp": ([ctypes.c_void_p] * 7 + _TAIL, ctypes.c_int),
+    entry: ([ctypes.c_void_p] * n + tail, ctypes.c_int)
+    for name, n in _POINTERS.items()
+    for entry, tail in ((name, _TAIL), (_ENTRIES_F64[name], _TAIL_F64))
 }
 
 

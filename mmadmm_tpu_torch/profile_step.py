@@ -5,11 +5,14 @@
 For MM-ADMM (method 0), explicit Euler (1) and backward Euler (2) at
 Shoulder-320, then 3D MM-ADMM at 3D Shoulder-40 (the identity monitor,
 768,000 tet slots) on the 3D stencil engine and at 3D CompSquare-20 (a
-computational mesh, 96,000 tets) on the stock engine, then Monitor3320r as
-a user loads it (float64, the generic prox with the carried Jacobian), in
-turn (or only the runs whose names contain one of the NAMEs), the
+computational mesh, 96,000 tets) on the stock engine, 3D CompSquare-40
+(768,000 tets) on the stock engine's kernel route (``prox_backend=
+"pallas"``: K4') and on its generic route (``"vmap"``), then Monitor3320r
+as a user loads it (float64, the generic prox with the carried Jacobian),
+in turn (or only the runs whose names contain one of the NAMEs), the
 generated meshes in ``--dtype`` (float32 by default; in float64 the
-stencil engines run their kernels built in float64): runs 5
+stencil engines and the kernel route run their kernels built in float64,
+and CompSquare-20 takes the generic route, the float64 default): runs 5
 steps, then traces 5 more with ``torch.profiler`` (CPU and CUDA
 activities) and prints wall ms per step (host clock, ending in
 ``torch.cuda.synchronize()``), the device's busy share (the sum of kernel
@@ -17,7 +20,8 @@ times over the wall time; kernels do not overlap on the one stream the
 port uses), the time of each of the port's kernels (K1 ``prox2d``, K2
 ``eg2d``, K3 ``hess2d``, K4 and K4''b, the instantiations of
 ``prox3d_newton_kernel``, and K4' and K4''a, of ``prox3d_chord_kernel``;
-each in the run's dtype), the number of kernel launches per step, and the
+each in the run's dtype, with its share of the device time), the number
+of kernel launches per step, and the
 kernels with the most device time. On the generic route it also prints
 the device time and launches of the prox's Jacobian builds
 (``ElementKernels.masked_jac``) and of its LDL^T solves
@@ -47,15 +51,19 @@ _REAL = {"float32": "float", "float64": "double"}
 M3320R = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "Experiments", "InputFiles", "Monitor3320r.json")
 _2D = dict(test_type="Shoulder", dim=2, mon_type=1, nx=320, ny=320)
+_COMP3 = dict(test_type="SquareGrid", dim=3, mon_type=5, method=0, comp_mesh=True, nx=20, ny=20,
+              nz=20, rho=10.0)
 RUNS = {
     "MM-ADMM": dict(_2D, method=0),
     "explicit Euler": dict(_2D, method=1),
     "backward Euler": dict(_2D, method=2),
     "3D MM-ADMM, 3D Shoulder-40": dict(test_type="Shoulder", dim=3, mon_type=0, method=0,
                                        nx=40, ny=40, nz=40),
-    "3D MM-ADMM stock, 3D CompSquare-20": dict(test_type="SquareGrid", dim=3, mon_type=5,
-                                               method=0, comp_mesh=True, nx=20, ny=20, nz=20,
-                                               rho=10.0),
+    "3D MM-ADMM stock, 3D CompSquare-20": _COMP3,
+    "3D MM-ADMM stock, 3D CompSquare-40, kernel route": dict(_COMP3, nx=40, ny=40, nz=40,
+                                                             prox_backend="pallas"),
+    "3D MM-ADMM stock, 3D CompSquare-40, generic route": dict(_COMP3, nx=40, ny=40, nz=40,
+                                                              prox_backend="vmap"),
     "Monitor3320r float64 (generic route)": M3320R,
 }
 
@@ -86,17 +94,23 @@ def profile_run(name: str, dtype: str = "float32") -> None:
     launches = sum(e.count for e in kernels)
     inner = "".join(f", {f} {[getattr(i, f) for i in infos]}" for f in ("n_iters", "n_newton")
                     if hasattr(infos[0], f))
-    print(f"{name}, {cfg.dtype}, {type(integ).__name__} on {torch.cuda.get_device_name(0)}: "
+    print(f"{name}, {cfg.dtype}, {type(integ).__name__}, prox {mesh.prox_backend} on "
+          f"{torch.cuda.get_device_name(0)}: "
           f"{STEPS} traced steps after {WARM}{inner}")
 
     def kernel_ms(key):
         us = sum(e.self_device_time_total for e in kernels if key in e.key)
         return 1e-3 * us / STEPS
 
-    per_kernel = "; ".join(f"{k} {kernel_ms(key.format(_REAL[cfg.dtype])):.3f} ms/step"
-                           for k, key in KERNELS.items())
+    busy_ms = 1e-3 * dev_us / STEPS
+
+    def share(ms):
+        return f" ({100 * ms / busy_ms:.1f} % of device)" if ms and busy_ms else ""
+
+    per_kernel = "; ".join(f"{k} {ms:.3f} ms/step{share(ms)}" for k, ms in (
+        (k, kernel_ms(key.format(_REAL[cfg.dtype]))) for k, key in KERNELS.items()))
     print(f"wall {wall_ms / STEPS:.3f} ms/step (traced); device busy "
-          f"{1e-3 * dev_us / STEPS:.3f} ms/step = {100 * 1e-3 * dev_us / wall_ms:.1f} % of wall; "
+          f"{busy_ms:.3f} ms/step = {100 * busy_ms * STEPS / wall_ms:.1f} % of wall; "
           f"{per_kernel}; {launches / STEPS:.0f} kernel launches/step")
     if mesh.prox_backend == "vmap":
         # each range's device time and launches: those of the kernels

@@ -1,7 +1,6 @@
 """Run kernels K1-K4, K4' and K4'' as host code against their plain
-PyTorch versions, in float32 and (K1-K4, as the card builds them) in
-float64: a rehearsal of their arithmetic where there is no card and no
-``nvcc``.
+PyTorch versions, in float32 and in float64, as the card builds them: a
+rehearsal of their arithmetic where there is no card and no ``nvcc``.
 
     python scripts/cuda_host_rehearsal.py
 
@@ -26,8 +25,9 @@ SquareGrid nx=4 and 6 on a computational mesh, mon_type 5, rho 10, through
 the stock engine's element-major blocks), ``prox3d_chord_plain`` (3D
 SquareGrid nx=4 with ``prox_chord=True``) and ``prox3d_comp_plain`` (the
 nx=4 computational mesh with ``prox_chord=False``), on the step-0 prox
-inputs with their dual perturbed by a seeded normal; then K1-K4 again in
-float64, on the float64 stencil engines' inputs. PyTorch's CPU ``sqrt``
+inputs with their dual perturbed by a seeded normal; then all of them
+again in float64: K1-K4 on the float64 stencil engines' inputs, K4', K4''a
+and K4''b on the float64 stock engine's (``prox_backend="pallas"``). PyTorch's CPU ``sqrt``
 need not be correctly rounded in either dtype (the card's is, like the
 kernels'), so the script first prints the share of f32 and f64 square
 roots where it differs from the correctly rounded one, then runs the
@@ -168,7 +168,7 @@ int host_be2d(int hess, const R* z, const R* cells, R* out, long long n, const R
 #include <vector>
 
 // the chord kernels (K4', K4''a) with G lanes per element: a block of
-// kChordE elements at a time, one host thread per lane
+// kChordE<R> elements at a time, one host thread per lane
 template <typename R, bool kComp, int G>
 int host_chord(const R* z, const R* dxpu, const R* fr, const R* cells, const R* ehat, R* zout,
                R* ih0, long long n, const R* c, int max_iters) {
@@ -176,11 +176,12 @@ int host_chord(const R* z, const R* dxpu, const R* fr, const R* cells, const R* 
   Consts3<R> k;
   if (!kComp) std::memcpy(&eh, c, sizeof(eh));
   std::memcpy(&k, c + (kComp ? 0 : 9), sizeof(k));
-  blockDim.x = kChordE * G;
-  for (long long b = 0; b * kChordE < n; ++b) {
+  constexpr int kE = kChordE<R>;
+  blockDim.x = kE * G;
+  for (long long b = 0; b * kE < n; ++b) {
     blockIdx.x = b;
     std::vector<std::thread> lanes;
-    for (unsigned t = 0; t < (unsigned)(kChordE * G); ++t)
+    for (unsigned t = 0; t < (unsigned)(kE * G); ++t)
       lanes.emplace_back([=] {
         threadIdx.x = t;
         prox3d_chord_kernel<R, kComp, G>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
@@ -346,7 +347,9 @@ def correctly_rounded_sqrt(x):
 
 
 # (configuration, prox_chord) of each run; the float64 ones take the
-# float64 kernels, K1, K2, K3 and K4
+# float64 builds
+_COMP64 = dict(test_type="SquareGrid", dim=3, mon_type=5, nx=4, ny=4, nz=4, comp_mesh=True,
+               rho=10.0, dtype="float64", prox_backend="pallas")
 CASES = [
     (dict(test_type="Shoulder", dim=2, mon_type=1, nx=16, ny=16), None),
     (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4), None),
@@ -363,6 +366,11 @@ CASES = [
     (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4, dtype="float64"), None),
     (dict(test_type="Shoulder", dim=3, mon_type=0, nx=4, ny=4, nz=4, dtype="float64"), None),
     (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=6, ny=6, nz=6, dtype="float64"), None),
+    (_COMP64, True),
+    (dict(_COMP64, nx=6, ny=6, nz=6), True),
+    (dict(test_type="SquareGrid", dim=3, mon_type=1, nx=4, ny=4, nz=4, dtype="float64",
+          prox_backend="pallas"), True),
+    (_COMP64, False),
 ]
 
 

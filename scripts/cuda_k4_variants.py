@@ -2,11 +2,12 @@
 one-thread-per-element designs and against variants of their group
 design, timed on the card.
 
-    python3 scripts/cuda_k4_variants.py [newton] [chord] [newton64]
+    python3 scripts/cuda_k4_variants.py [newton] [chord] [newton64] [chord64]
 
 ``newton`` times the Newton-sweep kernels K4 and K4''b, ``chord`` the
-chord-sweep kernels K4' and K4''a, ``newton64`` K4's float64 build; with
-no argument, all three. Builds, by plain
+chord-sweep kernels K4' and K4''a, ``newton64`` K4's float64 build,
+``chord64`` the float64 builds of K4' and K4''a; with no argument, all
+four. Builds, by plain
 ``nvcc`` into the git-ignored ``mmadmm_tpu_torch/_build/k4_variants/``,
 copies of ``csrc/``, all started together:
 
@@ -41,7 +42,10 @@ copies of ``csrc/``, all started together:
   blocks of 64 threads (8 and 4 elements), and 32 elements a block of 128
   threads at 4 lanes, whose 84.5 KB stage is dynamic shared memory (set
   with ``cudaFuncSetAttribute``, at least 2 blocks an SM), against the
-  shipped 16 elements of static shared memory.
+  shipped 16 elements of static shared memory;
+- float64 variants of K4' and K4''a (``chord64``): 4 lanes per element
+  at the shipped 16 elements a block (64 threads), against the shipped 2
+  lanes (a block of one warp).
 
 It prints each build's ``-Xptxas -v`` registers, stack, spills and shared
 bytes for the selected kernels, then times every variant (median of 20
@@ -56,7 +60,11 @@ bit for bit to the plain version, on:
   SquareGrid-40 with ``prox_chord=True`` (768,000), against
   ``prox3d_chord_comp_plain`` and ``prox3d_chord_plain``;
 - K4's float64 build at the step-0 prox inputs of 3D Shoulder-40 and 3D
-  SquareGrid-40 in float64, against ``prox3d_plain`` in float64.
+  SquareGrid-40 in float64, against ``prox3d_plain`` in float64;
+- the float64 K4' and K4''a at the stock engine's step-0 inputs of 3D
+  CompSquare-40 and SquareGrid-40 (``prox_chord=True``) in float64 on the
+  kernel route, against ``prox3d_chord_comp_plain`` and
+  ``prox3d_chord_plain`` in float64.
 
 Prints the card's name and power limit first. Needs a CUDA card; run it
 from the root of the repo.
@@ -261,7 +269,7 @@ def _sub(s, old, new):
 
 NEWTON_BOUNDS = ("__launch_bounds__(kNewtonThreads<R>, kComp ? kBlocksComp : kBlocks) "
                  "prox3d_newton_kernel(")
-CHORD_BOUNDS = "__launch_bounds__(kChordE * G)\n    prox3d_chord_kernel("
+CHORD_BOUNDS = "__launch_bounds__(kChordE<R> * G)\n    prox3d_chord_kernel("
 CHORD_GROUPS = ('static_assert(G == 2 || G == 4 || G == 8, "a group is 2, 4 or 8 lanes of one '
                 'warp");')
 FACTOR = "  if (lane == 0) factor12<1>(H);\n"
@@ -311,7 +319,7 @@ def _chord(g, blocks, factor_one_lane=True, *edits):
         s = _sub(s, CHORD_GROUPS, "static_assert(G == 1 || G == 2 || G == 4 || G == 8);")
         if blocks:
             s = _sub(s, CHORD_BOUNDS,
-                     f"__launch_bounds__(kChordE * G, {blocks})\n    prox3d_chord_kernel(")
+                     f"__launch_bounds__(kChordE<R> * G, {blocks})\n    prox3d_chord_kernel(")
         if not factor_one_lane:
             s = _sub(s, FACTOR, FACTOR_IN_REGISTERS)
         return s
@@ -375,7 +383,13 @@ NEWTON64_BUILDS = {
     "float64 K4, G=16 (4 elements a block of 64)": _newton(16, 4),
     "float64 K4, 32 elements a block of 128, dynamic shared memory": _dynamic,
 }
-FAMILY_BUILDS = {"newton": NEWTON_BUILDS, "chord": CHORD_BUILDS, "newton64": NEWTON64_BUILDS}
+CHORD64_BUILDS = {
+    "float64 K4' and K4''a, G=4 (16 elements a block of 64)": _chord(4, 0),
+}
+FAMILY_BUILDS = {"newton": NEWTON_BUILDS, "chord": CHORD_BUILDS, "newton64": NEWTON64_BUILDS,
+                 "chord64": CHORD64_BUILDS}
+# the family whose kernels' ptxas lines a family prints
+PTXAS_FAMILY = {"newton": "newton", "chord": "chord", "newton64": "newton", "chord64": "chord"}
 THREAD_NAMES = {
     "newton": {0: "one thread per element, retire before the Hessian",
                1: "one thread per element, retire after the step"},
@@ -414,10 +428,11 @@ def _ptxas(out: str, family: str):
             else:
                 continue
         else:
-            t = re.search(r"prox3d_chord_kernelIfLb([01])ELi(\d+)E", name)
+            t = re.search(r"prox3d_chord_kernelI([fd])Lb([01])ELi(\d+)E", name)
             u = re.search(r"prox3d_chord_thread_kernelILb([01])E", name)
             if t:
-                kernel = ("K4'" if t.group(1) == "1" else "K4''a") + f", {t.group(2)} lanes"
+                kernel = (("K4'" if t.group(2) == "1" else "K4''a") + f", {t.group(3)} lanes"
+                          + (", float64" if t.group(1) == "d" else ""))
             elif u:
                 kernel = ("K4'" if u.group(1) == "1" else "K4''a") + ", one thread per element"
             else:
@@ -447,7 +462,7 @@ def build_all(builds, families):
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed\n{out}")
         print(f"{name}: built in {time.perf_counter() - t0:.1f} s", flush=True)
-        for family in dict.fromkeys("newton" if f == "newton64" else f for f in families):
+        for family in dict.fromkeys(PTXAS_FAMILY[f] for f in families):
             for kernel, regs, stack, st, ld, smem in _ptxas(out, family):
                 print(f"  ptxas {kernel}: {regs} registers, {stack} bytes stack frame, {st} "
                       f"bytes spill stores, {ld} bytes spill loads, {smem} bytes shared",
@@ -480,6 +495,15 @@ def cases(families):
             out[f"K4 float64 at 3D {tt}-40 float64 step 0"] = (
                 "newton64", C.prox_inputs(integ), integ.mesh.ehat_np.reshape(-1), integ,
                 "mm_prox3d_f64", P3.prox3d_plain)
+    if "chord64" in families:
+        comp = C.f64_stock("3D CompSquare-40 float64 K4'", 40)[2]
+        out["K4' float64 at 3D CompSquare-40 float64 step 0"] = (
+            "chord64", C.stock_inputs(comp), None, comp, "mm_prox3d_chord_comp_f64",
+            P3.prox3d_chord_comp_plain)
+        square = C.square_chord(40, dtype="float64")[2]
+        out["K4''a float64 at 3D SquareGrid-40 float64 step 0"] = (
+            "chord64", C.stock_inputs(square), square.mesh.ehat_np.reshape(-1), square,
+            "mm_prox3d_chord_f64", P3.prox3d_chord_plain)
     if "chord" in families:
         for n in (40, 20):
             comp = C.comp_square(n)[2]

@@ -16,8 +16,9 @@ cached step is rejected backtracks that step: its refresh would build the
 entry Hessian again at the same z. Inputs: the step-0
 prox inputs of 3D CompSquare nx=4 (K4''s plain version, rho 10) and of 3D
 SquareGrid nx=4 with ``prox_chord=True`` (K4''a's), their duals perturbed
-by a seeded normal so that elements take several sweeps and some refresh.
-No JAX is needed: the JAX order is written out here with the sweep's own
+by a seeded normal so that elements take several sweeps and some refresh;
+each in float32 and in float64 (the float64 builds of K4' and K4''a sweep
+in the same order). No JAX is needed: the JAX order is written out here with the sweep's own
 pieces."""
 
 import numpy as np
@@ -76,13 +77,15 @@ def jax_order_sweep(not_first, zc, Hc, fns, edet_fn, inv_w2, tol, stats=None, gr
     return z_new, active_now & ~stalled, Hc
 
 
-def _inputs(kw):
+def _inputs(kw, dtype):
     cfg = ExperimentConfig(**dict(dict(test_type="SquareGrid", dim=3, method=0, nx=4, ny=4,
-                                       nz=4, dt=5e-3, tau=0.1, dtype="float32"), **kw))
+                                       nz=4, dt=5e-3, tau=0.1, dtype=dtype,
+                                       prox_backend="pallas"), **kw))
     _, integ = build_problem(cfg, device="cpu", prox_chord=True)
+    assert integ.mesh.prox_backend == "pallas" and integ.mesh.dtype == getattr(torch, dtype)
     _, x, z, u = integ.start(integ.init_state())
     noise = np.random.default_rng(0).normal(scale=3e-3, size=tuple(u.shape))
-    dxpu = integ.gather(x) + u + torch.tensor(noise, dtype=torch.float32)
+    dxpu = integ.gather(x) + u + torch.tensor(noise, dtype=u.dtype)
     nf = z.shape[0]
 
     def ch(a):
@@ -96,10 +99,11 @@ def _inputs(kw):
                     integ.prox_max_iters)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("case", list(CASES))
-def test_plain_chord_sweep_solves_only_where_it_steps(case, monkeypatch):
+def test_plain_chord_sweep_solves_only_where_it_steps(case, dtype, monkeypatch):
     plain, kw = CASES[case]
-    inputs, args = _inputs(kw)
+    inputs, args = _inputs(kw, dtype)
     built, solved = [], []
     hess, solve = P3.hess_c3, N._solve
 

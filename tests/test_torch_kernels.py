@@ -18,7 +18,7 @@ prox3d_chord_comp_plain``, tests/test_torch_prox3d_chord.py), on the
 stock engine's inputs. K4, K4', K4''a and K4''b (``prox3d``,
 ``prox3d_chord_comp``, ``prox3d_chord``, ``prox3d_comp``) are also held
 bit for bit to their plain versions, and so are the float64 builds of K1,
-K2, K3 and K4."""
+K2, K3, K4, K4', K4''a and K4''b."""
 
 import pytest
 import torch
@@ -667,8 +667,9 @@ def test_float64_paths_launch_the_float64_kernels(dim, method):
 
 
 def test_float64_kernels_never_cast():
-    """Mixed float32 and float64 inputs raise; the float64 builds of K4',
-    K4''a and K4''b (ROADMAP B10) raise on the card and launch nothing."""
+    """Mixed float32 and float64 inputs raise, for every 3D variant too (a
+    float32 ``free``, or a float32 Ehat beside float64 channels), and
+    launch nothing."""
     _card()
     _, integ = _problem64(3)
     (z, dxpu, free, cells), args = _inputs(integ)
@@ -678,10 +679,73 @@ def test_float64_kernels_never_cast():
     (z2, dxpu2, free2, cells2), args2 = _inputs(integ2)
     with pytest.raises(ValueError):
         P.prox2d(z2, dxpu2, free2.float(), cells2, *args2)
-    eh = torch.ones((9, z.shape[1]), dtype=torch.float64, device=z.device)
-    for fn, extra in ((P3.prox3d_chord, (args[0],)), (P3.prox3d_comp, (eh,)),
-                      (P3.prox3d_chord_comp, (eh,))):
-        before = fn.launches
-        with pytest.raises(ValueError, match="B10"):
-            fn(z, dxpu, free, cells, *extra, *args[1:])
-        assert fn.launches == before
+    for variant in K4_64:
+        _, kernel, _, (z3, d3, f3, c3, *eh), args3 = _k4_64(variant)
+        before = (kernel.launches, kernel.launches_f64)
+        with pytest.raises(ValueError):
+            kernel(z3, d3, f3.float(), c3, *eh, *args3)
+        if eh:
+            with pytest.raises(ValueError):
+                kernel(z3, d3, f3, c3, eh[0].float(), *args3)
+        assert (kernel.launches, kernel.launches_f64) == before
+
+
+# The float64 builds of K4', K4''a and K4''b (``mm_prox3d_chord_comp_f64``,
+# ``mm_prox3d_chord_f64``, ``mm_prox3d_comp_f64``) on the stock engine's
+# float64 inputs at nx=4 (3D CompSquare for K4' and K4''b, 3D SquareGrid
+# with prox_chord=True for K4''a): bit for bit against their plain versions
+# in float64, at ragged sizes, each launch counted in ``launches_f64``, and
+# their float64 paths launching them once per ADMM iteration.
+K4_64 = {
+    "K4'": (lambda: P3.prox3d_chord_comp, lambda: P3.prox3d_chord_comp_plain,
+            dict(mon_type=5, rho=10.0, comp_mesh=True), None),
+    "K4''a": (lambda: P3.prox3d_chord, lambda: P3.prox3d_chord_plain,
+              dict(mon_type=1, rho=50.0), True),
+    "K4''b": (lambda: P3.prox3d_comp, lambda: P3.prox3d_comp_plain,
+              dict(mon_type=5, rho=10.0, comp_mesh=True), False),
+}
+
+
+def _k4_64(variant, nx=4):
+    """``(integrator, kernel, plain, channel inputs, args)`` of a float64
+    3D variant on its stock-engine path (``prox_backend="pallas"``)."""
+    kernel, plain, kw, chord = K4_64[variant]
+    cfg = ExperimentConfig(test_type="SquareGrid", dim=3, method=0, nx=nx, ny=nx, nz=nx,
+                           dtype="float64", prox_backend="pallas", **kw)
+    _, integ = build_problem(cfg, prox_chord=chord)
+    inputs, _ = _stock_inputs(integ)
+    args = (integ.w, integ.prox_tol, integ.prox_max_iters)
+    if not integ.mesh.comp_mesh:
+        args = (integ.mesh.ehat_np.reshape(-1),) + args
+    return integ, kernel(), plain(), inputs, args
+
+
+@pytest.mark.parametrize("case", F64_CASES)
+@pytest.mark.parametrize("variant", list(K4_64))
+def test_k4c_k4pp_f64_bit_equal_to_plain(variant, case):
+    _card()
+    _, kernel, plain, inputs, args = _k4_64(variant)
+    inputs, args = _cut(inputs, args, case)
+    assert inputs[0].dtype == torch.float64
+    before = (kernel.launches, kernel.launches_f64)
+    zk, ihk = kernel(*inputs, *args)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_f64) == (before[0], before[1] + 1)
+    zp, ihp = plain(*inputs, *args)
+    assert zk.dtype == torch.float64 and torch.equal(zk, zp) and torch.equal(ihk, ihp)
+
+
+@pytest.mark.parametrize("variant", list(K4_64))
+def test_float64_stock_paths_launch_their_float64_kernel(variant):
+    _card()
+    integ, kernel, *_ = _k4_64(variant)
+    fns = (P.prox2d, P3.prox3d, P3.prox3d_chord_comp, P3.prox3d_chord, P3.prox3d_comp)
+    for fn in fns:
+        fn.launches = fn.launches_f64 = 0
+    iters = []
+    _, trace, steps = run(integ, integ.init_state(), cap=3, dt_tol=0.0,
+                          on_step=lambda k, info: iters.append(info.n_iters))
+    assert kernel.launches_f64 == sum(iters) > 0
+    assert all(fn.launches == 0 for fn in fns)
+    assert all(fn.launches_f64 == 0 for fn in fns if fn is not kernel)
+    assert trace[steps - 1] < trace[0]

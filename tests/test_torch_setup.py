@@ -23,7 +23,7 @@ from mmadmm_tpu.ops.stencil2d import match_dense as jax_match_dense
 from mmadmm_tpu.problems import build_geometry as jax_geometry
 from mmadmm_tpu.runtime.native import grid_nn_map as jax_nn_map
 
-from mmadmm_tpu_torch import ExperimentConfig, build_problem, load_experiment_config
+from mmadmm_tpu_torch import ExperimentConfig, build_problem, load_experiment_config, problems
 from mmadmm_tpu_torch.geometry.glibc_rand import GlibcRand
 from mmadmm_tpu_torch.geometry.topology import build_boundary_faces
 from mmadmm_tpu_torch.monitors import MONITORS_2D, MONITORS_3D
@@ -134,6 +134,15 @@ def test_config_loads_like_jax():
         assert getattr(a, f) == getattr(b, f), f
 
 
+def _skewed(X):
+    """A monitor that is not symmetric, ``M[0, 1] = 0.5 + x`` (every
+    shipped monitor is symmetric): the narrow cell path's input."""
+    D = X.shape[1]
+    M = np.broadcast_to(np.eye(D), (X.shape[0], D, D)).copy()
+    M[:, 0, 1] = 0.5 + X[:, 0]
+    return M
+
+
 @pytest.mark.parametrize("change,item", [
     # methods 1 and 2 run on the stencil engine; off its gate they name
     # their own items
@@ -141,10 +150,15 @@ def test_config_loads_like_jax():
     # 3D runs MM-ADMM only; methods 1 and 2 in 3D name their items
     (dict(dim=3, nz=4, method=1), "A11"), (dict(dim=3, nz=4, method=2), "A12"),
     (dict(n_devices=2), "A15"),
+    # a monitor that is not symmetric needs the narrow cell path, in 2D and 3D
+    (dict(monitor=_skewed), "A16"), (dict(dim=3, nz=4, monitor=_skewed), "A16"),
 ])
-def test_unported_routes_name_their_roadmap_item(change, item):
+def test_unported_routes_name_their_roadmap_item(change, item, monkeypatch):
     kw = dict(KW, test_type="Shoulder")
     kw.update(change)
+    monitor = kw.pop("monitor", None)
+    if monitor is not None:
+        monkeypatch.setattr(problems, "get_monitor", lambda dim, mon_type: monitor)
     with pytest.raises(NotImplementedError, match=item):
         build_problem(ExperimentConfig(**kw), device="cpu")
 
@@ -183,6 +197,17 @@ def test_unported_routes_name_their_roadmap_item(change, item):
     (dict(test_type="LevelSet"), "ADMMIntegrator", "pallas"),
     # chord sweeps on a 3D box mesh: the stock engine with K4''a (ROADMAP B6)
     (dict(dim=3, nz=4, prox_chord=True), "ADMMIntegrator", "pallas"),
+    # "pallas" in float64 on the stock engine: K4' on a 3D computational
+    # mesh, K4''a with chord sweeps on a 3D box mesh, K4''b with Newton
+    # sweeps on a computational mesh (ROADMAP B10)
+    (dict(dtype="float64", dim=3, nz=4, comp_mesh=True, prox_backend="pallas"),
+     "ADMMIntegrator", "pallas"),
+    (dict(dtype="float64", dim=3, nz=4, prox_chord=True, prox_backend="pallas"),
+     "ADMMIntegrator", "pallas"),
+    (dict(dtype="float64", dim=3, nz=4, comp_mesh=True, prox_chord=False,
+          prox_backend="pallas"), "ADMMIntegrator", "pallas"),
+    # "auto" in float64 on a 3D computational mesh stays on the generic prox
+    (dict(dtype="float64", dim=3, nz=4, comp_mesh=True), "ADMMIntegrator", "vmap"),
 ])
 def test_ported_routes_build_their_engine(change, engine, backend):
     kw = dict(KW, test_type="Shoulder")
@@ -195,18 +220,13 @@ def test_ported_routes_build_their_engine(change, engine, backend):
 
 
 @pytest.mark.parametrize("change,item", [
-    # K4' (chord sweeps, a computational mesh) in float64 is ROADMAP B10
-    (dict(dtype="float64", dim=3, nz=4, comp_mesh=True), "B10"),
     (dict(comp_mesh=True), "computational-mesh"),
-    # K4''a and K4''b in float64, B10 too
-    (dict(dtype="float64", dim=3, nz=4, prox_chord=True), "B10"),
-    (dict(dtype="float64", dim=3, nz=4, comp_mesh=True, prox_chord=False), "B10"),
     (dict(dtype="float64", comp_mesh=True), "computational-mesh"),
-], ids=["float64", "comp_mesh", "float64_k4pp_a", "float64_k4pp_b", "float64_comp_mesh_2d"])
+], ids=["comp_mesh", "float64_comp_mesh_2d"])
 def test_kernel_route_refuses_what_no_kernel_computes(change, item):
-    """``prox_backend="pallas"`` where no kernel computes the function: the
-    float64 builds of K4', K4''a and K4''b (ROADMAP B10), and a 2D
-    computational mesh (K1 has no computational-mesh mode)."""
+    """``prox_backend="pallas"`` where no kernel computes the function: a
+    2D computational mesh (K1 has no computational-mesh mode), in either
+    dtype."""
     kw = dict(KW, test_type="Shoulder", prox_backend="pallas")
     kw.update(change)
     chord = kw.pop("prox_chord", None)
