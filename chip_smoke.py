@@ -81,7 +81,10 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    plain version once, and its bound (float64 rows: 8-byte values, the
    float64 operation rate); one JSON line ``{"kernels": [...]}`` (K4' on
    CompSquare-40's step-0 inputs, and on CompSquare-20's on a line of its
-   own, in each dtype).
+   own, in each dtype); K1's work line at Shoulder-320 step 0 in each
+   dtype: element-sweeps, Hessian builds and retirements on the gradient,
+   the sweeps the carved slots (free all 0) take alone, and the block K1
+   launches with (elements x lanes).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 1
@@ -602,6 +605,22 @@ def work(stats):
                    f"theirs)")
 
 
+def k1_work(label, inputs, args, stats):
+    """K1's work line at step 0: the plain version's sweep counts
+    (``stats``), the sweeps and Hessians of the carved slots (free all 0)
+    alone, and the block K1 launches with in the inputs' dtype."""
+    from mmadmm_tpu_torch.ops import prox2d as P
+
+    carved = torch.nonzero(inputs[2].sum(0) == 0)[:, 0]
+    cs = {}
+    P.prox2d_plain(*(t[:, carved].contiguous() for t in inputs), *args, stats=cs)
+    e, g, threads, cols, unroll = P.block_shape(inputs[0].dtype)
+    say(f"{label}: {work(stats)}; the {carved.numel()} carved slots (free all 0) take "
+        f"{cs.get('element_sweeps', 0)} element-sweeps and build {cs.get('hessians', 0)} "
+        f"Hessians; K1 launches blocks of {e} elements x {g} lanes ({threads} threads; "
+        f"{cols} Hessian columns a dual pass, {unroll} passes unrolled)")
+
+
 def _wrappers():
     from mmadmm_tpu_torch.ops import be2d as B
     from mmadmm_tpu_torch.ops import prox2d as P
@@ -896,7 +915,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
-    say(f"device: {kind}; {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    say(f"device: {kind}; {smi}; max SM clock {clock} (the peak rates' clock); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- build ---------------------------------------------------------------
     t = time.perf_counter()
@@ -1208,7 +1232,7 @@ def main() -> int:
         time_plain(lambda: P.prox2d_plain(z, dxpu, free, cells, *args)),
         bound(lambda: P.prox2d_plain(z, dxpu, free, cells, *args, stats=stats),
               n * (6 + 6 + 6 + 48 + 6 + 1)))
-    say(f"K1 step-0 work: {work(stats)}")
+    k1_work("K1 step-0 work at Shoulder-320", inputs, args, stats)
     zb, cb, eh = be_in
     row("eg2d", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:501",
         launched_e["eg2d"] + launched_b["eg2d"], k2_err,
@@ -1293,7 +1317,7 @@ def main() -> int:
         time_plain(lambda: P.prox2d_plain(z64, d64, f64_, c64, *a64)),
         bound(lambda: P.prox2d_plain(z64, d64, f64_, c64, *a64, stats=stats),
               z64.shape[1] * (6 + 6 + 6 + 48 + 6 + 1), f64=True), f64=True)
-    say(f"K1 float64 step-0 work: {work(stats)}")
+    k1_work("K1 float64 step-0 work at Shoulder-320 float64", k1_64[0], a64, stats)
     row("eg2d_f64", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:501",
         launched64["Euler float64"]["eg2d_f64"] + launched64["backward Euler float64"]["eg2d_f64"],
         k2_64_err, time_kernel(lambda: B.eg2d(zb64, cb64, eh64)),
@@ -1327,12 +1351,16 @@ def main() -> int:
     for label, (name, (inp, a4), err, plain_s) in k4_64s.items():
         kernel, plain = _wrappers()[name], getattr(P3, f"{name}_plain")
         ms = time_kernel(lambda: kernel(*inp, *a4))
-        if "-20" in label:
-            say(f"{name} float64 at {label} step 0 ({inp[0].shape[1]} tets): {ms:.4f} ms (median "
-                f"of 20); plain {1e3 * plain_s:.1f} ms")
-            continue
         stats_p = {}
         per_elem = 12 + 12 + 12 + 216 + (0 if name == "prox3d_chord" else 9) + 12 + 1
+        if "-20" in label:
+            b = bound(lambda: plain(*inp, *a4, stats=stats_p), inp[0].shape[1] * per_elem,
+                      f64=True)
+            say(f"{name} float64 at {label} step 0 ({inp[0].shape[1]} tets): {ms:.4f} ms (median "
+                f"of 20); plain {1e3 * plain_s:.1f} ms; bound {b[0]:.4f} ms by {b[1]} "
+                f"({b[2]:.4e} operations at 33.5 TFLOP/s, {b[3]} bytes at 3.35 TB/s); "
+                f"{work(stats_p)}")
+            continue
         row(f"{name}_f64", "mmadmm_tpu_torch/csrc/prox3d.cu",
             "mmadmm_tpu/ops/prox_pallas3d.py:418",
             sum(v[f"{name}_f64"] for v in launched64s.values()), err, ms,

@@ -110,4 +110,93 @@ __device__ __forceinline__ double abs_(double x) { return fabs(x); }
 template <typename R>
 __device__ __forceinline__ Dual<R> abs_(Dual<R> x) { return {abs_(x.v), x.v >= R(0) ? x.d : -x.d}; }
 
+// A value and N tangents (K1's Hessian, N columns in one pass). Each tangent
+// goes through exactly the operations of Dual<R>'s one, in the same order,
+// and the value through the same as Dual<R>'s value: a pass with N tangents
+// gives N passes' bits.
+template <typename R, int N>
+struct DualN {
+  R v, d[N];
+};
+template <typename R, int N>
+struct RealOf<DualN<R, N>> {
+  using type = R;
+};
+
+#define DUALN_OP(expr_v, expr_d)                 \
+  DualN<R, N> o;                                 \
+  o.v = expr_v;                                  \
+  _Pragma("unroll") for (int t = 0; t < N; ++t) o.d[t] = expr_d; \
+  return o;
+
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator+(DualN<R, N> a, DualN<R, N> b) {
+  DUALN_OP(a.v + b.v, a.d[t] + b.d[t])
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator+(DualN<R, N> a, real_t<DualN<R, N>> b) {
+  DUALN_OP(a.v + b, a.d[t])
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator+(real_t<DualN<R, N>> a, DualN<R, N> b) {
+  DUALN_OP(b.v + a, b.d[t])
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator-(DualN<R, N> a, DualN<R, N> b) {
+  DUALN_OP(a.v - b.v, a.d[t] - b.d[t])
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator-(DualN<R, N> a, real_t<DualN<R, N>> b) {
+  DUALN_OP(a.v - b, a.d[t])
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator-(real_t<DualN<R, N>> a, DualN<R, N> b) {
+  DUALN_OP(a - b.v, -b.d[t])
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator-(DualN<R, N> a) { DUALN_OP(-a.v, -a.d[t]) }
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator*(DualN<R, N> a, DualN<R, N> b) {
+  DUALN_OP(a.v * b.v, a.d[t] * b.v + a.v * b.d[t])
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator*(DualN<R, N> a, real_t<DualN<R, N>> b) {
+  DUALN_OP(a.v * b, a.d[t] * b)
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator*(real_t<DualN<R, N>> a, DualN<R, N> b) {
+  DUALN_OP(a * b.v, a * b.d[t])
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator/(DualN<R, N> a, DualN<R, N> b) {
+  R r = R(1) / (b.v * b.v);
+  DUALN_OP(a.v / b.v, a.d[t] / b.v + (-b.d[t] * a.v) * r)
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator/(DualN<R, N> a, real_t<DualN<R, N>> b) {
+  DUALN_OP(a.v / b, a.d[t] / b)
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> operator/(real_t<DualN<R, N>> a, DualN<R, N> b) {
+  R r = R(1) / (b.v * b.v);
+  DUALN_OP(a / b.v, (-b.d[t] * a) * r)
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> max_floor(DualN<R, N> x, real_t<DualN<R, N>> c) {
+  R f = x.v > c ? R(1) : (x.v == c ? R(0.5) : R(0));
+  DUALN_OP(max_floor(x.v, c), x.d[t] * f)
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> sqrt_(DualN<R, N> x) {
+  R s = sqrt_(x.v);
+  R h = R(0.5) / s;
+  DUALN_OP(s, x.d[t] * h)
+}
+template <typename R, int N>
+__device__ __forceinline__ DualN<R, N> abs_(DualN<R, N> x) {
+  DUALN_OP(abs_(x.v), x.v >= R(0) ? x.d[t] : -x.d[t])
+}
+
+#undef DUALN_OP
+
 }  // namespace

@@ -2,8 +2,10 @@
 // prox2d.cu, K2 and K3 in be2d.cu), on values or dual numbers
 // (dual.cuh): the bilinear monitor sample from a vertex's 16-wide cell
 // row, the terms shared by energy and gradient, the energy and the
-// analytic gradient. Templated on the real type R (float or double) and on
-// T, R or Dual<R>.
+// analytic gradient. Templated on the real type R (float or double), on
+// T, R or Dual<R>, and on C, how the 48 cell channels are read: a pointer
+// to them in registers or memory (K2, K3), or `SharedRows`, one element's
+// column of a block's staged [48][kE] copy (K1).
 //
 // Port of the component math of mmadmm_tpu/ops/prox_pallas2d.py
 // (_sample_m_c, _common_c, energy_c, grad_c). ops/prox2d.py repeats these
@@ -30,8 +32,19 @@ __device__ __forceinline__ R third() { return R(1) / R(3); }
 template <typename R>
 __device__ __forceinline__ R c_d32() { return R(2) * sqrt_(R(2)); }
 
-template <typename T, typename R>
-__device__ __forceinline__ void sample_m(const R* c, T x, T y, T& m0, T& m1, T& m2) {
+// One element's cell channels in a block's shared copy [channel][kE]: c[i]
+// is channel i, c + i the accessor of the channels from i on (as for a
+// pointer), the elements of a warp on consecutive words.
+template <typename R, int kE>
+struct SharedRows {
+  const R* p;  // the staged cells + the element's index in the block
+  __device__ __forceinline__ R operator[](int c) const { return p[c * kE]; }
+  __device__ __forceinline__ SharedRows operator+(int c) const { return {p + c * kE}; }
+};
+
+template <typename T, typename C>
+__device__ __forceinline__ void sample_m(C c, T x, T y, T& m0, T& m1, T& m2) {
+  using R = real_t<T>;
   R x0 = c[12], x1 = c[13], y0 = c[14], y1 = c[15];
   R norm = R(1) / ((x1 - x0) * (y1 - y0));
   T c00 = norm * (x1 - x) * (y1 - y);
@@ -51,8 +64,8 @@ struct Common {
   T tr, det_m, det_fj, G, abs_k, sqrt_tr, sqrt_dfj, inv_sqrt_dm;
 };
 
-template <typename T, typename R>
-__device__ __forceinline__ void common(const T* z, const R* cells, const Consts<R>& k,
+template <typename T, typename C, typename R>
+__device__ __forceinline__ void common(const T* z, C cells, const Consts<R>& k,
                                        Common<T>& t) {
 #pragma unroll
   for (int v = 0; v < 3; ++v) sample_m(cells + 16 * v, z[2 * v], z[2 * v + 1], t.m[v][0], t.m[v][1], t.m[v][2]);
@@ -102,8 +115,8 @@ __device__ __forceinline__ void common(const T* z, const R* cells, const Consts<
 }
 
 // (ih_unregularized, e_regularized) at z
-template <typename R>
-__device__ __forceinline__ void energy(const R* z, const R* cells, const R* dxpu,
+template <typename C, typename R>
+__device__ __forceinline__ void energy(const R* z, C cells, const R* dxpu,
                                        const Consts<R>& k, R& ih, R& e_reg) {
   Common<R> t;
   common(z, cells, k, t);
@@ -113,8 +126,8 @@ __device__ __forceinline__ void energy(const R* z, const R* cells, const R* dxpu
   e_reg = ih + k.half_w2 * reg;
 }
 
-template <typename R>
-__device__ __forceinline__ R energy_unreg(const R* z, const R* cells, const Consts<R>& k) {
+template <typename C, typename R>
+__device__ __forceinline__ R energy_unreg(const R* z, C cells, const Consts<R>& k) {
   Common<R> t;
   common(z, cells, k, t);
   return t.abs_k * t.G;
@@ -122,8 +135,8 @@ __device__ __forceinline__ R energy_unreg(const R* z, const R* cells, const Cons
 
 // masked regularized gradient into g, the unregularized energy into ih;
 // returns e_reg
-template <typename T, typename R>
-__device__ __forceinline__ T grad(const T* z, const R* cells, const R* dxpu, const R* fr,
+template <typename T, typename C, typename R>
+__device__ __forceinline__ T grad(const T* z, C cells, const R* dxpu, const R* fr,
                                   const Consts<R>& k, T* g, T& ih) {
   Common<T> t;
   common(z, cells, k, t);

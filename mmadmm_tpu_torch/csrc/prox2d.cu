@@ -1,14 +1,15 @@
-// K1: the 2D ADMM prox z-update, one thread per triangle.
+// K1: the 2D ADMM prox z-update, its inputs staged on chip.
 //
-// Replaces mmadmm_tpu/ops/prox_pallas2d.py::make_prox_pallas2d (the
-// component-form Pallas kernel _make_kernel / newton_sweeps_c). For each
-// element it runs up to max_iters damped-Newton sweeps on
+// Replaces mmadmm_tpu/ops/prox_pallas2d.py::make_prox_pallas2d (:573; its
+// kernel _make_kernel :601, the component-form sweep newton_sweeps_c :451,
+// pl.pallas_call :671). For each element it runs up to max_iters
+// damped-Newton sweeps on
 //     I_h(z) + 0.5 w^2 |dxpu - z|^2
 // with the analytic Huang gradient, the 6x6 Hessian as the forward
-// derivative of that gradient (dual numbers, one pass per column), an
-// unrolled LDL^T solve with the -g/w^2 fallback, and 5 backtracking trials.
-// The plain PyTorch version in ops/prox2d.py performs the same operations
-// in the same order; built with --fmad=false the two agree bit for bit.
+// derivative of that gradient (dual numbers), an unrolled LDL^T solve with
+// the -g/w^2 fallback, and 5 backtracking trials. The plain PyTorch
+// version in ops/prox2d.py performs the same operations in the same order;
+// built with --fmad=false the two agree bit for bit.
 //
 // The kernel is a template on the real type R: mm_prox2d launches it in
 // float, mm_prox2d_f64 in double (the JAX kernel builds itself in the
@@ -22,20 +23,113 @@
 // zout [6, n] and ih0 [n], the unregularized energy at the input z.
 //
 // What bounds it on the H100: arithmetic. An element reads 66 values and
-// writes 7 (292 bytes in float, 584 in double; about 36 and 71 us for the
-// 409,600 slots of Shoulder-320 at 3.35 TB/s), but each sweep does several
-// thousand operations, at half the float rate in double
-// (the Hessian's six dual passes take most of them), and elements take
-// 1 to max_iters sweeps. The design answers that with one thread per
-// element, each holding its whole state in registers and leaving the
-// sweep loop as soon as it retires: nothing ties an element to its
-// neighbours, so the TPU kernel's whole-tile early exit has no
-// counterpart here. Warps whose threads need different sweep counts
-// diverge; that is the first thing a faster version would address.
+// writes 7 (292 bytes in float, 584 in double: 0.036 and 0.071 ms for the
+// 409,600 slots of Shoulder-320 at 3.35 TB/s), but a sweep that goes on to
+// its step does several thousand operations (the Hessian's dual passes take
+// most of them), at half the float rate in double, and elements take 1 to
+// max_iters sweeps: 3.75e9 operations at Shoulder-320 step 0, 0.056 ms at
+// 67 TFLOP/s in float, 0.113 ms at 33.5 in double (chip_smoke.py counts
+// them; those rates count a fused multiply-add as two operations, and a
+// --fmad=false build issues none).
+//
+// The first design, one thread per element with its whole state in
+// registers (the 48 cell channels, z, dxpu, free, the 21-entry triangle
+// and the factor), took 255 registers (and in double 1.3 KB of stack and
+// 1.5/4.0 KB of spills), so an SM held 8 warps; it retired on a small
+// gradient only after the Hessian, solve and trials it then discarded (the
+// JAX order: a TPU tile moves as one), and it tried all five step sizes.
+// This design:
+//   - a block stages its elements' inputs (z, dxpu, free and the 48 cell
+//     channels, 66 values an element) into shared memory once, with
+//     cp.async (stage.cuh, shared with prox3d.cu), and every evaluation
+//     reads the cells from there (huang2d.cuh's SharedRows: the elements
+//     of a warp on consecutive words), so a lane keeps only z and the
+//     sweep's state;
+//   - a sweep first computes the gradient and retires on a small one (from
+//     the second sweep on) before anything else: such an element leaves
+//     without moving, so the Hessian, solve and trials the JAX order
+//     computes first would be thrown away (200,787 of 788,620
+//     element-sweeps at Shoulder-320 step 0 in float); the first gradient
+//     also gives ih0 (the same operations as the energy at the input);
+//   - the step sizes are tried from the largest down, and the first
+//     accepted one is the step: the sequential loop keeps the largest
+//     accepted of all five, so it is the same alpha, and a sweep whose
+//     full step is accepted evaluates one trial energy instead of five;
+//   - the Hessian's columns come from dual passes of N columns each
+//     (dual.cuh's DualN: each column's bits are those of a pass of its
+//     own), spread over a group of G lanes an element; each lane of a
+//     group solves from the element's triangle in the one order of ldlt,
+//     the trials are spread over the lanes and a ballot picks the largest
+//     accepted; every lane of a group computes the gradient and the tests
+//     from the same data, so the group takes one branch, and synchronizes
+//     on its own mask (at G = 3 and 6 a warp holds 10 and 5 groups and its
+//     last 2 lanes leave after staging). A lane that runs all its passes
+//     unrolled (G = 1, N U = 6) keeps the triangle in registers.
+// The knobs (kK1Group = G, kK1Tangents = N, kK1Unroll = U, kK1Regs) are
+// chosen per real type by timing: see the note at kK1Group.
 
 #include "huang2d.cuh"
+#include "stage.cuh"
 
 namespace {
+
+constexpr int kTri = 21;    // entries of the lower triangle of a 6x6 matrix
+constexpr int kCells = 48;  // cell channels per element
+
+// Lanes per element (G), the Hessian's columns a dual pass computes (N,
+// dividing 6), the passes a lane runs unrolled together (U), and the
+// registers a lane may take (255: no cap), which set the blocks an SM must
+// hold: 65,536 / (threads x kK1Regs). Of the variants that
+// scripts/cuda_k1_variants.py times on the H100 at the step-0 inputs of
+// Shoulder-320 (float and double) and Monitor3320r (float), these are the
+// fastest (PERF.md has the times):
+//   - one lane an element in both types: the gradient, the solve and the
+//     tests are the same work on every lane of a group, so at G = 2, 3 and
+//     6 a warp does more work for its elements, which a shorter sweep does
+//     not repay (1.2x, 1.4x and 1.9x G = 1's time in float); a block queue
+//     (a group taking its next element when its own is done, in fewer
+//     threads) and caps at 144 registers and below are slower still;
+//   - in float the six passes unrolled with the triangle in registers,
+//     capped at 168 registers (316 bytes of spills; 12 warps an SM): the
+//     passes are independent, and unrolled they overlap; 7 % faster at
+//     Shoulder-320 and 17 % at Monitor3320r than the 110-register build
+//     that runs them one by one with its triangle in shared memory, whose
+//     stores order the next pass's loads of the staged cells (unrolled by
+//     2 or 3 so, it is 1.1-1.3x slower still);
+//   - in double two columns a pass, the triangle in shared memory, no cap
+//     (255 registers, 96 bytes of spills): the value part of a dual pass is
+//     computed three times instead of six, 6 % faster than one column a
+//     pass (208 registers, no spill); unrolling or capping spills
+//     kilobytes in double and is 1.3-4x slower.
+template <typename R>
+constexpr int kK1Group = sizeof(R) == 4 ? 1 : 1;
+template <typename R>
+constexpr int kK1Tangents = sizeof(R) == 4 ? 1 : 2;
+template <typename R>
+constexpr int kK1Unroll = sizeof(R) == 4 ? 6 : 1;
+template <typename R>
+constexpr int kK1Regs = sizeof(R) == 4 ? 168 : 255;
+
+// A block stages 64, 64, 40 or 20 elements at G = 1, 2, 3, 6 (a warp holds
+// 32 / G groups; at G = 3 and 6 its last 2 lanes idle), in 64 threads at
+// G = 1, else 128: at most 44,544 bytes in double (87 values an element:
+// the 66 inputs and the 21-entry triangle, unless a lane keeps it in its
+// registers), inside the 48 KB of static shared memory a block may have.
+template <int G>
+constexpr int kK1Threads = G == 1 ? 64 : 128;
+template <int G>
+constexpr int kK1Elements = kK1Threads<G> / 32 * (32 / G);
+
+// A block's staged inputs for kE elements, the cells [channel][element]
+// (SharedRows), the rest [element][channel], and kH Hessian triangles.
+template <typename R, int kE, int kH>
+struct Stage {
+  R cells[kCells * kE];
+  R z[kE * 6], dxpu[kE * 6], fr[kE * 6];
+  R hess[kH * kTri + 1];
+};
+
+__device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
 // NaN-propagating max (torch.maximum)
 template <typename R>
@@ -46,21 +140,21 @@ __device__ __forceinline__ R edet(const R* z) {
   return (z[2] - z[0]) * (z[5] - z[1]) - (z[4] - z[0]) * (z[3] - z[1]);
 }
 
-// H x = b with H's lower triangle in H[i*(i+1)/2 + j] (i >= j)
+// H x = b with H's lower triangle in H[tri(i, j)] (i >= j)
 template <typename R>
 __device__ __forceinline__ void ldlt(const R* H, const R* b, R* x) {
   R L[6][6];
   R D[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
-    R d = H[j * (j + 1) / 2 + j];
+    R d = H[tri(j, j)];
 #pragma unroll
     for (int k = 0; k < j; ++k) d = d - L[j][k] * L[j][k] * D[k];
     d = abs_(d) < Num<R>::kDiagFloor ? Num<R>::kDiagFloor : d;
     D[j] = d;
 #pragma unroll
     for (int i = j + 1; i < 6; ++i) {
-      R s = H[i * (i + 1) / 2 + j];
+      R s = H[tri(i, j)];
 #pragma unroll
       for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k] * D[k];
       L[i][j] = s / d;
@@ -83,55 +177,142 @@ __device__ __forceinline__ void ldlt(const R* H, const R* b, R* x) {
   }
 }
 
-template <typename R>
-__global__ void __launch_bounds__(128) prox2d_kernel(
-    const R* __restrict__ z_in, const R* __restrict__ dxpu_in,
-    const R* __restrict__ free_in, const R* __restrict__ cells_in,
-    R* __restrict__ zout, R* __restrict__ ih0_out, long long n, Consts<R> k, int max_iters) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  R z[6], dxpu[6], fr[6], cells[48];
+// columns j0 .. j0 + N - 1 of the lower triangle of the Hessian at z (rows
+// i >= j), from one dual pass with N tangents: each column's bits are those
+// of a pass of its own (dual.cuh's DualN)
+template <int N, typename C, typename R>
+__device__ __forceinline__ void hess_cols(int j0, const R* z, C cells, const R* dxpu,
+                                          const R* fr, const Consts<R>& k, R* H) {
+  DualN<R, N> zd[6], gd[6];
 #pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    z[c] = z_in[c * n + e];
-    dxpu[c] = dxpu_in[c * n + e];
-    fr[c] = free_in[c * n + e];
+  for (int i = 0; i < 6; ++i) {
+    zd[i].v = z[i];
+#pragma unroll
+    for (int t = 0; t < N; ++t) zd[i].d[t] = i == j0 + t ? R(1) : R(0);
   }
+  DualN<R, N> ihd;
+  grad<DualN<R, N>>(zd, cells, dxpu, fr, k, gd, ihd);
 #pragma unroll
-  for (int c = 0; c < 48; ++c) cells[c] = cells_in[c * n + e];
+  for (int t = 0; t < N; ++t) {
+    const int j = j0 + t;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      if (i < j) continue;
+      R h = gd[i].d[t] * fr[i] * fr[j];
+      if (i == j) h = h + (R(1) - fr[i]) + Num<R>::kLevenberg;
+      H[tri(i, j)] = h;
+    }
+  }
+}
 
-  ih0_out[e] = energy_unreg(z, cells, k);
-  // the backtracking step sizes 1/16, 1/8, 1/4, 1/2, 1 (exact in R)
-  const R alphas[5] = {R(0.0625), R(0.125), R(0.25), R(0.5), R(1)};
+// the backtracking step sizes 1/16, 1/8, 1/4, 1/2, 1: 2^(a - 4), exact
+template <typename R>
+__device__ __forceinline__ R alpha_bt(int a) { return R(0.0625) * (R)(1 << a); }
 
+// backtracking over the group, from the largest step down: trial a = 4 - t
+// on lane t % G in round t / G, and the first round with an accepted trial
+// gives the largest accepted alpha, 0 if none: what the sequential loop of
+// ops/newton.py::_backtrack returns, which tries every alpha and keeps the
+// largest accepted. A trial is accepted at a finite energy not above e0
+// whose orientation determinant stays above det_floor.
+template <int G, typename C, typename R>
+__device__ __forceinline__ R backtrack_group(const R* z, const R* p, C cells, const R* dxpu,
+                                             const Consts<R>& k, R e0, R det_floor, int lane,
+                                             int base, unsigned gmask) {
+#pragma unroll 1
+  for (int r = 0; r * G < 5; ++r) {
+    const int a = 4 - (r * G + lane);
+    bool ok = false;
+    if (a >= 0) {
+      R zt[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) zt[i] = z[i] + alpha_bt<R>(a) * p[i];
+      R ih_t, e_t;
+      energy(zt, cells, dxpu, k, ih_t, e_t);
+      ok = isfinite(e_t) && e_t <= e0 && edet(zt) > det_floor;
+    }
+    const unsigned votes = (__ballot_sync(gmask, ok) >> base) & ((1u << G) - 1u);
+    if (votes) return alpha_bt<R>(4 - (r * G + __ffs(votes) - 1));
+  }
+  return R(0);
+}
+
+// Newton sweeps in the JAX order, except that a sweep retires on its
+// gradient before it builds the Hessian (see the note at the top).
+template <typename R, int G, int N, int U>
+__global__ void __launch_bounds__(kK1Threads<G>, 65536 / (kK1Threads<G> * kK1Regs<R>))
+    prox2d_kernel(const R* __restrict__ z_in, const R* __restrict__ dxpu_in,
+                  const R* __restrict__ free_in, const R* __restrict__ cells_in,
+                  R* __restrict__ zout, R* __restrict__ ih0_out, long long n, Consts<R> k,
+                  int max_iters) {
+  static_assert(G == 1 || G == 2 || G == 3 || G == 6, "a group is 1, 2, 3 or 6 lanes");
+  static_assert(6 % N == 0, "the Hessian's six columns in passes of N");
+  constexpr int kT = kK1Threads<G>, kE = kK1Elements<G>, kW = 32 / G;  // kW groups a warp
+  // one lane that runs its six columns' passes unrolled keeps the triangle in
+  // registers (kept in shared memory, its stores would order the passes'
+  // loads of the staged cells: the compiler cannot tell them apart)
+  constexpr bool kRegisters = G == 1 && N * U == 6;
+  __shared__ __align__(16) Stage<R, kE, kRegisters ? 0 : kE> st;
+  const long long first = (long long)blockIdx.x * kE;
+  stage_rows<kE, kT>(st.cells, cells_in, kCells, n, first);
+  stage_cols<kE, kT>(st.z, z_in, 6, n, first);
+  stage_cols<kE, kT>(st.dxpu, dxpu_in, 6, n, first);
+  stage_cols<kE, kT>(st.fr, free_in, 6, n, first);
+  copies_done();
+  __syncthreads();  // the block's only barrier: every lane below is in a live group
+
+  const int wl = threadIdx.x % 32, grp = wl / G, lane = wl % G;
+  if (grp >= kW) return;  // the last 2 lanes of a warp at G = 3 and 6
+  const int el = threadIdx.x / 32 * kW + grp;
+  const long long e = first + el;
+  if (e >= n) return;
+  const int base = grp * G;  // the group's first lane in its warp
+  const unsigned gmask = ((1u << G) - 1u) << base;
+  const SharedRows<R, kE> cells{st.cells + el};
+  const R* dxpu = st.dxpu + el * 6;
+  const R* fr = st.fr + el * 6;
+  R z[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) z[c] = st.z[el * 6 + c];
+
+  if (max_iters <= 0 && lane == 0) ih0_out[e] = energy_unreg(z, cells, k);
   for (int it = 0; it < max_iters; ++it) {
     // gradient, its norm and the regularized energy at the start
     R g[6];
     R ih;
-    R e0 = grad<R>(z, cells, dxpu, fr, k, g, ih);
+    const R e0 = grad<R>(z, cells, dxpu, fr, k, g, ih);
+    if (it == 0 && lane == 0) ih0_out[e] = ih;  // the unregularized energy at the input
     R gnorm = abs_(g[0]);
+#pragma unroll
     for (int i = 1; i < 6; ++i) gnorm = gnorm + abs_(g[i]);
+    // retire on a small gradient from the second sweep on, before moving
+    // and before the Hessian, which such an element would not use
+    if (it > 0 && gnorm < k.tol) break;
 
-    // Hessian, lower triangle, one dual pass per column
-    R H[21];
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      Dual<R> zd[6], gd[6];
-#pragma unroll
-      for (int i = 0; i < 6; ++i) zd[i] = {z[i], i == j ? R(1) : R(0)};
-      Dual<R> ihd;
-      grad<Dual<R>>(zd, cells, dxpu, fr, k, gd, ihd);
-#pragma unroll
-      for (int i = j; i < 6; ++i) {
-        R h = gd[i].d * fr[i] * fr[j];
-        if (i == j) h = h + (R(1) - fr[i]) + Num<R>::kLevenberg;
-        H[i * (i + 1) / 2 + j] = h;
-      }
-    }
+    // the Hessian's columns in passes of N columns, then the step
     R nb[6], p[6];
 #pragma unroll
     for (int i = 0; i < 6; ++i) nb[i] = -g[i];
-    ldlt(H, nb, p);
+    if constexpr (kRegisters) {
+      // one lane runs all six columns' passes unrolled, into its registers
+      R H[kTri];
+#pragma unroll
+      for (int j0 = 0; j0 < 6; j0 += N) hess_cols<N>(j0, z, cells, dxpu, fr, k, H);
+      ldlt(H, nb, p);
+    } else {
+      // the passes spread over the group, U a lane unrolled together, into
+      // the element's triangle in shared memory
+      R* H = st.hess + el * kTri;
+      __syncwarp(gmask);  // every lane has solved with the last sweep's triangle
+#pragma unroll 1
+      for (int j0 = lane * N; j0 < 6; j0 += G * N * U) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (j0 + u * G * N < 6) hess_cols<N>(j0 + u * G * N, z, cells, dxpu, fr, k, H);
+      }
+      __syncwarp(gmask);
+      ldlt(H, nb, p);
+    }
     bool finite = true;
 #pragma unroll
     for (int i = 0; i < 6; ++i) finite = finite && isfinite(p[i]);
@@ -140,45 +321,34 @@ __global__ void __launch_bounds__(128) prox2d_kernel(
       for (int i = 0; i < 6; ++i) p[i] = -g[i] * k.inv_w2;
     }
 
-    // backtracking: the largest accepted alpha, 0 if none
-    R det0 = edet(z);
-    R det_floor = det0 < R(0) ? det0 : (det0 != det0 ? det0 : R(0));
-    R alpha = R(0);
-#pragma unroll
-    for (int a = 0; a < 5; ++a) {
-      R zt[6];
-#pragma unroll
-      for (int i = 0; i < 6; ++i) zt[i] = z[i] + alphas[a] * p[i];
-      R ih_t, e_t;
-      energy(zt, cells, dxpu, k, ih_t, e_t);
-      bool ok = isfinite(e_t) && e_t <= e0 && edet(zt) > det_floor;
-      if (ok) alpha = alphas[a];
-    }
+    const R det0 = edet(z);
+    const R det_floor = det0 < R(0) ? det0 : (det0 != det0 ? det0 : R(0));
+    const R alpha = backtrack_group<G>(z, p, cells, dxpu, k, e0, det_floor, lane, base, gmask);
     R pmax = abs_(p[0]), zmax = abs_(z[0]);
 #pragma unroll
     for (int i = 1; i < 6; ++i) {
       pmax = maxnan(pmax, abs_(p[i]));
       zmax = maxnan(zmax, abs_(z[i]));
     }
-    R step_inf = alpha * pmax;
-    bool stalled = step_inf <= Num<R>::kEpsStall * (R(1) + zmax);
-    // retire on a small gradient from the second sweep on, before moving
-    if (it > 0 && gnorm < k.tol) break;
+    const R step_inf = alpha * pmax;
+    const bool stalled = step_inf <= Num<R>::kEpsStall * (R(1) + zmax);
 #pragma unroll
     for (int i = 0; i < 6; ++i) z[i] = z[i] + alpha * p[i];
     if (stalled) break;
   }
 #pragma unroll
-  for (int c = 0; c < 6; ++c) zout[c * n + e] = z[c];
+  for (int c = 0; c < 6; ++c)
+    if (c % G == lane) zout[c * n + e] = z[c];  // z stays in registers
 }
 
 template <typename R>
 int launch(const R* z, const R* dxpu, const R* free_, const R* cells, R* zout, R* ih0,
            long long n, Consts<R> k, int max_iters, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  prox2d_kernel<R><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  constexpr int G = kK1Group<R>, N = kK1Tangents<R>, U = kK1Unroll<R>;
+  constexpr int kT = kK1Threads<G>, kE = kK1Elements<G>;
+  const long long blocks = (n + kE - 1) / kE;
+  prox2d_kernel<R, G, N, U><<<(unsigned)blocks, kT, 0, (cudaStream_t)stream>>>(
       z, dxpu, free_, cells, zout, ih0, n, k, max_iters);
   return (int)cudaGetLastError();
 }
@@ -200,4 +370,17 @@ extern "C" int mm_prox2d_f64(const double* z, const double* dxpu, const double* 
                              void* stream) {
   return launch<double>(z, dxpu, free_, cells, zout, ih0, n,
                         {h00, h01, h10, h11, w2, half_w2, inv_w2, tol}, max_iters, stream);
+}
+
+// the block K1 launches with in float (f64 = 0) or double: shape[0] elements
+// in groups of shape[1] lanes, shape[2] threads; shape[3] Hessian columns a
+// dual pass, shape[4] passes a lane unrolled together
+extern "C" void mm_prox2d_block(int f64, int* shape) {
+  const int g = f64 ? kK1Group<double> : kK1Group<float>;
+  shape[0] = g == 1 ? kK1Elements<1> : g == 2 ? kK1Elements<2> : g == 3 ? kK1Elements<3>
+                                                                       : kK1Elements<6>;
+  shape[1] = g;
+  shape[2] = g == 1 ? kK1Threads<1> : kK1Threads<2>;
+  shape[3] = f64 ? kK1Tangents<double> : kK1Tangents<float>;
+  shape[4] = f64 ? kK1Unroll<double> : kK1Unroll<float>;
 }

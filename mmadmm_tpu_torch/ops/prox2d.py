@@ -318,8 +318,19 @@ _SIGNATURES = {name: (
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [real] * 8 + [ctypes.c_int, ctypes.c_void_p],
     ctypes.c_int,
 ) for name, real in (("mm_prox2d", ctypes.c_float), ("mm_prox2d_f64", ctypes.c_double))}
+# mm_prox2d_block(f64, shape[5])
+_SIGNATURES["mm_prox2d_block"] = ([ctypes.c_int, ctypes.POINTER(ctypes.c_int)], None)
 
 
 def library() -> ctypes.CDLL:
     """K1's library, built from ``csrc/prox2d.cu`` at first use."""
     return load_library("prox2d", _SIGNATURES)
+
+
+def block_shape(dtype) -> tuple:
+    """``(elements, lanes an element, threads, Hessian columns a dual pass,
+    passes a lane unrolled together)`` of the block K1 launches with in
+    ``dtype`` (float32 or float64), from the built library."""
+    shape = (ctypes.c_int * 5)()
+    library().mm_prox2d_block(int(dtype == torch.float64), shape)
+    return tuple(shape)

@@ -9,15 +9,20 @@ Compiles ``mmadmm_tpu_torch/csrc/prox2d.cu``, ``be2d.cu`` and
 ``nvcc --fmad=false``) against a stub ``cuda_runtime.h`` that defines
 ``__device__``, ``__ldg``, ``threadIdx`` and the like as host code, into a
 temporary directory, each kernel through one ``extern "C"`` entry per real
-type. The one-thread-per-element kernels K1, K2 and K3 are called once per
-element, one after another. The 3D kernels, where a group of lanes shares
-an element, run a block at a time with one host thread per lane
+type. The one-thread-per-element kernels K2 and K3 are called once per
+element, one after another. The kernels where a group of lanes shares an
+element run a block at a time with one host thread per lane
 (``threadIdx`` is thread-local), ``__syncthreads``, ``__syncwarp`` and
 ``__ballot_sync`` being host barriers over the block or the mask's lanes:
-the Newton kernels K4 and K4''b with 4, 8 and 16 lanes per element, the
-chord kernels K4' and K4''a with 2, 4 and 8; each also on the first 1, 30
-and 131 columns of its inputs at the lanes ``prox3d.cu`` launches it with
-(4 and 2; the block's copies then take the one-value path). Their outputs
+K1 with 1, 2, 3 and 6 lanes per element and one Hessian column a dual pass,
+with 2, 3 and 6 columns a pass at 1 lane, 3 at 2 lanes and 2 at 3 lanes,
+and with 2, 3 and 6 passes unrolled together at 1 lane and 3 at 2 lanes,
+the Newton kernels K4 and K4''b
+with 4, 8 and 16, the chord kernels K4' and K4''a with 2, 4 and 8; each
+also on the first 1, 30 and 131 columns of its inputs at the lanes its
+source launches it with (K1's in each dtype from ``mm_prox2d_block``; 4
+and 2 for the 3D kernels; the block's copies then take the one-value
+path). Their outputs
 are compared bit for bit with ``prox2d_plain``, ``eg2d_plain`` and
 ``hess2d_plain`` (Shoulder nx=16), ``prox3d_plain`` (3D SquareGrid and
 Shoulder nx=4 and SquareGrid nx=6), ``prox3d_chord_comp_plain`` (3D
@@ -81,6 +86,8 @@ static Dim3 blockIdx, blockDim;
 template <typename T> T __ldg(const T* p) { return *p; }
 inline int cudaGetLastError() { return 0; }
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 using std::isfinite;
 
 // A barrier of `count` host threads, one per lane, that returns the OR of
@@ -128,6 +135,11 @@ inline unsigned __ballot_sync(unsigned mask, bool p) {
   return host_barrier(threadIdx.x / 32, mask, __builtin_popcount(mask))
       .arrive(p ? 1u << (threadIdx.x % 32) : 0u);
 }
+// the value v >= 0 of lane src of the mask's lanes
+inline int __shfl_sync(unsigned mask, int v, int src) {
+  return (int)host_barrier(threadIdx.x / 32, mask, __builtin_popcount(mask))
+      .arrive((int)(threadIdx.x % 32) == src ? (unsigned)v : 0u);
+}
 """
 
 # one host entry per kernel and real type: the launch becomes a loop over
@@ -135,16 +147,44 @@ inline unsigned __ballot_sync(unsigned mask, bool p) {
 # kernels); each entry exists as host_<name>_f32 and host_<name>_f64
 HOST_ENTRIES = {
     "prox2d": """
-template <typename R>
-int host_prox2d(const R* z, const R* dxpu, const R* fr, const R* cells, R* zout, R* ih0,
-                long long n, const R* c, int max_iters) {
+#include <thread>
+#include <vector>
+
+// K1 with G lanes an element, N Hessian columns a dual pass and U passes a
+// lane unrolled together: a block at a time, one host thread per lane
+template <typename R, int G, int N, int U>
+int host_prox2d_at(const R* z, const R* dxpu, const R* fr, const R* cells, R* zout, R* ih0,
+                   long long n, const R* c, int max_iters) {
   Consts<R> k{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
-  blockDim.x = 128;
-  for (long long e = 0; e < n; ++e) {
-    blockIdx.x = e / 128; threadIdx.x = e % 128;
-    prox2d_kernel<R>(z, dxpu, fr, cells, zout, ih0, n, k, max_iters);
+  constexpr int kT = kK1Threads<G>, kE = kK1Elements<G>;
+  blockDim.x = kT;
+  for (long long b = 0; b * kE < n; ++b) {
+    blockIdx.x = b;
+    std::vector<std::thread> lanes;
+    for (unsigned t = 0; t < (unsigned)kT; ++t)
+      lanes.emplace_back([=] {
+        threadIdx.x = t;
+        prox2d_kernel<R, G, N, U>(z, dxpu, fr, cells, zout, ih0, n, k, max_iters);
+      });
+    for (auto& l : lanes) l.join();
   }
   return 0;
+}
+
+// gnu = 100 G + 10 N + U
+template <typename R>
+int host_prox2d(int gnu, const R* z, const R* dxpu, const R* fr, const R* cells, R* zout,
+                R* ih0, long long n, const R* c, int max_iters) {
+  switch (gnu) {
+#define K1_AT(G, N, U)                                                              \
+    case 100 * G + 10 * N + U:                                                      \
+      return host_prox2d_at<R, G, N, U>(z, dxpu, fr, cells, zout, ih0, n, c, max_iters);
+    K1_AT(1, 1, 1) K1_AT(2, 1, 1) K1_AT(3, 1, 1) K1_AT(6, 1, 1) K1_AT(1, 2, 1) K1_AT(1, 3, 1)
+    K1_AT(1, 6, 1) K1_AT(2, 3, 1) K1_AT(3, 2, 1) K1_AT(1, 1, 2) K1_AT(1, 1, 3) K1_AT(1, 1, 6)
+    K1_AT(2, 1, 3) K1_AT(1, 2, 3)
+#undef K1_AT
+  }
+  return 1;
 }
 """,
     "be2d": """
@@ -270,7 +310,7 @@ int host_prox3d_comp(int g, const R* z, const R* dxpu, const R* fr, const R* cel
 # each template entry in float and double, with a C name: (arguments
 # before the real pointers, real pointers, then the tail)
 ENTRY_ARGS = {
-    "host_prox2d": ("", 6), "host_be2d": ("int", 3), "host_prox3d": ("int", 6),
+    "host_prox2d": ("int", 6), "host_be2d": ("int", 3), "host_prox3d": ("int", 6),
     "host_prox3d_chord": ("int", 6), "host_prox3d_chord_comp": ("int", 7),
     "host_prox3d_comp": ("int", 7),
 }
@@ -299,7 +339,12 @@ def _c_entries(name):
 
 
 # lanes per element that the group entries are run with
-GROUPS = {"host_prox3d": (4, 8, 16), "host_prox3d_comp": (4, 8, 16),
+# (K1: 100 x lanes an element + 10 x Hessian columns a dual pass + passes
+# unrolled together)
+GROUPS = {"host_prox2d": (111, 211, 311, 611, 121, 131, 161, 231, 321, 112, 113, 116, 213,
+                          123),
+          "host_prox3d": (4, 8, 16),
+          "host_prox3d_comp": (4, 8, 16),
           "host_prox3d_chord": (2, 4, 8), "host_prox3d_chord_comp": (2, 4, 8)}
 
 
@@ -432,6 +477,10 @@ def main() -> int:
             zp, ihp = plain(*args, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
             runs = [(g,) for g in GROUPS.get(entry, (None,))]
             shipped = 2 if entry in ("host_prox3d_chord", "host_prox3d_chord_comp") else 4
+            if entry == "host_prox2d":  # the lanes and passes of K1's build in this dtype
+                shape = (ctypes.c_int * 5)()
+                libs[name].mm_prox2d_block(int(dtype == torch.float64), shape)
+                shipped = 100 * shape[1] + 10 * shape[3] + shape[4]
             runs += [(shipped, m) for m in ((1, 30, 131) if entry in GROUPS else ())]
             for g, *cut in runs:
                 m = cut[0] if cut else n
@@ -444,7 +493,10 @@ def main() -> int:
                     (real * len(k))(*k), integ.prox_max_iters)
                 same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
                 failed += same < 1.0
-                _report(entry[5:] + (f", {g} lanes per element" if g else "") + (
+                lanes = (f", {g // 100} lanes per element, {g // 10 % 10} Hessian columns a "
+                         f"pass, {g % 10} passes unrolled"
+                         if entry == "host_prox2d" else f", {g} lanes per element" if g else "")
+                _report(entry[5:] + lanes + (
                     " (computational mesh)" if kw.get("comp_mesh") else "") + (
                     f", first {m} columns" if cut else ""), kw, m, same)
             if kw["dim"] == 2:  # K2 and K3 on the same slots

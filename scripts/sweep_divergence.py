@@ -52,14 +52,16 @@ from mmadmm_tpu_torch.ops import newton as N  # noqa: E402
 from mmadmm_tpu_torch.ops import prox3d as P3  # noqa: E402
 
 
-def record(plain, inputs, args):
+def record(plain, inputs, args, mod=P3):
     """``(sweeps [n], builds [S, n])``: the sweeps each element ran, and in
     which sweep it built a Hessian (a Newton sweep) or refreshed its cached
-    one (a chord sweep)."""
+    one (a chord sweep). ``mod`` is the plain version's module
+    (``ops/prox3d.py``, or ``ops/prox2d.py`` for K1's Newton sweeps)."""
     n, dev = inputs[0].shape[1], inputs[0].device
     sweeps = torch.zeros(n, dtype=torch.int64, device=dev)
     builds, current = [], {}
-    real_run, real_newton, real_chord = P3.run_sweeps, P3.newton_sweep, P3.chord_sweep
+    real_run, real_newton = mod.run_sweeps, mod.newton_sweep
+    real_chord = getattr(mod, "chord_sweep", None)  # ops/prox2d.py has none
 
     def run(z, max_iters, sweep, stats=None, carry=None):
         def sweep_seen(not_first, sub, zc, *rest):
@@ -94,11 +96,16 @@ def record(plain, inputs, args):
         builds.append(refreshed)
         return out
 
-    P3.run_sweeps, P3.newton_sweep, P3.chord_sweep = run, newton, chord
+    patched = {"run_sweeps": (run, real_run), "newton_sweep": (newton, real_newton)}
+    if real_chord is not None:
+        patched["chord_sweep"] = (chord, real_chord)
+    for name, (fn, _) in patched.items():
+        setattr(mod, name, fn)
     try:
         plain(*inputs, *args)
     finally:
-        P3.run_sweeps, P3.newton_sweep, P3.chord_sweep = real_run, real_newton, real_chord
+        for name, (_, fn) in patched.items():
+            setattr(mod, name, fn)
     return sweeps, torch.stack(builds)
 
 

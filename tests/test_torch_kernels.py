@@ -606,6 +606,43 @@ def test_k1_f64_bit_equal_to_plain(case):
     assert zk.dtype == torch.float64 and torch.equal(zk, zp) and torch.equal(ihk, ihp)
 
 
+# K1's block edges in both builds, bit for bit against the plain version, on
+# Shoulder nx=48's step-0 inputs (9,216 slots, 2,304 of them carved): a
+# block of E elements (E from the built library: its stage and its groups
+# of lanes) cut 1, E - 1 and E + 1 columns in, 4,001 columns (a multiple of
+# no E), one block of carved slots only (free all 0, each taking one whole
+# sweep), and at most 1 sweep.
+K1_EDGES = ["n=1", "n=E-1", "n=E+1", "n=4001", "carved block", "max_iters=1"]
+
+
+@pytest.mark.parametrize("case", K1_EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k1_block_edges_bit_equal_to_plain(dtype, case):
+    _card()
+    _, integ = build_problem(ExperimentConfig(
+        test_type="Shoulder", dim=2, mon_type=1, nx=48, ny=48, dtype=dtype))
+    inputs, args = _inputs(integ)
+    args = list(args)
+    e = P.block_shape(inputs[0].dtype)[0]
+    if case == "max_iters=1":
+        args[-1] = 1
+    elif case == "carved block":
+        cols = torch.nonzero(inputs[2].sum(0) == 0)[:, 0]
+        assert cols.numel() >= e
+        inputs = tuple(t[:, cols[:e]].contiguous() for t in inputs)
+    else:
+        m = {"n=1": 1, "n=E-1": e - 1, "n=E+1": e + 1, "n=4001": 4001}[case]
+        inputs = tuple(t[:, :m].contiguous() for t in inputs)
+    before = (P.prox2d.launches, P.prox2d.launches_f64)
+    zk, ihk = P.prox2d(*inputs, *args)
+    torch.cuda.synchronize()
+    f64 = dtype == "float64"
+    assert (P.prox2d.launches, P.prox2d.launches_f64) == (before[0] + (not f64),
+                                                          before[1] + f64)
+    zp, ihp = P.prox2d_plain(*inputs, *args)
+    assert zk.dtype == inputs[0].dtype and torch.equal(zk, zp) and torch.equal(ihk, ihp)
+
+
 @pytest.mark.parametrize("n", [None, 1, 127, 129, 1000])
 def test_k2_k3_f64_bit_equal_to_plain(n):
     _card()
