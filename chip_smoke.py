@@ -84,7 +84,7 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    own, in each dtype); K1's work line at Shoulder-320 step 0 in each
    dtype: element-sweeps, Hessian builds and retirements on the gradient,
    the sweeps the carved slots (free all 0) take alone, and the block K1
-   launches with (elements x lanes).
+   launches with (elements, one thread each).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 1
@@ -614,11 +614,11 @@ def k1_work(label, inputs, args, stats):
     carved = torch.nonzero(inputs[2].sum(0) == 0)[:, 0]
     cs = {}
     P.prox2d_plain(*(t[:, carved].contiguous() for t in inputs), *args, stats=cs)
-    e, g, threads, cols, unroll = P.block_shape(inputs[0].dtype)
+    e, cols, registers = P.block_shape(inputs[0].dtype)
     say(f"{label}: {work(stats)}; the {carved.numel()} carved slots (free all 0) take "
         f"{cs.get('element_sweeps', 0)} element-sweeps and build {cs.get('hessians', 0)} "
-        f"Hessians; K1 launches blocks of {e} elements x {g} lanes ({threads} threads; "
-        f"{cols} Hessian columns a dual pass, {unroll} passes unrolled)")
+        f"Hessians; K1 launches blocks of {e} elements x 1 thread; {cols} Hessian columns a "
+        f"dual pass, into a triangle in {'registers' if registers else 'shared memory'}")
 
 
 def _wrappers():

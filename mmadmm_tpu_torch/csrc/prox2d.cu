@@ -38,12 +38,12 @@
 // 1.5/4.0 KB of spills), so an SM held 8 warps; it retired on a small
 // gradient only after the Hessian, solve and trials it then discarded (the
 // JAX order: a TPU tile moves as one), and it tried all five step sizes.
-// This design:
+// This design, still one thread per element:
 //   - a block stages its elements' inputs (z, dxpu, free and the 48 cell
 //     channels, 66 values an element) into shared memory once, with
 //     cp.async (stage.cuh, shared with prox3d.cu), and every evaluation
 //     reads the cells from there (huang2d.cuh's SharedRows: the elements
-//     of a warp on consecutive words), so a lane keeps only z and the
+//     of a warp on consecutive words), so a thread keeps only z and the
 //     sweep's state;
 //   - a sweep first computes the gradient and retires on a small one (from
 //     the second sweep on) before anything else: such an element leaves
@@ -57,16 +57,30 @@
 //     full step is accepted evaluates one trial energy instead of five;
 //   - the Hessian's columns come from dual passes of N columns each
 //     (dual.cuh's DualN: each column's bits are those of a pass of its
-//     own), spread over a group of G lanes an element; each lane of a
-//     group solves from the element's triangle in the one order of ldlt,
-//     the trials are spread over the lanes and a ballot picks the largest
-//     accepted; every lane of a group computes the gradient and the tests
-//     from the same data, so the group takes one branch, and synchronizes
-//     on its own mask (at G = 3 and 6 a warp holds 10 and 5 groups and its
-//     last 2 lanes leave after staging). A lane that runs all its passes
-//     unrolled (G = 1, N U = 6) keeps the triangle in registers.
-// The knobs (kK1Group = G, kK1Tangents = N, kK1Unroll = U, kK1Regs) are
-// chosen per real type by timing: see the note at kK1Group.
+//     own), into a triangle in registers or in shared memory.
+// Chosen per real type by timing on the H100 (scripts/cuda_k1_variants.py
+// times them at the step-0 inputs of Shoulder-320 in float and double and
+// of Monitor3320r in float; PERF.md has the times):
+//   - one thread an element in both types: groups of 2, 3 and 6 lanes an
+//     element, which spread the Hessian's passes and the trials, repeat the
+//     gradient, the solve and the tests on every lane, which a shorter
+//     sweep does not repay (1.2x, 1.4x and 1.9x the one-thread time in
+//     float); a block queue (a group taking its next element when its own
+//     is done, in fewer threads) and caps at 144 registers and below are
+//     slower still. Those variants live in the script, not here;
+//   - in float one column a pass, the six passes unrolled into a triangle
+//     in registers, capped at 168 registers (316 bytes of spills; 12 warps
+//     an SM): the passes are independent, and unrolled they overlap; 7 %
+//     faster at Shoulder-320 and 17 % at Monitor3320r than the 110-register
+//     build that runs them one by one into its triangle in shared memory,
+//     whose stores order the next pass's loads of the staged cells (the
+//     compiler cannot tell them apart; unrolled by 2 or 3 so, it is
+//     1.1-1.3x slower still);
+//   - in double two columns a pass, run one by one into the triangle in
+//     shared memory, no cap (255 registers, 96 bytes of spills): the value
+//     part of a dual pass is computed three times instead of six, 6 %
+//     faster than one column a pass (208 registers, no spill); unrolling or
+//     capping spills kilobytes in double and is 1.3-4x slower.
 
 #include "huang2d.cuh"
 #include "stage.cuh"
@@ -76,49 +90,21 @@ namespace {
 constexpr int kTri = 21;    // entries of the lower triangle of a 6x6 matrix
 constexpr int kCells = 48;  // cell channels per element
 
-// Lanes per element (G), the Hessian's columns a dual pass computes (N,
-// dividing 6), the passes a lane runs unrolled together (U), and the
-// registers a lane may take (255: no cap), which set the blocks an SM must
-// hold: 65,536 / (threads x kK1Regs). Of the variants that
-// scripts/cuda_k1_variants.py times on the H100 at the step-0 inputs of
-// Shoulder-320 (float and double) and Monitor3320r (float), these are the
-// fastest (PERF.md has the times):
-//   - one lane an element in both types: the gradient, the solve and the
-//     tests are the same work on every lane of a group, so at G = 2, 3 and
-//     6 a warp does more work for its elements, which a shorter sweep does
-//     not repay (1.2x, 1.4x and 1.9x G = 1's time in float); a block queue
-//     (a group taking its next element when its own is done, in fewer
-//     threads) and caps at 144 registers and below are slower still;
-//   - in float the six passes unrolled with the triangle in registers,
-//     capped at 168 registers (316 bytes of spills; 12 warps an SM): the
-//     passes are independent, and unrolled they overlap; 7 % faster at
-//     Shoulder-320 and 17 % at Monitor3320r than the 110-register build
-//     that runs them one by one with its triangle in shared memory, whose
-//     stores order the next pass's loads of the staged cells (unrolled by
-//     2 or 3 so, it is 1.1-1.3x slower still);
-//   - in double two columns a pass, the triangle in shared memory, no cap
-//     (255 registers, 96 bytes of spills): the value part of a dual pass is
-//     computed three times instead of six, 6 % faster than one column a
-//     pass (208 registers, no spill); unrolling or capping spills
-//     kilobytes in double and is 1.3-4x slower.
-template <typename R>
-constexpr int kK1Group = sizeof(R) == 4 ? 1 : 1;
+// the Hessian's columns a dual pass (dividing 6); whether the passes run
+// unrolled into a triangle in registers, else one by one into the element's
+// triangle in shared memory; and the registers a thread may take (255: no
+// cap), which set the blocks an SM must hold: 65,536 / (kK1Threads x kK1Regs)
 template <typename R>
 constexpr int kK1Tangents = sizeof(R) == 4 ? 1 : 2;
 template <typename R>
-constexpr int kK1Unroll = sizeof(R) == 4 ? 6 : 1;
+constexpr bool kK1Registers = sizeof(R) == 4;
 template <typename R>
 constexpr int kK1Regs = sizeof(R) == 4 ? 168 : 255;
 
-// A block stages 64, 64, 40 or 20 elements at G = 1, 2, 3, 6 (a warp holds
-// 32 / G groups; at G = 3 and 6 its last 2 lanes idle), in 64 threads at
-// G = 1, else 128: at most 44,544 bytes in double (87 values an element:
-// the 66 inputs and the 21-entry triangle, unless a lane keeps it in its
-// registers), inside the 48 KB of static shared memory a block may have.
-template <int G>
-constexpr int kK1Threads = G == 1 ? 64 : 128;
-template <int G>
-constexpr int kK1Elements = kK1Threads<G> / 32 * (32 / G);
+// A block stages the inputs of its 64 elements, one a thread: at most 44,552
+// bytes in double (87 values an element: the 66 inputs and the 21-entry
+// triangle), inside the 48 KB of static shared memory a block may have.
+constexpr int kK1Threads = 64;
 
 // A block's staged inputs for kE elements, the cells [channel][element]
 // (SharedRows), the rest [element][channel], and kH Hessian triangles.
@@ -209,65 +195,48 @@ __device__ __forceinline__ void hess_cols(int j0, const R* z, C cells, const R* 
 template <typename R>
 __device__ __forceinline__ R alpha_bt(int a) { return R(0.0625) * (R)(1 << a); }
 
-// backtracking over the group, from the largest step down: trial a = 4 - t
-// on lane t % G in round t / G, and the first round with an accepted trial
-// gives the largest accepted alpha, 0 if none: what the sequential loop of
-// ops/newton.py::_backtrack returns, which tries every alpha and keeps the
-// largest accepted. A trial is accepted at a finite energy not above e0
-// whose orientation determinant stays above det_floor.
-template <int G, typename C, typename R>
-__device__ __forceinline__ R backtrack_group(const R* z, const R* p, C cells, const R* dxpu,
-                                             const Consts<R>& k, R e0, R det_floor, int lane,
-                                             int base, unsigned gmask) {
+// backtracking from the largest step down: the first accepted alpha, 0 if
+// none, is the largest accepted, which the sequential loop of
+// ops/newton.py::_backtrack returns after trying every alpha. A trial is
+// accepted at a finite energy not above e0 whose orientation determinant
+// stays above det_floor.
+template <typename C, typename R>
+__device__ __forceinline__ R backtrack(const R* z, const R* p, C cells, const R* dxpu,
+                                       const Consts<R>& k, R e0, R det_floor) {
 #pragma unroll 1
-  for (int r = 0; r * G < 5; ++r) {
-    const int a = 4 - (r * G + lane);
-    bool ok = false;
-    if (a >= 0) {
-      R zt[6];
+  for (int a = 4; a >= 0; --a) {
+    R zt[6];
 #pragma unroll
-      for (int i = 0; i < 6; ++i) zt[i] = z[i] + alpha_bt<R>(a) * p[i];
-      R ih_t, e_t;
-      energy(zt, cells, dxpu, k, ih_t, e_t);
-      ok = isfinite(e_t) && e_t <= e0 && edet(zt) > det_floor;
-    }
-    const unsigned votes = (__ballot_sync(gmask, ok) >> base) & ((1u << G) - 1u);
-    if (votes) return alpha_bt<R>(4 - (r * G + __ffs(votes) - 1));
+    for (int i = 0; i < 6; ++i) zt[i] = z[i] + alpha_bt<R>(a) * p[i];
+    R ih_t, e_t;
+    energy(zt, cells, dxpu, k, ih_t, e_t);
+    if (isfinite(e_t) && e_t <= e0 && edet(zt) > det_floor) return alpha_bt<R>(a);
   }
   return R(0);
 }
 
 // Newton sweeps in the JAX order, except that a sweep retires on its
 // gradient before it builds the Hessian (see the note at the top).
-template <typename R, int G, int N, int U>
-__global__ void __launch_bounds__(kK1Threads<G>, 65536 / (kK1Threads<G> * kK1Regs<R>))
+template <typename R>
+__global__ void __launch_bounds__(kK1Threads, 65536 / (kK1Threads * kK1Regs<R>))
     prox2d_kernel(const R* __restrict__ z_in, const R* __restrict__ dxpu_in,
                   const R* __restrict__ free_in, const R* __restrict__ cells_in,
                   R* __restrict__ zout, R* __restrict__ ih0_out, long long n, Consts<R> k,
                   int max_iters) {
-  static_assert(G == 1 || G == 2 || G == 3 || G == 6, "a group is 1, 2, 3 or 6 lanes");
+  constexpr int kE = kK1Threads, N = kK1Tangents<R>;
   static_assert(6 % N == 0, "the Hessian's six columns in passes of N");
-  constexpr int kT = kK1Threads<G>, kE = kK1Elements<G>, kW = 32 / G;  // kW groups a warp
-  // one lane that runs its six columns' passes unrolled keeps the triangle in
-  // registers (kept in shared memory, its stores would order the passes'
-  // loads of the staged cells: the compiler cannot tell them apart)
-  constexpr bool kRegisters = G == 1 && N * U == 6;
-  __shared__ __align__(16) Stage<R, kE, kRegisters ? 0 : kE> st;
+  __shared__ __align__(16) Stage<R, kE, kK1Registers<R> ? 0 : kE> st;
   const long long first = (long long)blockIdx.x * kE;
-  stage_rows<kE, kT>(st.cells, cells_in, kCells, n, first);
-  stage_cols<kE, kT>(st.z, z_in, 6, n, first);
-  stage_cols<kE, kT>(st.dxpu, dxpu_in, 6, n, first);
-  stage_cols<kE, kT>(st.fr, free_in, 6, n, first);
+  stage_rows<kE, kE>(st.cells, cells_in, kCells, n, first);
+  stage_cols<kE, kE>(st.z, z_in, 6, n, first);
+  stage_cols<kE, kE>(st.dxpu, dxpu_in, 6, n, first);
+  stage_cols<kE, kE>(st.fr, free_in, 6, n, first);
   copies_done();
-  __syncthreads();  // the block's only barrier: every lane below is in a live group
+  __syncthreads();  // the block's only barrier
 
-  const int wl = threadIdx.x % 32, grp = wl / G, lane = wl % G;
-  if (grp >= kW) return;  // the last 2 lanes of a warp at G = 3 and 6
-  const int el = threadIdx.x / 32 * kW + grp;
+  const int el = threadIdx.x;
   const long long e = first + el;
   if (e >= n) return;
-  const int base = grp * G;  // the group's first lane in its warp
-  const unsigned gmask = ((1u << G) - 1u) << base;
   const SharedRows<R, kE> cells{st.cells + el};
   const R* dxpu = st.dxpu + el * 6;
   const R* fr = st.fr + el * 6;
@@ -275,13 +244,13 @@ __global__ void __launch_bounds__(kK1Threads<G>, 65536 / (kK1Threads<G> * kK1Reg
 #pragma unroll
   for (int c = 0; c < 6; ++c) z[c] = st.z[el * 6 + c];
 
-  if (max_iters <= 0 && lane == 0) ih0_out[e] = energy_unreg(z, cells, k);
+  if (max_iters <= 0) ih0_out[e] = energy_unreg(z, cells, k);
   for (int it = 0; it < max_iters; ++it) {
     // gradient, its norm and the regularized energy at the start
     R g[6];
     R ih;
     const R e0 = grad<R>(z, cells, dxpu, fr, k, g, ih);
-    if (it == 0 && lane == 0) ih0_out[e] = ih;  // the unregularized energy at the input
+    if (it == 0) ih0_out[e] = ih;  // the unregularized energy at the input
     R gnorm = abs_(g[0]);
 #pragma unroll
     for (int i = 1; i < 6; ++i) gnorm = gnorm + abs_(g[i]);
@@ -293,24 +262,15 @@ __global__ void __launch_bounds__(kK1Threads<G>, 65536 / (kK1Threads<G> * kK1Reg
     R nb[6], p[6];
 #pragma unroll
     for (int i = 0; i < 6; ++i) nb[i] = -g[i];
-    if constexpr (kRegisters) {
-      // one lane runs all six columns' passes unrolled, into its registers
+    if constexpr (kK1Registers<R>) {
       R H[kTri];
 #pragma unroll
       for (int j0 = 0; j0 < 6; j0 += N) hess_cols<N>(j0, z, cells, dxpu, fr, k, H);
       ldlt(H, nb, p);
     } else {
-      // the passes spread over the group, U a lane unrolled together, into
-      // the element's triangle in shared memory
       R* H = st.hess + el * kTri;
-      __syncwarp(gmask);  // every lane has solved with the last sweep's triangle
 #pragma unroll 1
-      for (int j0 = lane * N; j0 < 6; j0 += G * N * U) {
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          if (j0 + u * G * N < 6) hess_cols<N>(j0 + u * G * N, z, cells, dxpu, fr, k, H);
-      }
-      __syncwarp(gmask);
+      for (int j0 = 0; j0 < 6; j0 += N) hess_cols<N>(j0, z, cells, dxpu, fr, k, H);
       ldlt(H, nb, p);
     }
     bool finite = true;
@@ -323,7 +283,7 @@ __global__ void __launch_bounds__(kK1Threads<G>, 65536 / (kK1Threads<G> * kK1Reg
 
     const R det0 = edet(z);
     const R det_floor = det0 < R(0) ? det0 : (det0 != det0 ? det0 : R(0));
-    const R alpha = backtrack_group<G>(z, p, cells, dxpu, k, e0, det_floor, lane, base, gmask);
+    const R alpha = backtrack(z, p, cells, dxpu, k, e0, det_floor);
     R pmax = abs_(p[0]), zmax = abs_(z[0]);
 #pragma unroll
     for (int i = 1; i < 6; ++i) {
@@ -337,18 +297,15 @@ __global__ void __launch_bounds__(kK1Threads<G>, 65536 / (kK1Threads<G> * kK1Reg
     if (stalled) break;
   }
 #pragma unroll
-  for (int c = 0; c < 6; ++c)
-    if (c % G == lane) zout[c * n + e] = z[c];  // z stays in registers
+  for (int c = 0; c < 6; ++c) zout[c * n + e] = z[c];  // z stays in registers
 }
 
 template <typename R>
 int launch(const R* z, const R* dxpu, const R* free_, const R* cells, R* zout, R* ih0,
            long long n, Consts<R> k, int max_iters, void* stream) {
   if (n <= 0) return 0;
-  constexpr int G = kK1Group<R>, N = kK1Tangents<R>, U = kK1Unroll<R>;
-  constexpr int kT = kK1Threads<G>, kE = kK1Elements<G>;
-  const long long blocks = (n + kE - 1) / kE;
-  prox2d_kernel<R, G, N, U><<<(unsigned)blocks, kT, 0, (cudaStream_t)stream>>>(
+  const long long blocks = (n + kK1Threads - 1) / kK1Threads;
+  prox2d_kernel<R><<<(unsigned)blocks, kK1Threads, 0, (cudaStream_t)stream>>>(
       z, dxpu, free_, cells, zout, ih0, n, k, max_iters);
   return (int)cudaGetLastError();
 }
@@ -372,15 +329,12 @@ extern "C" int mm_prox2d_f64(const double* z, const double* dxpu, const double* 
                         {h00, h01, h10, h11, w2, half_w2, inv_w2, tol}, max_iters, stream);
 }
 
-// the block K1 launches with in float (f64 = 0) or double: shape[0] elements
-// in groups of shape[1] lanes, shape[2] threads; shape[3] Hessian columns a
-// dual pass, shape[4] passes a lane unrolled together
+// the block K1 launches with in float (f64 = 0) or double: shape[0]
+// elements, one a thread; shape[1] Hessian columns a dual pass; shape[2] 1 if
+// the passes run unrolled into a triangle in registers, 0 if one by one into
+// shared memory
 extern "C" void mm_prox2d_block(int f64, int* shape) {
-  const int g = f64 ? kK1Group<double> : kK1Group<float>;
-  shape[0] = g == 1 ? kK1Elements<1> : g == 2 ? kK1Elements<2> : g == 3 ? kK1Elements<3>
-                                                                       : kK1Elements<6>;
-  shape[1] = g;
-  shape[2] = g == 1 ? kK1Threads<1> : kK1Threads<2>;
-  shape[3] = f64 ? kK1Tangents<double> : kK1Tangents<float>;
-  shape[4] = f64 ? kK1Unroll<double> : kK1Unroll<float>;
+  shape[0] = kK1Threads;
+  shape[1] = f64 ? kK1Tangents<double> : kK1Tangents<float>;
+  shape[2] = f64 ? kK1Registers<double> : kK1Registers<float>;
 }

@@ -318,7 +318,7 @@ _SIGNATURES = {name: (
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [real] * 8 + [ctypes.c_int, ctypes.c_void_p],
     ctypes.c_int,
 ) for name, real in (("mm_prox2d", ctypes.c_float), ("mm_prox2d_f64", ctypes.c_double))}
-# mm_prox2d_block(f64, shape[5])
+# mm_prox2d_block(f64, shape[3])
 _SIGNATURES["mm_prox2d_block"] = ([ctypes.c_int, ctypes.POINTER(ctypes.c_int)], None)
 
 
@@ -328,9 +328,11 @@ def library() -> ctypes.CDLL:
 
 
 def block_shape(dtype) -> tuple:
-    """``(elements, lanes an element, threads, Hessian columns a dual pass,
-    passes a lane unrolled together)`` of the block K1 launches with in
-    ``dtype`` (float32 or float64), from the built library."""
-    shape = (ctypes.c_int * 5)()
+    """``(elements, Hessian columns a dual pass, triangle in registers)`` of
+    the block K1 launches with in ``dtype`` (float32 or float64), one thread
+    an element, from the built library. The third is 1 where the passes run
+    unrolled into a triangle in registers, 0 where they run one by one into
+    the element's triangle in shared memory."""
+    shape = (ctypes.c_int * 3)()
     library().mm_prox2d_block(int(dtype == torch.float64), shape)
     return tuple(shape)

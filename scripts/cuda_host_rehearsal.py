@@ -14,14 +14,16 @@ element, one after another. The kernels where a group of lanes shares an
 element run a block at a time with one host thread per lane
 (``threadIdx`` is thread-local), ``__syncthreads``, ``__syncwarp`` and
 ``__ballot_sync`` being host barriers over the block or the mask's lanes:
-K1 with 1, 2, 3 and 6 lanes per element and one Hessian column a dual pass,
-with 2, 3 and 6 columns a pass at 1 lane, 3 at 2 lanes and 2 at 3 lanes,
-and with 2, 3 and 6 passes unrolled together at 1 lane and 3 at 2 lanes,
-the Newton kernels K4 and K4''b
+K1 as shipped (one thread an element, 64 a block) and the group design
+that ``scripts/cuda_k1_variants.py`` builds beside it (``GROUP_KERNEL``
+there) with 1, 2, 3 and 6 lanes per element and one Hessian column a dual
+pass, with 2, 3 and 6 columns a pass at 1 lane, 3 at 2 lanes and 2 at 3
+lanes, and with 2, 3 and 6 passes unrolled together at 1 lane and 3 at 2
+lanes, the Newton kernels K4 and K4''b
 with 4, 8 and 16, the chord kernels K4' and K4''a with 2, 4 and 8; each
-also on the first 1, 30 and 131 columns of its inputs at the lanes its
-source launches it with (K1's in each dtype from ``mm_prox2d_block``; 4
-and 2 for the 3D kernels; the block's copies then take the one-value
+also on the first 1, 30 and 131 columns of its inputs as its source
+launches it (K1 as shipped; 4 and 2 lanes for the 3D kernels; the block's
+copies then take the one-value
 path). Their outputs
 are compared bit for bit with ``prox2d_plain``, ``eg2d_plain`` and
 ``hess2d_plain`` (Shoulder nx=16), ``prox3d_plain`` (3D SquareGrid and
@@ -53,6 +55,9 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.getcwd())
+sys.path.insert(0, os.path.join(os.getcwd(), "scripts"))
+
+import cuda_k1_variants as K1V  # noqa: E402
 
 from mmadmm_tpu_torch import ExperimentConfig, build_problem  # noqa: E402
 from mmadmm_tpu_torch.cuda_build import CSRC  # noqa: E402
@@ -150,13 +155,10 @@ HOST_ENTRIES = {
 #include <thread>
 #include <vector>
 
-// K1 with G lanes an element, N Hessian columns a dual pass and U passes a
-// lane unrolled together: a block at a time, one host thread per lane
-template <typename R, int G, int N, int U>
-int host_prox2d_at(const R* z, const R* dxpu, const R* fr, const R* cells, R* zout, R* ih0,
-                   long long n, const R* c, int max_iters) {
-  Consts<R> k{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
-  constexpr int kT = kK1Threads<G>, kE = kK1Elements<G>;
+// a kernel of kT threads a block over the blocks of kE elements, one host
+// thread per lane
+template <int kT, int kE, typename F>
+int host_blocks(long long n, F kernel) {
   blockDim.x = kT;
   for (long long b = 0; b * kE < n; ++b) {
     blockIdx.x = b;
@@ -164,21 +166,30 @@ int host_prox2d_at(const R* z, const R* dxpu, const R* fr, const R* cells, R* zo
     for (unsigned t = 0; t < (unsigned)kT; ++t)
       lanes.emplace_back([=] {
         threadIdx.x = t;
-        prox2d_kernel<R, G, N, U>(z, dxpu, fr, cells, zout, ih0, n, k, max_iters);
+        kernel();
       });
     for (auto& l : lanes) l.join();
   }
   return 0;
 }
 
-// gnu = 100 G + 10 N + U
+// gnu = 0: K1 as shipped; else 100 G + 10 N + U: the group design of
+// scripts/cuda_k1_variants.py with G lanes an element, N Hessian columns a
+// dual pass and U passes a lane unrolled together
 template <typename R>
 int host_prox2d(int gnu, const R* z, const R* dxpu, const R* fr, const R* cells, R* zout,
                 R* ih0, long long n, const R* c, int max_iters) {
+  Consts<R> k{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
+  if (gnu == 0)
+    return host_blocks<kK1Threads, kK1Threads>(n, [=] {
+      prox2d_kernel<R>(z, dxpu, fr, cells, zout, ih0, n, k, max_iters);
+    });
   switch (gnu) {
-#define K1_AT(G, N, U)                                                              \
-    case 100 * G + 10 * N + U:                                                      \
-      return host_prox2d_at<R, G, N, U>(z, dxpu, fr, cells, zout, ih0, n, c, max_iters);
+#define K1_AT(G, N, U)                                                                  \
+    case 100 * G + 10 * N + U:                                                          \
+      return host_blocks<kK1GroupThreads<G>, kK1Elements<G>>(n, [=] {                   \
+        prox2d_group_kernel<R, G, N, U, 255>(z, dxpu, fr, cells, zout, ih0, n, k, max_iters); \
+      });
     K1_AT(1, 1, 1) K1_AT(2, 1, 1) K1_AT(3, 1, 1) K1_AT(6, 1, 1) K1_AT(1, 2, 1) K1_AT(1, 3, 1)
     K1_AT(1, 6, 1) K1_AT(2, 3, 1) K1_AT(3, 2, 1) K1_AT(1, 1, 2) K1_AT(1, 1, 3) K1_AT(1, 1, 6)
     K1_AT(2, 1, 3) K1_AT(1, 2, 3)
@@ -339,9 +350,9 @@ def _c_entries(name):
 
 
 # lanes per element that the group entries are run with
-# (K1: 100 x lanes an element + 10 x Hessian columns a dual pass + passes
-# unrolled together)
-GROUPS = {"host_prox2d": (111, 211, 311, 611, 121, 131, 161, 231, 321, 112, 113, 116, 213,
+# (K1: 0 as shipped, else 100 x lanes an element + 10 x Hessian columns a
+# dual pass + passes unrolled together)
+GROUPS = {"host_prox2d": (0, 111, 211, 311, 611, 121, 131, 161, 231, 321, 112, 113, 116, 213,
                           123),
           "host_prox3d": (4, 8, 16),
           "host_prox3d_comp": (4, 8, 16),
@@ -359,7 +370,10 @@ def build(tmp: str) -> dict:
     libs = {}
     for name, entries in HOST_ENTRIES.items():
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
-            src = re.sub(r"<<<[^>]*>>>", "", f.read()) + entries + _c_entries(name)
+            src = f.read()
+        if name == "prox2d":  # K1's group design, which the variant timer builds
+            src = src.replace(K1V.LAUNCH, K1V.GROUP_HELPERS + K1V.GROUP_KERNEL + K1V.LAUNCH)
+        src = re.sub(r"<<<[^>]*>>>", "", src) + entries + _c_entries(name)
         cpp, so = os.path.join(tmp, f"{name}.cpp"), os.path.join(tmp, f"lib{name}.so")
         with open(cpp, "w") as f:
             f.write(src)
@@ -477,10 +491,8 @@ def main() -> int:
             zp, ihp = plain(*args, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
             runs = [(g,) for g in GROUPS.get(entry, (None,))]
             shipped = 2 if entry in ("host_prox3d_chord", "host_prox3d_chord_comp") else 4
-            if entry == "host_prox2d":  # the lanes and passes of K1's build in this dtype
-                shape = (ctypes.c_int * 5)()
-                libs[name].mm_prox2d_block(int(dtype == torch.float64), shape)
-                shipped = 100 * shape[1] + 10 * shape[3] + shape[4]
+            if entry == "host_prox2d":  # K1 as shipped
+                shipped = 0
             runs += [(shipped, m) for m in ((1, 30, 131) if entry in GROUPS else ())]
             for g, *cut in runs:
                 m = cut[0] if cut else n
@@ -493,8 +505,9 @@ def main() -> int:
                     (real * len(k))(*k), integ.prox_max_iters)
                 same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
                 failed += same < 1.0
-                lanes = (f", {g // 100} lanes per element, {g // 10 % 10} Hessian columns a "
-                         f"pass, {g % 10} passes unrolled"
+                lanes = ((", as shipped" if g == 0 else
+                          f", {g // 100} lanes per element, {g // 10 % 10} Hessian columns a "
+                          f"pass, {g % 10} passes unrolled")
                          if entry == "host_prox2d" else f", {g} lanes per element" if g else "")
                 _report(entry[5:] + lanes + (
                     " (computational mesh)" if kw.get("comp_mesh") else "") + (

@@ -608,8 +608,8 @@ def test_k1_f64_bit_equal_to_plain(case):
 
 # K1's block edges in both builds, bit for bit against the plain version, on
 # Shoulder nx=48's step-0 inputs (9,216 slots, 2,304 of them carved): a
-# block of E elements (E from the built library: its stage and its groups
-# of lanes) cut 1, E - 1 and E + 1 columns in, 4,001 columns (a multiple of
+# block of E elements (E from the built library: its stage, one thread an
+# element) cut 1, E - 1 and E + 1 columns in, 4,001 columns (a multiple of
 # no E), one block of carved slots only (free all 0, each taking one whole
 # sweep), and at most 1 sweep.
 K1_EDGES = ["n=1", "n=E-1", "n=E+1", "n=4001", "carved block", "max_iters=1"]
