@@ -8,7 +8,9 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
 2. build: kernel K1 (``csrc/prox2d.cu``), kernels K2 and K3
    (``csrc/be2d.cu``) and kernels K4, K4' and K4'' (``csrc/prox3d.cu``),
    each in float and double, one ``nvcc`` per source, started together,
-   and their registers and spills (``-Xptxas -v``);
+   their registers and spills (``-Xptxas -v``), and the blocks and warps an
+   SM holds of each of the eight 3D builds (the CUDA occupancy calculator,
+   ``ops/prox3d.py::residency``);
 3. kernel vs plain: every kernel against its plain PyTorch version on the
    same inputs: K1-K3 at Shoulder nx=16 and on the step-0 inputs of
    Shoulder-320 (409,600 element slots), K4 at 3D SquareGrid nx=4 and on
@@ -81,8 +83,9 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    plain version once, and its bound (float64 rows: 8-byte values, the
    float64 operation rate); one JSON line ``{"kernels": [...]}`` (K4' on
    CompSquare-40's step-0 inputs, and on CompSquare-20's on a line of its
-   own, in each dtype); K1's work line at Shoulder-320 step 0 in each
-   dtype: element-sweeps, Hessian builds and retirements on the gradient,
+   own, in each dtype; K4's bound at 3D SquareGrid-40's step-0 inputs on a
+   line of its own, in each dtype); K1's work line at Shoulder-320 step 0
+   in each dtype: element-sweeps, Hessian builds and retirements on the gradient,
    the sweeps the carved slots (free all 0) take alone, and the block K1
    launches with (elements, one thread each).
 
@@ -933,6 +936,9 @@ def main() -> int:
     for name in ("prox2d", "be2d", "prox3d"):
         for line in cuda_build.ptxas_report(name).splitlines():
             say(f"ptxas {name}: {line.strip()}")
+    say("resident on each SM (occupancy calculator): " + "; ".join(
+        f"{entry} {b} blocks of {t} threads = {b * t // 32} warps"
+        for entry, (b, t) in P3.residency().items()))
 
     # ---- kernels vs plain ------------------------------------------------------
     _, _, small = shoulder(16)
@@ -1244,12 +1250,21 @@ def main() -> int:
         time_plain(lambda: B.hess2d_plain(zb, cb, eh)),
         bound(lambda: B.hess2d_plain(zb, cb, eh), n * (6 + 48 + 21)))
     ptimes = {}
+    per_elem4 = 12 + 12 + 12 + 216 + 12 + 1
     for label, (_, integ3, err, (z3, d3, f3, c3)) in box.items():
         a3 = (integ3.mesh.ehat_np.reshape(-1), integ3.w, integ3.prox_tol, integ3.prox_max_iters)
         ptimes[label] = (err, time_kernel(lambda: P3.prox3d(z3, d3, f3, c3, *a3)),
                          time_plain(lambda: P3.prox3d_plain(z3, d3, f3, c3, *a3)))
         say(f"K4 at {label} step 0: {ptimes[label][1]:.4f} ms (median of 20); plain "
             f"{ptimes[label][2]:.1f} ms")
+    # K4's bound at 3D SquareGrid-40 step 0 (its row is Shoulder-40's)
+    _, integ3, _, (z3, d3, f3, c3) = box["3D SquareGrid-40"]
+    a3 = (integ3.mesh.ehat_np.reshape(-1), integ3.w, integ3.prox_tol, integ3.prox_max_iters)
+    stats_sq = {}
+    b_sq = bound(lambda: P3.prox3d_plain(z3, d3, f3, c3, *a3, stats=stats_sq),
+                 z3.shape[1] * per_elem4)
+    say(f"K4 bound at 3D SquareGrid-40 step 0: {b_sq[0]:.4f} ms by {b_sq[1]} ({b_sq[2]:.4e} "
+        f"operations at 67 TFLOP/s, {b_sq[3]} bytes at 3.35 TB/s); {work(stats_sq)}")
     # K4's row: the 3D Shoulder-40 step-0 inputs (672,000 live tets in 768,000 slots)
     _, integ3, _, (z3, d3, f3, c3) = box["3D Shoulder-40"]
     a3 = (integ3.mesh.ehat_np.reshape(-1), integ3.w, integ3.prox_tol, integ3.prox_max_iters)
@@ -1258,7 +1273,7 @@ def main() -> int:
     row("prox3d", "mmadmm_tpu_torch/csrc/prox3d.cu", "mmadmm_tpu/ops/prox_pallas3d.py:263",
         sum(v["prox3d"] for v in launched3.values()), err3, ms3, plain3,
         bound(lambda: P3.prox3d_plain(z3, d3, f3, c3, *a3, stats=stats3),
-              z3.shape[1] * (12 + 12 + 12 + 216 + 12 + 1)))
+              z3.shape[1] * per_elem4))
     say(f"K4 step-0 work at 3D Shoulder-40: {work(stats3)}")
     # K1 on Monitor3320r's step-0 inputs, through the stock engine's entry
     m_integ, m_err, m_in = stock["Monitor3320r"][1:]
@@ -1334,8 +1349,12 @@ def main() -> int:
         (inp, a4), err, plain_s = k4_64[label]
         ms = time_kernel(lambda: P3.prox3d(*inp, *a4))
         if label == "3D SquareGrid-40 float64":
+            stats_sq = {}
+            b_sq = bound(lambda: P3.prox3d_plain(*inp, *a4, stats=stats_sq),
+                         inp[0].shape[1] * per_elem4, f64=True)
             say(f"K4 float64 at {label} step 0: {ms:.4f} ms (median of 20); plain "
-                f"{1e3 * plain_s:.1f} ms")
+                f"{1e3 * plain_s:.1f} ms; bound {b_sq[0]:.4f} ms by {b_sq[1]} ({b_sq[2]:.4e} "
+                f"operations at 33.5 TFLOP/s, {b_sq[3]} bytes at 3.35 TB/s); {work(stats_sq)}")
             continue
         stats64 = {}
         row("prox3d_f64", "mmadmm_tpu_torch/csrc/prox3d.cu",
@@ -1344,7 +1363,7 @@ def main() -> int:
                                                       "3D SquareGrid-40 float64")),
             err, ms, time_plain(lambda: P3.prox3d_plain(*inp, *a4)),
             bound(lambda: P3.prox3d_plain(*inp, *a4, stats=stats64),
-                  inp[0].shape[1] * (12 + 12 + 12 + 216 + 12 + 1), f64=True), f64=True)
+                  inp[0].shape[1] * per_elem4, f64=True), f64=True)
         say(f"K4 float64 step-0 work at {label}: {work(stats64)}")
     # K4', K4''a and K4''b in float64: K4' on CompSquare-20's step-0 inputs on
     # a line of its own, each row on its -40 path's

@@ -60,7 +60,7 @@
 // sweeps.
 //
 // The Newton sweeps (K4, K4''b: prox3d_newton_kernel) run on a group of
-// kGroup lanes per element, with the element's whole sweep state on the
+// lanes per element, with the element's whole sweep state on the
 // chip: with one thread per element, the 216 cell channels are read again
 // from L2 by each of the ~18 evaluations of a sweep and the Newton state
 // spills to local memory (168-255 registers, 1.8-2.7 KB of stack a thread),
@@ -76,13 +76,16 @@
 //     computes first would be thrown away (44-50 % of the element-sweeps on
 //     step-0 inputs);
 //   - the twelve dual passes of the Hessian are spread over the group, lane
-//     l taking the columns l, l + kGroup, ..., each written to the
+//     l of G taking the columns l, l + G, ..., each written to the
 //     element's 78-entry triangle in shared memory; each column's pass is
 //     the one-thread design's pass, so its bits do not change;
 //   - every lane then factors and solves that triangle in its registers,
 //     in the one order of factor12 and direction, so every lane holds the
 //     same step p (on a SIMT warp, redundant work costs the group what one
-//     lane doing it alone would, and needs no broadcast);
+//     lane doing it alone would, and needs no broadcast); or, in K4's
+//     double build, the group factors it in place, each lane a share of
+//     each column's rows (factor12_group), and every lane solves with the
+//     factored triangle (cached_direction);
 //   - the five backtracking trials are spread over the lanes, and a ballot
 //     of the group gives the largest accepted alpha, which is what the
 //     sequential loop returns;
@@ -90,10 +93,10 @@
 //     computed by every lane from the same data, so every lane of a group
 //     takes the same branch; a group synchronizes on its own mask
 //     (__syncwarp, __ballot_sync), and a block only once, after staging.
-// kGroup and the blocks an SM holds are chosen by timing
-// (scripts/cuda_k4_variants.py, which times 4, 8 and 16 lanes and the
-// register caps against the one-thread-per-element design): see the note at
-// kGroup below.
+// Each build's layout (threads, lanes, blocks an SM, where the stage and
+// the factor live) is chosen by timing (scripts/cuda_k4_variants.py, which
+// times layouts against the one-thread-per-element design and against the
+// earlier layouts): see Layout and the builds below.
 //
 // The chord sweeps (K4', K4''a: prox3d_chord_kernel) have the same on-chip
 // design, with their own sweep: one Hessian per element at entry, factored
@@ -105,7 +108,8 @@
 //   - the block stages its elements' inputs as the Newton kernels do
 //     (and, for K4', Ehat);
 //   - the entry Hessian's twelve dual passes are spread over the group as
-//     in the Newton kernels, then one lane factors the triangle in place;
+//     in the Newton kernels, then one lane factors the triangle in place
+//     (K4' in double: the group, factor12_group);
 //   - a common sweep is the gradient, the retire test (from the second
 //     sweep on), the solve with the cached factors (out of line, see
 //     cached_direction) and one trial at alpha 1, all computed by every
@@ -118,10 +122,10 @@
 //     operations as the energy at the input.
 // A refresh is guarded per element: a group that keeps its cached step skips
 // it (though its lanes idle while another group of its warp refreshes). The
-// group width, the register cap and the factor's lanes were chosen by timing
-// (scripts/cuda_k4_variants.py): see kChordGroup below.
+// layouts are chosen by timing, as the Newton kernels' are.
 
 #include <cstring>
+#include <type_traits>
 
 #include "huang3d.cuh"
 #include "stage.cuh"
@@ -134,53 +138,105 @@ static_assert(sizeof(Consts3<double>) == 9 * sizeof(double), "Consts3 is 9 packe
 constexpr int kTri = 78;       // entries of the lower triangle of a 12x12 matrix
 constexpr int kCells = 216;    // cell channels per element
 
-// Threads per block of the Newton kernels: 128 in float (32 elements at
-// kGroup = 4), 64 in double. A block stages its elements' inputs and Hessian
-// triangles, 330 values an element (NewtonStage): 32 elements take 42.3 KB
-// in float but would take 84.5 KB in double, over the 48 KB of static
-// shared memory a block may have; 16 take 42.2 KB. (Dynamic shared memory
-// allows 32, with cudaFuncSetAttribute; scripts/cuda_k4_variants.py
-// newton64 times that block against this one.)
-template <typename R>
-constexpr int kNewtonThreads = sizeof(R) == 4 ? 128 : 64;
-constexpr int kThreads = kNewtonThreads<float>;
+// Who factors an element's Hessian triangle: every lane a copy in its
+// registers (factor12 on L, then direction on L), one lane in place in
+// shared memory while the others wait, or the group in place, the rows of
+// each column spread over its lanes (factor12_group). All three perform each
+// entry's operations in factor12's order.
+constexpr int kEveryLane = 0, kOneLane = 1, kSpread = 2;
 
-// Lanes per element in the Newton sweeps, and the blocks of kThreads an SM
-// must hold at once, which caps the registers at 65,536 / (kThreads x
-// blocks): 128 for K4, 168 for K4''b. Of the variants that
-// scripts/cuda_k4_variants.py times on the H100 at the step-0 inputs of 3D
-// Shoulder-40 (K4) and CompSquare-40 (K4''b), these are the fastest (PERF.md
-// has the times): 4 lanes beat 8 and 16, whose lanes idle longer in the
-// gradient, factor and solve (and 16 spill); with no cap both take 220-222
-// registers and 2 blocks an SM, and the cap's few hundred bytes of spills
-// cost less than the warps it adds. In double the blocks are of 64
-// threads, so the same minimums of 4 (K4) and 3 (K4''b) blocks an SM leave
-// up to 255 registers, which the double state (twice the float one's)
-// needs; shared memory would hold 5 such blocks an SM.
-constexpr int kGroup = 4;
-constexpr int kBlocks = 4;      // K4
-constexpr int kBlocksComp = 3;  // K4''b
+// A build's layout: kThreads threads a block, kGroup lanes an element (kE =
+// kThreads / kGroup elements a block), at least kMinBlocks blocks an SM at
+// once (__launch_bounds__: the registers capped at 65,536 / (kThreads x
+// kMinBlocks), and at 255), and the factor as above. A block's stage
+// (NewtonStage) is static shared memory, at most 48 KB a block.
+template <int T, int G, int B, int kFactorBy>
+struct Layout {
+  static constexpr int kThreads = T, kGroup = G, kE = T / G, kMinBlocks = B;
+  static constexpr int kFactor = kFactorBy;
+};
 
-// The chord sweeps: kChordE<R> elements a block, kChordGroup lanes each (a
-// block of kChordE<R> x kChordGroup threads, with the Newton kernels' staging
-// of 42-44 KB), and no register cap. The stage (NewtonStage) holds the
-// inputs and the 78-entry chord cache of each element: 43,392 bytes for 32
-// float elements and for 16 double ones; 32 double ones would take 86.8 KB,
-// over the 48 KB of static shared memory a block may have, so a double
-// block has 16 elements (at 2 lanes, one warp). Of the variants that
-// scripts/cuda_k4_variants.py times on the H100 at the step-0 inputs of 3D
-// CompSquare-40 (K4') and 3D SquareGrid-40 with prox_chord=True (K4''a),
-// these are the fastest (PERF.md has the times): 2 lanes beat 4 and 8,
-// which repeat the common sweep (gradient, solve, trial) on more lanes for
-// each element, and 1, which builds the whole Hessian alone; at 218-221
-// registers an SM holds 4 blocks (128 elements), and a cap to 168 registers
-// (6 blocks) spills more than the warps it gains are worth. In double the
-// same script (its chord64 family) times 2 and 4 lanes at 16 elements a
-// block, at 255 registers and some 900 bytes of spills either way: 2 lanes
-// (a block of one warp) are the faster there too, by 3-4 %.
-template <typename R>
-constexpr int kChordE = sizeof(R) == 4 ? 32 : 16;
-constexpr int kChordGroup = 2;
+// The Newton sweeps in float (K4, K4''b): 4 lanes an element, 32 elements a
+// block staged in shared memory (NewtonStage: 330 values an element, 42.3
+// KB), at least 4 (K4) and 3 (K4''b) blocks an SM, so at most 128 and 168
+// registers; every lane factors a copy of the triangle. Of the variants
+// that scripts/cuda_k4_variants.py times on the H100 at the step-0 inputs
+// of 3D Shoulder-40 (K4) and CompSquare-40 (K4''b), these are the fastest
+// (PERF.md has the times): 4 lanes beat 8 and 16, whose lanes idle longer in
+// the gradient, factor and solve (and 16 spill); with no cap both take
+// 220-222 registers and 2 blocks an SM, and the cap's few hundred bytes of
+// spills cost less than the warps it adds.
+//
+// The chord sweeps in float (K4', K4''a): 2 lanes an element, 32 elements a
+// block with the same staging (the chord cache in the triangle's place),
+// one lane factoring, no register cap: 2 lanes beat 4 and 8, which repeat
+// the common sweep (gradient, solve, trial) on more lanes for each element,
+// and 1, which builds the whole Hessian alone; at 218-221 registers an SM
+// holds 4 blocks (128 elements), and a cap to 168 registers (6 blocks)
+// spills more than the warps it gains are worth.
+//
+// K4''b and K4''a in double keep the float plan cut down to the 48 KB of
+// static shared memory a block may have: 16 elements a block (42.2-43.4
+// KB), K4''b at least 3 blocks of 64 threads an SM (255 registers), K4''a a
+// block of one warp (255 registers, 5 blocks an SM by shared memory).
+//
+// K4 and K4' in double have layouts of their own (K4Double,
+// K4ChordCompDouble below), chosen by timing on the H100.
+template <bool kComp>
+using NewtonFloat = Layout<128, 4, kComp ? 3 : 4, kEveryLane>;
+using ChordFloat = Layout<64, 2, 1, kOneLane>;
+template <typename R, bool kChord, bool kComp>
+struct Build {
+  using L = std::conditional_t<kChord, ChordFloat, NewtonFloat<kComp>>;
+};
+template <>
+struct Build<double, false, true> {  // K4''b
+  using L = Layout<64, 4, 3, kEveryLane>;
+};
+template <>
+struct Build<double, true, false> {  // K4''a
+  using L = Layout<32, 2, 1, kOneLane>;
+};
+
+// K4 in double: 4 lanes an element, 16 elements a block of 64 (the float
+// stage cut to 42.2 KB of static shared memory), the triangle factored in
+// place with its rows spread over the group, at least 4 blocks an SM: 255
+// registers, so an SM holds 4 blocks (8 warps, 64 elements), with 900/1,668
+// bytes of spills (996/1,876 with every lane factoring a copy, as K4''b
+// does: a lane keeps no 78-entry copy). Of the layouts that
+// scripts/cuda_k4_variants.py newton64 times on the H100 at the step-0
+// inputs of 3D Shoulder-40 and SquareGrid-40 in float64 (PERF.md has the
+// times), the fastest at both of those that leave the other builds' static
+// stages as they are, and faster there than K4''b's layout: the spread
+// factor takes 66 divisions a Hessian from every lane to 21 rounds over the
+// group. A stage of 32 or 64 elements in dynamic shared memory is faster
+// still at Shoulder-40 (13.5 and 12.0 ms against 14.6), but a kernel with a
+// dynamic stage in this source pads every other build's static stage to 16
+// bytes (ptxas). Reading the cells from device memory instead (912 bytes an
+// element staged) lets 12-16 warps reside but spills 2.6-5.2 KB a lane and
+// runs 2.7-3.5x slower; a register cap (5 blocks of 64, 168 registers)
+// spills 2 KB and loses 18-45 %.
+using K4Double = Layout<64, 4, 4, kSpread>;
+template <>
+struct Build<double, false, false> {
+  using L = K4Double;
+};
+
+// K4' in double: 4 lanes an element, 16 elements a block of 64 (the stage
+// of 43.4 KB in static shared memory), the chord cache factored with its
+// rows spread over the group, no register cap: at 255 registers an SM holds
+// 4 blocks (8 warps, 64 elements), where 2 lanes in a block of one warp with
+// one lane factoring (K4''a's layout) hold 5 by shared memory (5 warps, 80
+// elements). Of the layouts that scripts/cuda_k4_variants.py chord64
+// times on the H100 at the step-0 inputs of 3D CompSquare-40 and -20 in
+// float64, the fastest beside K4''a's layout at both (2 lanes with the
+// spread factor within 1-2 % at CompSquare-40, 7 % slower at -20); the
+// cells from device memory run 2-2.5x slower, as for K4.
+using K4ChordCompDouble = Layout<64, 4, 1, kSpread>;
+template <>
+struct Build<double, true, true> {
+  using L = K4ChordCompDouble;
+};
 
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
@@ -239,6 +295,38 @@ __device__ __forceinline__ void factor12(R* H) {
       HS(i, j) = s / d;
     }
   }
+}
+
+// factor12<1> by the G lanes of a group (mask gmask) on the triangle H in
+// shared memory: column by column, every lane computes the column's
+// diagonal (keeping D in registers), lane l the rows j + 1 + l, j + 1 + l +
+// G, ...; each entry's operations in factor12's order. Returns once the
+// factored triangle is the group's.
+template <int G, typename R>
+__device__ __forceinline__ void factor12_group(R* H, int lane, unsigned gmask) {
+  R D[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    R d = H[tri(j, j)];
+#pragma unroll
+    for (int k = 0; k < j; ++k) d = d - H[tri(j, k)] * H[tri(j, k)] * D[k];
+    d = abs_(d) < Num<R>::kDiagFloor ? Num<R>::kDiagFloor : d;
+    D[j] = d;
+#pragma unroll
+    for (int r = 0; r < (11 - j + G - 1) / G; ++r) {
+      const int i = j + 1 + lane + r * G;
+      if (i < 12) {
+        R* Hi = H + tri(i, 0);
+        R s = Hi[j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) s = s - Hi[k] * H[tri(j, k)] * D[k];
+        Hi[j] = s / d;
+      }
+    }
+    __syncwarp(gmask);  // column j is the group's; every lane has read H(j, j)
+    if (lane == 0) H[tri(j, j)] = d;
+  }
+  __syncwarp(gmask);
 }
 
 // the step p = -H^{-1} g from the factored H, or -g/w^2 where it is not finite
@@ -311,7 +399,7 @@ __device__ __forceinline__ R absmax(const R* v) {
   return m;
 }
 
-// ---- Newton sweeps (K4, K4''b): a group of kGroup lanes per element --------
+// ---- Newton sweeps (K4, K4''b): a group of lanes per element -------------
 
 // A block's staged inputs and its elements' Hessian triangles, for kE
 // elements: the cells [channel][element] (see SharedCells), the rest
@@ -324,6 +412,43 @@ struct NewtonStage {
   R eh[kComp ? kE * 9 : 1];
   R hess[kE * kTri];
 };
+
+// the block's inputs into its stage, then the block's only barrier
+template <class D, bool kComp, typename R, typename S>
+__device__ __forceinline__ void stage_block(S& st, const R* z_in, const R* dxpu_in,
+                                            const R* free_in, const R* cells_in,
+                                            const R* ehat_in, long long n, long long first) {
+  constexpr int kE = D::kE, kT = D::kThreads;
+  stage_rows<kE, kT>(st.cells, cells_in, kCells, n, first);
+  stage_cols<kE, kT>(st.z, z_in, 12, n, first);
+  stage_cols<kE, kT>(st.dxpu, dxpu_in, 12, n, first);
+  stage_cols<kE, kT>(st.fr, free_in, 12, n, first);
+  if constexpr (kComp) stage_cols<kE, kT>(st.eh, ehat_in, 9, n, first);
+  copies_done();
+  __syncthreads();  // the block's only barrier: every lane below is in a live group
+}
+
+// direction<1> on a factored triangle in shared memory, out of line:
+// inlined into a sweep, the sweep spills some 500 bytes at 255 registers
+// (ptxas, the "solve inlined" variant of scripts/cuda_k4_variants.py); out
+// of line, g and p pass through 96 bytes of stack and nothing spills
+template <typename R>
+__device__ __noinline__ void cached_direction(const R* H, const R* g, R inv_w2, R* p) {
+  direction<1>(H, g, inv_w2, p);
+}
+
+// the triangle H in shared memory, whose columns the group has written,
+// factored in place as the layout D factors (kOneLane or kSpread); returns
+// once the factored triangle is the group's
+template <class D, typename R>
+__device__ __forceinline__ void factor_in_place(R* H, int lane, unsigned gmask) {
+  if constexpr (D::kFactor == kSpread) {
+    factor12_group<D::kGroup>(H, lane, gmask);
+  } else {
+    if (lane == 0) factor12<1>(H);
+    __syncwarp(gmask);
+  }
+}
 
 // backtracking over the group: trial a on lane a % G in round a / G; the
 // largest accepted alpha, 0 if none (what the sequential loop of
@@ -345,25 +470,19 @@ __device__ __forceinline__ R backtrack_group(const R* z, const R* p, const C& ce
 
 // K4 (kComp false, the constant Ehat eh) and K4''b (kComp true, ehat_in):
 // Newton sweeps in the JAX order, except that a sweep retires on its
-// gradient before it builds the Hessian (see the note at the top).
-template <typename R, bool kComp, int G>
-__global__ void __launch_bounds__(kNewtonThreads<R>, kComp ? kBlocksComp : kBlocks) prox3d_newton_kernel(
+// gradient before it builds the Hessian (see the note at the top); laid out
+// as D says.
+template <typename R, bool kComp, class D>
+__global__ void __launch_bounds__(D::kThreads, D::kMinBlocks) prox3d_newton_kernel(
     const R* __restrict__ z_in, const R* __restrict__ dxpu_in,
     const R* __restrict__ free_in, const R* __restrict__ cells_in,
     const R* __restrict__ ehat_in, R* __restrict__ zout, R* __restrict__ ih0_out,
     long long n, Ehat3<R> eh, Consts3<R> k, int max_iters) {
-  static_assert(G == 4 || G == 8 || G == 16, "a group is 4, 8 or 16 lanes of one warp");
-  constexpr int kT = kNewtonThreads<R>;
-  constexpr int kE = kT / G;  // elements per block
+  constexpr int G = D::kGroup, kE = D::kE;
+  static_assert(G == 2 || G == 4 || G == 8 || G == 16, "a group is 2-16 lanes of one warp");
   __shared__ __align__(16) NewtonStage<R, kComp, kE> st;
   const long long first = (long long)blockIdx.x * kE;
-  stage_rows<kE, kT>(st.cells, cells_in, kCells, n, first);
-  stage_cols<kE, kT>(st.z, z_in, 12, n, first);
-  stage_cols<kE, kT>(st.dxpu, dxpu_in, 12, n, first);
-  stage_cols<kE, kT>(st.fr, free_in, 12, n, first);
-  if constexpr (kComp) stage_cols<kE, kT>(st.eh, ehat_in, 9, n, first);
-  copies_done();
-  __syncthreads();  // the block's only barrier: every lane below is in a live group
+  stage_block<D, kComp>(st, z_in, dxpu_in, free_in, cells_in, ehat_in, n, first);
 
   const int el = threadIdx.x / G, lane = threadIdx.x % G;
   const long long e = first + el;
@@ -389,16 +508,26 @@ __global__ void __launch_bounds__(kNewtonThreads<R>, kComp ? kBlocksComp : kBloc
     // and before the Hessian, which such an element would not use
     if (it > 0 && norm1(g) < k.tol) break;
 
-    // the Hessian's columns, spread over the group
+    R p[12];
+    if constexpr (D::kFactor == kEveryLane) {
+      // the Hessian's columns, spread over the group
 #pragma unroll 1
-    for (int j = lane; j < 12; j += G) hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);
-    __syncwarp(gmask);
-    R L[kTri], p[12];
+      for (int j = lane; j < 12; j += G) hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);
+      __syncwarp(gmask);
+      R L[kTri];
 #pragma unroll
-    for (int t = 0; t < kTri; ++t) L[t] = H[t];
-    __syncwarp(gmask);  // every lane has its copy before the next sweep writes H
-    factor12<1>(L);
-    direction<1>(L, g, k.inv_w2, p);
+      for (int t = 0; t < kTri; ++t) L[t] = H[t];
+      __syncwarp(gmask);  // every lane has its copy before the next sweep writes H
+      factor12<1>(L);
+      direction<1>(L, g, k.inv_w2, p);
+    } else {
+      __syncwarp(gmask);  // every lane has solved with the last sweep's factors
+#pragma unroll 1
+      for (int j = lane; j < 12; j += G) hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);
+      __syncwarp(gmask);
+      factor_in_place<D>(H, lane, gmask);
+      cached_direction(H, g, k.inv_w2, p);
+    }
 
     const R det_floor = floor_of(edet3(z));
     const R alpha =
@@ -414,35 +543,24 @@ __global__ void __launch_bounds__(kNewtonThreads<R>, kComp ? kBlocksComp : kBloc
     if (c % G == lane) zout[c * n + e] = z[c];  // z stays in registers
 }
 
-// ---- chord sweeps (K4', K4''a): a group of kChordGroup lanes per element --
-
-// direction<1> on the cached factors, out of line: inlined into the chord
-// sweep, the sweep spills some 500 bytes at 255 registers (ptxas, the
-// "solve inlined" variant of scripts/cuda_k4_variants.py); out of line, g
-// and p pass through 96 bytes of stack and nothing spills
-template <typename R>
-__device__ __noinline__ void cached_direction(const R* H, const R* g, R inv_w2, R* p) {
-  direction<1>(H, g, inv_w2, p);
-}
+// ---- chord sweeps (K4', K4''a): a group of lanes per element --------------
 
 // the element's Hessian at z into its cache H, factored: the columns spread
-// over the group, then one lane factors in place (every lane factoring a copy
-// in its registers, one writing it back, is no faster); every lane of the
-// group has read the old cache before this is called
-template <int G, typename C, typename R>
+// over the group, then the factor as D says; every lane of the group has
+// read the old cache before this is called
+template <class D, typename C, typename R>
 __device__ __forceinline__ void chord_refresh(const R* z, const C& cells, const R* h,
                                               const R* dxpu, const R* fr, const Consts3<R>& k,
                                               int lane, unsigned gmask, R* H) {
 #pragma unroll 1
-  for (int j = lane; j < 12; j += G) hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);
+  for (int j = lane; j < 12; j += D::kGroup) hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);
   __syncwarp(gmask);
-  if (lane == 0) factor12<1>(H);
-  __syncwarp(gmask);  // the factored cache is the group's
+  factor_in_place<D>(H, lane, gmask);  // the factored cache is the group's
 }
 
-// K4' (kComp true, ehat_in) and K4''a (kComp false, the constant eh). Each
-// sweep keeps make_chord_sweeps' order, except that it retires on its
-// gradient before it solves.
+// K4' (kComp true, ehat_in) and K4''a (kComp false, the constant eh), laid
+// out as D says. Each sweep keeps make_chord_sweeps' order, except that it
+// retires on its gradient before it solves.
 //
 // The refresh: the JAX kernel guards it per tile (pl.when over the tile's
 // max of active & ~ok1) and writes the new Hessian and step only where the
@@ -453,25 +571,19 @@ __device__ __forceinline__ void chord_refresh(const R* z, const C& cells, const 
 // refreshes without needing it is one that is no longer active, which never
 // moves again. An element that retires on its gradient norm does not move
 // either, so it leaves before the solve.
-template <typename R, bool kComp, int G>
-__global__ void __launch_bounds__(kChordE<R> * G)
+template <typename R, bool kComp, class D>
+__global__ void __launch_bounds__(D::kThreads, D::kMinBlocks)
     prox3d_chord_kernel(const R* __restrict__ z_in, const R* __restrict__ dxpu_in,
                         const R* __restrict__ free_in, const R* __restrict__ cells_in,
                         const R* __restrict__ ehat_in, R* __restrict__ zout,
                         R* __restrict__ ih0_out, long long n, Ehat3<R> eh, Consts3<R> k,
                         int max_iters) {
+  constexpr int G = D::kGroup, kE = D::kE;
   static_assert(G == 2 || G == 4 || G == 8, "a group is 2, 4 or 8 lanes of one warp");
-  constexpr int kE = kChordE<R>;  // elements per block
-  constexpr int kT = kE * G;       // threads per block
+  static_assert(D::kFactor != kEveryLane, "the chord cache is factored in place");
   __shared__ __align__(16) NewtonStage<R, kComp, kE> st;
   const long long first = (long long)blockIdx.x * kE;
-  stage_rows<kE, kT>(st.cells, cells_in, kCells, n, first);
-  stage_cols<kE, kT>(st.z, z_in, 12, n, first);
-  stage_cols<kE, kT>(st.dxpu, dxpu_in, 12, n, first);
-  stage_cols<kE, kT>(st.fr, free_in, 12, n, first);
-  if constexpr (kComp) stage_cols<kE, kT>(st.eh, ehat_in, 9, n, first);
-  copies_done();
-  __syncthreads();  // the block's only barrier: every lane below is in a live group
+  stage_block<D, kComp>(st, z_in, dxpu_in, free_in, cells_in, ehat_in, n, first);
 
   const int el = threadIdx.x / G, lane = threadIdx.x % G;
   const long long e = first + el;
@@ -511,7 +623,7 @@ __global__ void __launch_bounds__(kChordE<R> * G)
       // rejected, the refresh would build the same Hessian at the same z),
       // else a refresh; then backtracking where the step is rejected
       __syncwarp(gmask);  // every lane has solved with the old cache, if any
-      chord_refresh<G>(z, cells, h, dxpu, fr, k, lane, gmask, H);
+      chord_refresh<D>(z, cells, h, dxpu, fr, k, lane, gmask, H);
       cached_direction(H, g, k.inv_w2, p);
       ok = it == 0 && trial_ok(z, p, R(1), cells, h, dxpu, k, e0, det_floor);
       if (!ok) {
@@ -531,6 +643,16 @@ __global__ void __launch_bounds__(kChordE<R> * G)
     if (c % G == lane) zout[c * n + e] = z[c];  // z stays in registers
 }
 
+// the kernel of a build
+template <typename R, bool kChord, bool kComp>
+auto kernel_of() {
+  using D = typename Build<R, kChord, kComp>::L;
+  if constexpr (kChord)
+    return prox3d_chord_kernel<R, kComp, D>;
+  else
+    return prox3d_newton_kernel<R, kComp, D>;
+}
+
 template <typename R, bool kChord, bool kComp>
 int launch(const R* z, const R* dxpu, const R* free_, const R* cells, const R* ehat, R* zout,
            R* ih0, long long n, const R* consts, int max_iters, void* stream) {
@@ -539,19 +661,25 @@ int launch(const R* z, const R* dxpu, const R* free_, const R* cells, const R* e
   Consts3<R> k;
   if constexpr (!kComp) std::memcpy(&eh, consts, sizeof(eh));
   std::memcpy(&k, consts + (kComp ? 0 : 9), sizeof(k));
-  if constexpr (kChord) {
-    constexpr int kE = kChordE<R>;
-    const long long blocks = (n + kE - 1) / kE;
-    prox3d_chord_kernel<R, kComp, kChordGroup>
-        <<<(unsigned)blocks, kE * kChordGroup, 0, (cudaStream_t)stream>>>(
-            z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
-  } else {
-    constexpr int kT = kNewtonThreads<R>, kE = kT / kGroup;
-    const long long blocks = (n + kE - 1) / kE;
-    prox3d_newton_kernel<R, kComp, kGroup><<<(unsigned)blocks, kT, 0, (cudaStream_t)stream>>>(
-        z, dxpu, free_, cells, ehat, zout, ih0, n, eh, k, max_iters);
-  }
+  using D = typename Build<R, kChord, kComp>::L;
+  const long long blocks = (n + D::kE - 1) / D::kE;
+  const auto kernel = kernel_of<R, kChord, kComp>();
+  kernel<<<(unsigned)blocks, D::kThreads, 0, (cudaStream_t)stream>>>(z, dxpu, free_, cells, ehat,
+                                                                     zout, ih0, n, eh, k,
+                                                                     max_iters);
   return (int)cudaGetLastError();
+}
+
+// a build's layout as the host sees it: out[0] the blocks an SM holds at
+// once (the CUDA occupancy calculator), out[1] its threads a block, out[2]
+// its lanes an element
+template <typename R, bool kChord, bool kComp>
+int layout_of(int* out) {
+  using D = typename Build<R, kChord, kComp>::L;
+  out[1] = D::kThreads;
+  out[2] = D::kGroup;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel_of<R, kChord, kComp>(),
+                                                            D::kThreads, 0);
 }
 
 }  // namespace
@@ -617,4 +745,21 @@ extern "C" int mm_prox3d_comp_f64(const double* z, const double* dxpu, const dou
                                   void* stream) {
   return launch<double, false, true>(z, dxpu, free_, cells, ehat, zout, ih0, n, consts,
                                      max_iters, stream);
+}
+
+// the layout of the build (chord, comp, f64) into out[3]: the blocks an SM
+// holds at once, the threads a block, the lanes an element; returns the
+// CUDA error
+extern "C" int mm_prox3d_layout(int chord, int comp, int f64, int* out) {
+  switch (chord * 4 + comp * 2 + f64) {
+    case 0: return layout_of<float, false, false>(out);
+    case 1: return layout_of<double, false, false>(out);
+    case 2: return layout_of<float, false, true>(out);
+    case 3: return layout_of<double, false, true>(out);
+    case 4: return layout_of<float, true, false>(out);
+    case 5: return layout_of<double, true, false>(out);
+    case 6: return layout_of<float, true, true>(out);
+    case 7: return layout_of<double, true, true>(out);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -497,9 +497,38 @@ _SIGNATURES = {
     for name, n in _POINTERS.items()
     for entry, tail in ((name, _TAIL), (_ENTRIES_F64[name], _TAIL_F64))
 }
+# mm_prox3d_layout(chord, comp, f64, out[3])
+_SIGNATURES["mm_prox3d_layout"] = ([ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
+                                   ctypes.c_int)
 
 
 def library() -> ctypes.CDLL:
     """The library of K4, K4' and K4'', built from ``csrc/prox3d.cu`` at
     first use."""
     return load_library("prox3d", _SIGNATURES)
+
+
+# (chord, comp) of each kernel's entry
+_FLAGS = {"mm_prox3d": (0, 0), "mm_prox3d_chord_comp": (1, 1), "mm_prox3d_chord": (1, 0),
+          "mm_prox3d_comp": (0, 1)}
+
+
+def layout(entry: str, lib=None) -> tuple:
+    """``(blocks an SM, threads a block, lanes an element)`` of the build
+    ``entry`` of ``csrc/prox3d.cu`` (``mm_prox3d``, ``mm_prox3d_f64``, ...)
+    in ``lib`` (the built library by default): the blocks an SM holds at
+    once are the CUDA occupancy calculator's. Needs a CUDA card."""
+    f64 = entry.endswith("_f64")
+    chord, comp = _FLAGS[entry[:-4] if f64 else entry]
+    out = (ctypes.c_int * 3)()
+    rc = (lib or library()).mm_prox3d_layout(chord, comp, int(f64), out)
+    if rc != 0:
+        raise RuntimeError(f"mm_prox3d_layout for {entry}: CUDA error {rc}")
+    return tuple(out)
+
+
+def residency() -> dict:
+    """``{entry: (blocks an SM, threads a block)}`` of the eight builds of
+    ``csrc/prox3d.cu``."""
+    return {entry: layout(entry)[:2]
+            for name in _FLAGS for entry in (name, _ENTRIES_F64[name])}

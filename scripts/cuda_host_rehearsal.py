@@ -19,12 +19,19 @@ that ``scripts/cuda_k1_variants.py`` builds beside it (``GROUP_KERNEL``
 there) with 1, 2, 3 and 6 lanes per element and one Hessian column a dual
 pass, with 2, 3 and 6 columns a pass at 1 lane, 3 at 2 lanes and 2 at 3
 lanes, and with 2, 3 and 6 passes unrolled together at 1 lane and 3 at 2
-lanes, the Newton kernels K4 and K4''b
-with 4, 8 and 16, the chord kernels K4' and K4''a with 2, 4 and 8; each
-also on the first 1, 30 and 131 columns of its inputs as its source
-launches it (K1 as shipped; 4 and 2 lanes for the 3D kernels; the block's
-copies then take the one-value
-path). Their outputs
+lanes, the 3D kernels in their shipped layouts (``Build`` in
+``prox3d.cu``) and at other group widths (the Newton kernels K4 and K4''b
+at 4, 8 and 16 lanes, the chord kernels K4' and K4''a at 2, 4 and 8), and
+K4 and K4' in float64 also in every layout and source edit that
+``scripts/cuda_k4_variants.py`` times for them (its ``NEWTON64`` and
+``CHORD64``, and the parent's layouts; a dynamic stage is a static array
+here); each also on the first 1, 30 and 131 columns of its inputs as
+shipped (the block's copies then take the one-value path), and K4 and K4'
+in float64 on kE - 1 and kE + 1 columns (kE their elements a block), on a
+block of carved slots (free all 0; the first block's free set to 0 where
+the mesh has no carved slot) and with max_iters 1. The 3D kernels are
+compiled without their C entries, one library per entry, real type and
+set of source edits, all together. Their outputs
 are compared bit for bit with ``prox2d_plain``, ``eg2d_plain`` and
 ``hess2d_plain`` (Shoulder nx=16), ``prox3d_plain`` (3D SquareGrid and
 Shoulder nx=4 and SquareGrid nx=6), ``prox3d_chord_comp_plain`` (3D
@@ -58,6 +65,7 @@ sys.path.insert(0, os.getcwd())
 sys.path.insert(0, os.path.join(os.getcwd(), "scripts"))
 
 import cuda_k1_variants as K1V  # noqa: E402
+import cuda_k4_variants as K4V  # noqa: E402
 
 from mmadmm_tpu_torch import ExperimentConfig, build_problem  # noqa: E402
 from mmadmm_tpu_torch.cuda_build import CSRC  # noqa: E402
@@ -90,6 +98,16 @@ static thread_local Dim3 threadIdx;
 static Dim3 blockIdx, blockDim;
 template <typename T> T __ldg(const T* p) { return *p; }
 inline int cudaGetLastError() { return 0; }
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
+enum cudaError { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+template <typename T> int cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return 0; }
+template <typename T> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, T*, int, size_t) {
+  *b = 0;
+  return 0;
+}
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
@@ -218,103 +236,40 @@ int host_be2d(int hess, const R* z, const R* cells, R* out, long long n, const R
 #include <thread>
 #include <vector>
 
-// the chord kernels (K4', K4''a) with G lanes per element: a block of
-// kChordE<R> elements at a time, one host thread per lane
-template <typename R, bool kComp, int G>
-int host_chord(const R* z, const R* dxpu, const R* fr, const R* cells, const R* ehat, R* zout,
-               R* ih0, long long n, const R* c, int max_iters) {
-  Ehat3<R> eh{};
-  Consts3<R> k;
-  if (!kComp) std::memcpy(&eh, c, sizeof(eh));
-  std::memcpy(&k, c + (kComp ? 0 : 9), sizeof(k));
-  constexpr int kE = kChordE<R>;
-  blockDim.x = kE * G;
-  for (long long b = 0; b * kE < n; ++b) {
-    blockIdx.x = b;
-    std::vector<std::thread> lanes;
-    for (unsigned t = 0; t < (unsigned)(kE * G); ++t)
-      lanes.emplace_back([=] {
-        threadIdx.x = t;
-        prox3d_chord_kernel<R, kComp, G>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
-                                         max_iters);
-      });
-    for (auto& l : lanes) l.join();
-  }
-  return 0;
-}
-
-template <typename R, bool kComp>
-int host_chord_g(int g, const R* z, const R* dxpu, const R* fr, const R* cells, const R* ehat,
-                 R* zout, R* ih0, long long n, const R* c, int max_iters) {
-  switch (g) {
-    case 2: return host_chord<R, kComp, 2>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-    case 4: return host_chord<R, kComp, 4>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-    case 8: return host_chord<R, kComp, 8>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-  }
-  return 1;
-}
-
-// the Newton kernels (K4, K4''b) with G lanes per element: a block at a
-// time, one host thread per lane, the barriers and ballots as above
-template <typename R, bool kComp, int G>
-int host_newton(const R* z, const R* dxpu, const R* fr, const R* cells, const R* ehat, R* zout,
+// a kernel laid out as D: a block of D::kThreads lanes at a time, one host
+// thread per lane
+template <typename R, bool kChord, bool kComp, class D>
+int host_layout(const R* z, const R* dxpu, const R* fr, const R* cells, const R* ehat, R* zout,
                 R* ih0, long long n, const R* c, int max_iters) {
   Ehat3<R> eh{};
   Consts3<R> k;
   if (!kComp) std::memcpy(&eh, c, sizeof(eh));
   std::memcpy(&k, c + (kComp ? 0 : 9), sizeof(k));
-  constexpr int kT = kNewtonThreads<R>;
-  blockDim.x = kT;
-  const long long per_block = kT / G;
-  for (long long b = 0; b * per_block < n; ++b) {
+  blockDim.x = D::kThreads;
+  for (long long b = 0; b * D::kE < n; ++b) {
     blockIdx.x = b;
     std::vector<std::thread> lanes;
-    for (unsigned t = 0; t < (unsigned)kT; ++t)
+    for (unsigned t = 0; t < (unsigned)D::kThreads; ++t)
       lanes.emplace_back([=] {
         threadIdx.x = t;
-        prox3d_newton_kernel<R, kComp, G>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
-                                          max_iters);
+        if constexpr (kChord)
+          prox3d_chord_kernel<R, kComp, D>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
+                                           max_iters);
+        else
+          prox3d_newton_kernel<R, kComp, D>(z, dxpu, fr, cells, ehat, zout, ih0, n, eh, k,
+                                            max_iters);
       });
     for (auto& l : lanes) l.join();
   }
   return 0;
 }
 
-template <typename R, bool kComp>
-int host_newton_g(int g, const R* z, const R* dxpu, const R* fr, const R* cells, const R* ehat,
-                  R* zout, R* ih0, long long n, const R* c, int max_iters) {
-  switch (g) {
-    case 4: return host_newton<R, kComp, 4>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-    case 8: return host_newton<R, kComp, 8>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-    case 16: return host_newton<R, kComp, 16>(z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-  }
-  return 1;
-}
-
-template <typename R>
-int host_prox3d(int g, const R* z, const R* dxpu, const R* fr, const R* cells, R* zout, R* ih0,
-                long long n, const R* c, int max_iters) {
-  return host_newton_g<R, false>(g, z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
-}
-
-template <typename R>
-int host_prox3d_chord(int g, const R* z, const R* dxpu, const R* fr, const R* cells, R* zout,
-                      R* ih0, long long n, const R* c, int max_iters) {
-  return host_chord_g<R, false>(g, z, dxpu, fr, cells, nullptr, zout, ih0, n, c, max_iters);
-}
-
-template <typename R>
-int host_prox3d_chord_comp(int g, const R* z, const R* dxpu, const R* fr, const R* cells,
-                           const R* ehat, R* zout, R* ih0, long long n, const R* c,
-                           int max_iters) {
-  return host_chord_g<R, true>(g, z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-}
-
-template <typename R>
-int host_prox3d_comp(int g, const R* z, const R* dxpu, const R* fr, const R* cells,
-                     const R* ehat, R* zout, R* ih0, long long n, const R* c, int max_iters) {
-  return host_newton_g<R, true>(g, z, dxpu, fr, cells, ehat, zout, ih0, n, c, max_iters);
-}
+// a build's layout at G lanes an element, with no register cap: the Newton
+// kernels keep their threads a block, the chord kernels their elements
+template <class L, int G>
+using NewtonAt = Layout<L::kThreads, G, 1, L::kFactor>;
+template <class L, int G>
+using ChordAt = Layout<L::kE * G, G, 1, L::kFactor>;
 """,
 }
 
@@ -349,17 +304,90 @@ def _c_entries(name):
     return "".join(out)
 
 
-# lanes per element that the group entries are run with
-# (K1: 0 as shipped, else 100 x lanes an element + 10 x Hessian columns a
-# dual pass + passes unrolled together)
-GROUPS = {"host_prox2d": (0, 111, 211, 311, 611, 121, 131, 161, 231, 321, 112, 113, 116, 213,
-                          123),
-          "host_prox3d": (4, 8, 16),
-          "host_prox3d_comp": (4, 8, 16),
-          "host_prox3d_chord": (2, 4, 8), "host_prox3d_chord_comp": (2, 4, 8)}
+# the K1 runs: 0 as shipped, else 100 x lanes an element + 10 x Hessian
+# columns a dual pass + passes unrolled together (the group design)
+K1_RUNS = (0, 111, 211, 311, 611, 121, 131, 161, 231, 321, 112, 113, 116, 213, 123)
+# the 3D entries: (chord, comp) of their kernel
+ENTRIES3D = {"host_prox3d": (False, False), "host_prox3d_comp": (False, True),
+             "host_prox3d_chord": (True, False), "host_prox3d_chord_comp": (True, True)}
+# K4 and K4' in float64 run every variant the timer builds for them:
+# [(label, (layout, text edits))]
+TIMED64 = {("host_prox3d", "double"): [(K4V.PARENT, (K4V.PARENT_K4, ())),
+                                       *K4V.NEWTON64.items()],
+           ("host_prox3d_chord_comp", "double"): [(K4V.PARENT, (K4V.PARENT_K4C, ())),
+                                                  *K4V.CHORD64.items()]}
+
+
+def variants3d(entry, real):
+    """``[(text edits, [(label, C++ layout)])]`` that a 3D entry runs in
+    ``real``, by the edits of the source they need (none first): the
+    shipped layout, its kernel at other group widths (the Newton kernels at
+    4, 8 and 16 lanes, the chord kernels at 2, 4 and 8), then for K4 and K4'
+    in float64 the variant timer's."""
+    chord, comp = ENTRIES3D[entry]
+    shipped = f"Build<{real}, {str(chord).lower()}, {str(comp).lower()}>::L"
+    at = "ChordAt" if chord else "NewtonAt"
+    groups = {(): [("as shipped", shipped)]
+              + [(f"{g} lanes per element", f"{at}<{shipped}, {g}>")
+                 for g in ((2, 4, 8) if chord else (4, 8, 16))]}
+    for label, (layout, edits) in TIMED64.get((entry, real), []):
+        groups.setdefault(edits, []).append((label, layout))
+    return list(groups.items())
+
+
+def _c_entries3d(entry, real, layouts):
+    """``extern "C" int <entry>_<f32|f64>(int v, ...)``: the kernel laid out
+    as ``layouts[v]``."""
+    chord, comp = ENTRIES3D[entry]
+    nptr = ENTRY_ARGS[entry][1]
+    params = ", ".join([f"{real}* p{i}" for i in range(nptr)]
+                       + ["long long n", f"const {real}* c", "int max_iters"])
+    ptrs = [f"p{i}" for i in range(nptr)]
+    if not comp:
+        ptrs.insert(4, "nullptr")  # no ehat channels
+    args = ", ".join(ptrs + ["n", "c", "max_iters"])
+    cases = "".join(
+        f"    case {v}: return host_layout<{real}, {str(chord).lower()}, {str(comp).lower()}, "
+        f"{layout}>({args});\n" for v, (_, layout) in enumerate(layouts))
+    sfx = "f32" if real == "float" else "f64"
+    return (f'extern "C" int {entry}_{sfx}(int v, {params}) {{\n  switch (v) {{\n{cases}  }}\n'
+            f"  return 1;\n}}\n")
+
+
+def _bind(lib):
+    for entry, (lead, nptr) in ENTRY_ARGS.items():
+        for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            fn = getattr(lib, f"{entry}_{suffix}", None)
+            if fn is None:
+                continue
+            tail = [ctypes.c_longlong, ctypes.POINTER(real)]
+            if entry != "host_be2d":
+                tail.append(ctypes.c_int)
+            fn.argtypes = [ctypes.c_int] * bool(lead) + [ctypes.c_void_p] * nptr + tail
+
+
+def _host_source(src):
+    """A CUDA source as host code: its launches made plain calls, its
+    dynamic shared memory a static array."""
+    src = re.sub(r"<<<.*?>>>", "", src, flags=re.S)
+    return re.sub(r"extern __shared__ (.*?)\[\];", r"static \1[1 << 18];", src)
+
+
+def _kernels_only(src):
+    """A source cut after its anonymous namespace: its kernels without the
+    C entries, which would build every kernel."""
+    return src[:src.index("}  // namespace\n") + len("}  // namespace\n")]
+
+
+def unit3d(entry, real, i):
+    """The host library of a 3D entry's ``i``-th group of variants."""
+    return f"prox3d {entry} {real} {i}"
 
 
 def build(tmp: str) -> dict:
+    """The host libraries, compiled together: prox2d and be2d one each;
+    prox3d one per 3D entry, real type and text edits of its variants
+    (``unit3d``), each with its kernels only."""
     with open(os.path.join(tmp, "cuda_runtime.h"), "w") as f:
         f.write(STUB)
     for name in os.listdir(CSRC):
@@ -367,30 +395,35 @@ def build(tmp: str) -> dict:
             src = f.read()
         with open(os.path.join(tmp, name), "w") as f:
             f.write(src)
-    libs = {}
+    units = {}
     for name, entries in HOST_ENTRIES.items():
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             src = f.read()
         if name == "prox2d":  # K1's group design, which the variant timer builds
             src = src.replace(K1V.LAUNCH, K1V.GROUP_HELPERS + K1V.GROUP_KERNEL + K1V.LAUNCH)
-        src = re.sub(r"<<<[^>]*>>>", "", src) + entries + _c_entries(name)
-        cpp, so = os.path.join(tmp, f"{name}.cpp"), os.path.join(tmp, f"lib{name}.so")
+        if name != "prox3d":
+            units[name] = _host_source(src) + entries + _c_entries(name)
+            continue
+        for e in ENTRIES3D:
+            for real in ("float", "double"):
+                for i, (edits, layouts) in enumerate(variants3d(e, real)):
+                    units[unit3d(e, real, i)] = (
+                        _host_source(_kernels_only(K4V.apply_edits(src, edits))) + entries
+                        + _c_entries3d(e, real, layouts))
+    jobs = []
+    for i, (name, text) in enumerate(units.items()):
+        cpp, so = os.path.join(tmp, f"unit{i}.cpp"), os.path.join(tmp, f"libunit{i}.so")
         with open(cpp, "w") as f:
-            f.write(src)
-        subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fno-fast-math",
-                        "-shared", "-fPIC", "-pthread", "-w", "-I", tmp, cpp, "-o", so],
-                       check=True)
-        lib = ctypes.CDLL(so)
-        for entry, (lead, nptr) in ENTRY_ARGS.items():
-            for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
-                fn = getattr(lib, f"{entry}_{suffix}", None)
-                if fn is None:
-                    continue
-                tail = [ctypes.c_longlong, ctypes.POINTER(real)]
-                if entry != "host_be2d":
-                    tail.append(ctypes.c_int)
-                fn.argtypes = [ctypes.c_int] * bool(lead) + [ctypes.c_void_p] * nptr + tail
-        libs[name] = lib
+            f.write(text)
+        jobs.append((name, so, subprocess.Popen(
+            ["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fno-fast-math", "-shared",
+             "-fPIC", "-pthread", "-w", "-I", tmp, cpp, "-o", so])))
+    libs = {}
+    for name, so, proc in jobs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"g++ failed on {so} ({name})")
+        libs[name] = ctypes.CDLL(so)
+        _bind(libs[name])
     return libs
 
 
@@ -431,6 +464,41 @@ CASES = [
           prox_backend="pallas"), True),
     (_COMP64, False),
 ]
+
+
+def shipped_elements(entry):
+    """Elements a block of the shipped float64 layout of K4
+    (``host_prox3d``) or K4' (``host_prox3d_chord_comp``)."""
+    alias = {"host_prox3d": "K4Double", "host_prox3d_chord_comp": "K4ChordCompDouble"}[entry]
+    with open(os.path.join(CSRC, "prox3d.cu")) as f:
+        threads, lanes = re.search(r"using %s = Layout<(\d+), (\d+)," % alias, f.read()).groups()
+    return int(threads) // int(lanes)
+
+
+def runs_of(entry, dtype, max_iters):
+    """``[(library, variant, label, cut, max_iters)]`` of an entry: K1 as
+    shipped and its group designs (``K1_RUNS``), a 3D kernel in every
+    variant of ``variants3d``, each on all the inputs; then as shipped on
+    the first 1, 30 and 131 columns; for K4 and K4' in float64 also on kE -
+    1 and kE + 1 columns (kE its elements a block), on a block of carved
+    slots and with ``max_iters`` 1."""
+    if entry == "host_prox2d":
+        runs = [("prox2d", g, "as shipped" if g == 0 else
+                 f"{g // 100} lanes per element, {g // 10 % 10} Hessian columns a pass, "
+                 f"{g % 10} passes unrolled", None, max_iters) for g in K1_RUNS]
+        return runs + [("prox2d", 0, "as shipped", m, max_iters) for m in (1, 30, 131)]
+    real = "double" if dtype == torch.float64 else "float"
+    runs = [(unit3d(entry, real, i), v, label, None, max_iters)
+            for i, (_, layouts) in enumerate(variants3d(entry, real))
+            for v, (label, _) in enumerate(layouts)]
+    shipped = unit3d(entry, real, 0)
+    runs += [(shipped, 0, "as shipped", m, max_iters) for m in (1, 30, 131)]
+    if (entry, real) in TIMED64:
+        e = shipped_elements(entry)
+        runs += [(shipped, 0, "as shipped", m, max_iters) for m in (e - 1, e + 1)]
+        runs += [(shipped, 0, "as shipped", "carved", max_iters),
+                 (shipped, 0, "as shipped", None, 1)]
+    return runs
 
 
 def _report(label, kw, m, same):
@@ -488,30 +556,31 @@ def main() -> int:
                 k = [*ehat, *k3]
                 pargs = (ehat,)
             n = args[0].shape[1]
-            zp, ihp = plain(*args, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
-            runs = [(g,) for g in GROUPS.get(entry, (None,))]
-            shipped = 2 if entry in ("host_prox3d_chord", "host_prox3d_chord_comp") else 4
-            if entry == "host_prox2d":  # K1 as shipped
-                shipped = 0
-            runs += [(shipped, m) for m in ((1, 30, 131) if entry in GROUPS else ())]
-            for g, *cut in runs:
-                m = cut[0] if cut else n
-                a_m = tuple(a[:, :m].contiguous() for a in args)
-                if cut:
-                    zp, ihp = plain(*a_m, *pargs, integ.w, integ.prox_tol, integ.prox_max_iters)
+            plains = {}  # the plain version's outputs by (cut, max_iters)
+            for lib, v, label, cut, iters in runs_of(entry, dtype, integ.prox_max_iters):
+                a_m = args
+                if cut == "carved":  # a block of slots whose free mask is all 0
+                    carved = torch.nonzero(args[2].sum(0) == 0)[:, 0]
+                    e = shipped_elements(entry)
+                    cols = carved[:e] if carved.numel() >= e else torch.arange(e)
+                    a_m = tuple(a[:, cols].contiguous() for a in args)
+                    a_m = a_m[:2] + (torch.zeros_like(a_m[2]),) + a_m[3:]
+                elif cut is not None:
+                    a_m = tuple(a[:, :cut].contiguous() for a in args)
+                m = a_m[0].shape[1]
+                if (cut, iters) not in plains:
+                    plains[cut, iters] = plain(*a_m, *pargs, integ.w, integ.prox_tol, iters)
+                zp, ihp = plains[cut, iters]
                 zo, ih = torch.empty_like(a_m[0]), torch.empty(m, dtype=dtype)
-                getattr(libs[name], entry + sfx)(
-                    *(() if g is None else (g,)), *[t.data_ptr() for t in (*a_m, zo, ih)], m,
-                    (real * len(k))(*k), integ.prox_max_iters)
+                getattr(libs[lib], entry + sfx)(
+                    v, *[t.data_ptr() for t in (*a_m, zo, ih)], m, (real * len(k))(*k), iters)
                 same = float(((zo == zp).all(0) & (ih == ihp)).float().mean())
                 failed += same < 1.0
-                lanes = ((", as shipped" if g == 0 else
-                          f", {g // 100} lanes per element, {g // 10 % 10} Hessian columns a "
-                          f"pass, {g % 10} passes unrolled")
-                         if entry == "host_prox2d" else f", {g} lanes per element" if g else "")
-                _report(entry[5:] + lanes + (
+                _report(entry[5:] + f", {label}" + (
                     " (computational mesh)" if kw.get("comp_mesh") else "") + (
-                    f", first {m} columns" if cut else ""), kw, m, same)
+                    ", a block of carved slots" if cut == "carved" else
+                    f", first {m} columns" if cut else "") + (
+                    f", max_iters {iters}" if iters != integ.prox_max_iters else ""), kw, m, same)
             if kw["dim"] == 2:  # K2 and K3 on the same slots
                 zb = z.contiguous()
                 cb = integ.cells(zb)

@@ -17,13 +17,16 @@ configuration once, in a module-scoped fixture, under ``jax_compile_lock``
 (shared with tests/test_torch_prox3d.py), and keeps only NumPy arrays of
 the result."""
 
+import atexit
 import contextlib
 import ctypes
 import fcntl
 import gc
 import math
 import os
+import shutil
 import tempfile
+import time
 
 import jax
 import numpy as np
@@ -38,6 +41,60 @@ from mmadmm_tpu_torch.integrators.admm_soa import SoAADMM3D
 
 STEPS = 4
 X_ATOL = 2e-6
+# compiles shorter than this are not shared (share_interpreted_compiles)
+SHARED_COMPILE_SECS = 60.0
+
+
+def share_interpreted_compiles():
+    """JAX's persistent compilation cache, in a directory of this test run
+    alone, shared by its pytest-xdist workers: an interpreted 3D kernel
+    that two test files compile alike (tests/test_torch_prox3d_chord.py's
+    K4' call is tests/test_prox_pallas3d.py's chord call on the same
+    inputs) is compiled once, by the first, and loaded by the second. Only
+    compiles of SHARED_COMPILE_SECS or more are written; the cache's size
+    bound turns on its file lock, so no worker reads an entry half
+    written. A loaded executable is the compiled one, bit for bit. Without
+    xdist (one process) nothing is shared and the cache stays off.
+    Returns the directory, or None.
+
+    Called when this module is imported: every xdist worker imports every
+    test module as it collects, before any test runs, so the workers that
+    run the JAX package's own files share the cache too. The last worker
+    to exit removes the directory."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not run:
+        return None
+    path = os.path.join(tempfile.gettempdir(), f"mmadmm_tpu_torch_jax_cache_{run}")
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", SHARED_COMPILE_SECS)
+    jax.config.update("jax_compilation_cache_max_size", 16 << 30)
+    _count_users(path, 1)
+    atexit.register(_leave_cache, path)
+    return path
+
+
+def _count_users(path, delta):
+    """Add ``delta`` to the number of processes that use the cache at
+    ``path`` (a file beside it, under a lock); returns the new number."""
+    with open(path + ".users", "a+") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        f.seek(0)
+        n = int(f.read() or 0) + delta
+        f.seek(0)
+        f.truncate()
+        f.write(str(n))
+        f.flush()
+    return n
+
+
+def _leave_cache(path):
+    """At a worker's exit: the last one out removes the run's cache."""
+    if _count_users(path, -1) == 0:
+        shutil.rmtree(path, ignore_errors=True)
+        os.remove(path + ".users")
+
+
+share_interpreted_compiles()
 
 
 def config(test_type: str, mon_type: int, dtype: str = "float32") -> dict:
@@ -52,18 +109,52 @@ def release_jax_memory():
     ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
+# a second interpreted compile starts only while the machine has this much
+# memory available: its own 6 GB, and room for the 15 GB chord compiles that
+# run outside the lock
+SECOND_COMPILE_GB = 24.0
+
+
+def available_gb() -> float:
+    """The memory the kernel reports available (MemAvailable), in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return 0.0
+
+
 @contextlib.contextmanager
 def jax_compile_lock():
-    """One interpreted JAX 3D kernel compile at a time across the test
-    processes (pytest-xdist workers), and its memory handed back to the
-    system afterwards: each compile holds about 6 GB."""
-    with open(os.path.join(tempfile.gettempdir(), "mmadmm_tpu_torch_jax3d.lock"), "w") as f:
-        fcntl.flock(f, fcntl.LOCK_EX)
-        try:
-            yield
-        finally:
-            release_jax_memory()
-            fcntl.flock(f, fcntl.LOCK_UN)
+    """At most two interpreted JAX 3D kernel compiles at a time across the
+    test processes (pytest-xdist workers), the second only while
+    SECOND_COMPILE_GB are available, and each compile's memory handed back
+    to the system afterwards: each holds about 6 GB. The five files that
+    compile one (tests/test_torch_soa3d_*.py, tests/test_torch_f64_soa3d.py,
+    tests/test_torch_prox3d.py, tests/test_torch_f64_prox3d.py) otherwise
+    wait on each other in a chain that sets tier-1's critical path."""
+    paths = [os.path.join(tempfile.gettempdir(), f"mmadmm_tpu_torch_jax3d{s}.lock")
+             for s in ("", "_second")]
+    while True:
+        for slot, path in enumerate(paths):
+            f = open(path, "w")
+            try:
+                fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            except BlockingIOError:
+                f.close()
+                continue
+            if slot and available_gb() < SECOND_COMPILE_GB:
+                fcntl.flock(f, fcntl.LOCK_UN)
+                f.close()
+                continue
+            try:
+                yield
+            finally:
+                release_jax_memory()
+                fcntl.flock(f, fcntl.LOCK_UN)
+                f.close()
+            return
+        time.sleep(1.0)
 
 
 def run_jax(kw: dict) -> dict:

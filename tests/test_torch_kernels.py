@@ -786,3 +786,60 @@ def test_float64_stock_paths_launch_their_float64_kernel(variant):
     assert all(fn.launches == 0 for fn in fns)
     assert all(fn.launches_f64 == 0 for fn in fns if fn is not kernel)
     assert trace[steps - 1] < trace[0]
+
+
+# The float64 K4 and K4' (``mm_prox3d_f64``, ``mm_prox3d_chord_comp_f64``)
+# at their block edges, bit for bit against their plain versions: a block of
+# E elements (E from the built library's layout, ``prox3d.layout``) cut 1,
+# E - 1 and E + 1 columns in, one block of carved slots only (free all 0;
+# the stock engine's CompSquare has none, so there the first block's free
+# is set to 0) and at most 1 sweep; each one launch, counted in
+# ``launches_f64``. K4 on 3D Shoulder nx=8 in float64 (its carved slots),
+# K4' on the stock engine's float64 CompSquare nx=4.
+K4_64_EDGES = ["n=1", "n=E-1", "n=E+1", "carved block", "max_iters=1"]
+
+
+@pytest.mark.parametrize("case", K4_64_EDGES)
+@pytest.mark.parametrize("variant", ["K4", "K4'"])
+def test_k4_k4c_f64_block_edges_bit_equal_to_plain(variant, case):
+    _card()
+    if variant == "K4":
+        _, integ = build_problem(ExperimentConfig(
+            test_type="Shoulder", dim=3, mon_type=0, nx=8, ny=8, nz=8, dtype="float64"))
+        inputs, args = _inputs(integ)
+        kernel, plain, entry = P3.prox3d, P3.prox3d_plain, "mm_prox3d_f64"
+    else:
+        _, kernel, plain, inputs, args = _k4_64("K4'")
+        entry = "mm_prox3d_chord_comp_f64"
+    _, threads, lanes = P3.layout(entry)
+    e = threads // lanes
+    args = list(args)
+    if case == "max_iters=1":
+        args[-1] = 1
+    elif case == "carved block":
+        cols = torch.nonzero(inputs[2].sum(0) == 0)[:, 0]
+        if cols.numel() >= e:
+            inputs = tuple(t[:, cols[:e]].contiguous() for t in inputs)
+        else:
+            inputs = tuple(t[:, :e].contiguous() for t in inputs)
+            inputs = inputs[:2] + (torch.zeros_like(inputs[2]),) + inputs[3:]
+        assert inputs[0].shape[1] == e and not inputs[2].any()
+    else:
+        m = {"n=1": 1, "n=E-1": e - 1, "n=E+1": e + 1}[case]
+        inputs = tuple(t[:, :m].contiguous() for t in inputs)
+    assert inputs[0].dtype == torch.float64
+    before = (kernel.launches, kernel.launches_f64)
+    zk, ihk = kernel(*inputs, *args)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_f64) == (before[0], before[1] + 1)
+    zp, ihp = plain(*inputs, *args)
+    assert zk.dtype == torch.float64 and torch.equal(zk, zp) and torch.equal(ihk, ihp)
+
+
+def test_prox3d_layouts_hold_blocks_on_an_sm():
+    """Every build of csrc/prox3d.cu reports its layout, and an SM holds at
+    least one block of each."""
+    _card()
+    for entry, (blocks, threads) in P3.residency().items():
+        lanes = P3.layout(entry)[2]
+        assert blocks >= 1 and threads % lanes == 0 and threads % 32 == 0, entry

@@ -17,7 +17,7 @@ a whole prox call as tests/test_prox_pallas3d.py:88-108: ih0 within rtol
 2e-5 and the regularized energies after the solve within rtol 1e-4, atol
 1e-6 (iterates of two Newton solvers may differ where the energies
 agree). The interpreted kernel compiles under the lock of
-tests/_torch_soa3d.py, one such compile at a time."""
+tests/_torch_soa3d.py, at most two such compiles at a time."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -17,7 +17,10 @@ Bands, those of tests/test_torch_prox3d.py: ih0 within rtol 2e-5, atol
 agree); fixed coordinates exactly unchanged. The interpreted kernel
 compiles once (about five minutes and 15 GB on a CPU), outside the lock
 of tests/_torch_soa3d.py so that it overlaps the K4 compiles, and its
-memory is handed back afterwards.
+memory is handed back afterwards. Its executable is the one
+tests/test_prox_pallas3d.py's chord call compiles; under pytest-xdist the
+run's compile cache (tests/_torch_soa3d.py::share_interpreted_compiles)
+hands it to whichever of the two comes second.
 
 The chord sweep itself (``ops/newton.py::chord_sweep``) is held on one
 element to the Newton sweep: a rejected cached step refreshes the
