@@ -311,13 +311,14 @@ def prox_call(integ):
                                 integ.prox_max_iters)
 
 
-def stock_inputs(integ):
-    """The stock engine's first prox call of step 0, as the element-major
-    entry hands it to its kernel: ``(z, dxpu, free, cells)`` channel tensors,
-    and on a computational mesh also ``ehat_e [9, NF]``."""
+def stock_inputs(integ, state=None):
+    """The stock engine's first prox call of step 0 (or of the step that
+    ``state`` starts), as the element-major entry hands it to its kernel:
+    ``(z, dxpu, free, cells)`` channel tensors, and on a computational mesh
+    also ``ehat_e [9, NF]``."""
     from mmadmm_tpu_torch.ops.monitor_grid import element_cell_rows
 
-    _, x, z, u = integ.start(integ.init_state())
+    _, x, z, u = integ.start(integ.init_state() if state is None else state)
     dxpu = integ.gather(x) + u
     nf = z.shape[0]
 

@@ -115,11 +115,18 @@ struct Common3 {
   T tr, det_m, det_fj, G, abs_k, inv_sqrt_dm, sqrt_dfj, dfj32;
 };
 
+// the four vertices' samples at z into m, each vertex's cell by sample_m3;
+// a cells accessor may bring an overload of its own (found by its type)
+template <typename T, typename C>
+__device__ __forceinline__ void sample4(const C& cells, const T* z, T (*m)[6]) {
+#pragma unroll
+  for (int v = 0; v < 4; ++v) sample_m3(cells, v, z[3 * v], z[3 * v + 1], z[3 * v + 2], m[v]);
+}
+
 template <typename T, typename C, typename R>
 __device__ __forceinline__ void common3(const T* z, const C& cells, const R* h,
                                         const Consts3<R>& k, Common3<T>& t) {
-#pragma unroll
-  for (int v = 0; v < 4; ++v) sample_m3(cells, v, z[3 * v], z[3 * v + 1], z[3 * v + 2], t.m[v]);
+  sample4(cells, z, t.m);
   T ms[6];
 #pragma unroll
   for (int e = 0; e < 6; ++e) ms[e] = t.m[0][e] + t.m[1][e] + t.m[2][e] + t.m[3][e];

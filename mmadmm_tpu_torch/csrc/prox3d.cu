@@ -82,17 +82,20 @@
 //   - every lane then factors and solves that triangle in its registers,
 //     in the one order of factor12 and direction, so every lane holds the
 //     same step p (on a SIMT warp, redundant work costs the group what one
-//     lane doing it alone would, and needs no broadcast); or, in K4's
-//     double build, the group factors it in place, each lane a share of
-//     each column's rows (factor12_group), and every lane solves with the
-//     factored triangle (cached_direction);
+//     lane doing it alone would, and needs no broadcast); or, in the double
+//     builds of K4 and K4''b, the group factors it in place, each lane a
+//     share of each column's rows (factor12_group), and every lane solves
+//     with the factored triangle (cached_direction, or inlined);
 //   - the five backtracking trials are spread over the lanes, and a ballot
 //     of the group gives the largest accepted alpha, which is what the
 //     sequential loop returns;
 //   - the gradient, the retire and stall tests and the fallback are
 //     computed by every lane from the same data, so every lane of a group
-//     takes the same branch; a group synchronizes on its own mask
-//     (__syncwarp, __ballot_sync), and a block only once, after staging.
+//     takes the same branch (K4''b's double build shares the monitor
+//     samples of the gradient and of the trial at alpha 1, which it makes
+//     first, out over the group: GroupCells); a group
+//     synchronizes on its own mask (__syncwarp, __ballot_sync,
+//     __shfl_sync), and a block only once, after staging.
 // Each build's layout (threads, lanes, blocks an SM, where the stage and
 // the factor live) is chosen by timing (scripts/cuda_k4_variants.py, which
 // times layouts against the one-thread-per-element design and against the
@@ -109,12 +112,14 @@
 //     (and, for K4', Ehat);
 //   - the entry Hessian's twelve dual passes are spread over the group as
 //     in the Newton kernels, then one lane factors the triangle in place
-//     (K4' in double: the group, factor12_group);
+//     (K4' and K4''a in double: the group, factor12_group);
 //   - a common sweep is the gradient, the retire test (from the second
 //     sweep on), the solve with the cached factors (out of line, see
 //     cached_direction) and one trial at alpha 1, all computed by every
-//     lane from the same data (little in it can be shared out, and so every
-//     lane takes the same branch with no broadcast);
+//     lane from the same data, so every lane takes the same branch; in
+//     K4''a's double build the gradient and the trial share their monitor
+//     samples out over the group (GroupCells), the rest stays on every
+//     lane, and the solve is inlined;
 //   - only a rejected trial refreshes: the columns again over the group
 //     into the cache, the factor, the solve and the five trials over the
 //     group (the ballot of backtrack_group);
@@ -148,12 +153,19 @@ constexpr int kEveryLane = 0, kOneLane = 1, kSpread = 2;
 // A build's layout: kThreads threads a block, kGroup lanes an element (kE =
 // kThreads / kGroup elements a block), at least kMinBlocks blocks an SM at
 // once (__launch_bounds__: the registers capped at 65,536 / (kThreads x
-// kMinBlocks), and at 255), and the factor as above. A block's stage
-// (NewtonStage) is static shared memory, at most 48 KB a block.
-template <int T, int G, int B, int kFactorBy>
+// kMinBlocks), and at 255), and the factor as above. With kShare, the
+// evaluations that every lane of a group makes at the same point (a sweep's
+// gradient, the energy at the input, the chord sweep's trial at alpha 1, the
+// Newton sweep's trial at alpha 1, made first) share their four monitor
+// samples out over the group (GroupCells), and the solve with the factored
+// triangle is inlined into the sweep (else out of line, cached_direction).
+// A block's stage (NewtonStage) is static shared memory, at most 48 KB a
+// block.
+template <int T, int G, int B, int kFactorBy, bool kShareSamples = false>
 struct Layout {
   static constexpr int kThreads = T, kGroup = G, kE = T / G, kMinBlocks = B;
   static constexpr int kFactor = kFactorBy;
+  static constexpr bool kShare = kShareSamples;
 };
 
 // The Newton sweeps in float (K4, K4''b): 4 lanes an element, 32 elements a
@@ -175,27 +187,14 @@ struct Layout {
 // holds 4 blocks (128 elements), and a cap to 168 registers (6 blocks)
 // spills more than the warps it gains are worth.
 //
-// K4''b and K4''a in double keep the float plan cut down to the 48 KB of
-// static shared memory a block may have: 16 elements a block (42.2-43.4
-// KB), K4''b at least 3 blocks of 64 threads an SM (255 registers), K4''a a
-// block of one warp (255 registers, 5 blocks an SM by shared memory).
-//
-// K4 and K4' in double have layouts of their own (K4Double,
-// K4ChordCompDouble below), chosen by timing on the H100.
+// The double builds have layouts of their own (K4Double, K4ChordCompDouble,
+// K4CompDouble, K4ChordDouble below), chosen by timing on the H100.
 template <bool kComp>
 using NewtonFloat = Layout<128, 4, kComp ? 3 : 4, kEveryLane>;
 using ChordFloat = Layout<64, 2, 1, kOneLane>;
 template <typename R, bool kChord, bool kComp>
 struct Build {
   using L = std::conditional_t<kChord, ChordFloat, NewtonFloat<kComp>>;
-};
-template <>
-struct Build<double, false, true> {  // K4''b
-  using L = Layout<64, 4, 3, kEveryLane>;
-};
-template <>
-struct Build<double, true, false> {  // K4''a
-  using L = Layout<32, 2, 1, kOneLane>;
 };
 
 // K4 in double: 4 lanes an element, 16 elements a block of 64 (the float
@@ -236,6 +235,37 @@ using K4ChordCompDouble = Layout<64, 4, 1, kSpread>;
 template <>
 struct Build<double, true, true> {
   using L = K4ChordCompDouble;
+};
+
+// K4''b and K4''a in double: K4's and K4''s plans (4 lanes an element, 16
+// elements a block of 64 staged, the triangle factored in place with its
+// rows spread over the group: 255 registers, 8 warps an SM), and the
+// evaluations that every lane of a group makes at the same point (the
+// sweep's gradient, the energy at the input, the chord sweep's trial at
+// alpha 1) share their four monitor samples out over the group (kShare: a
+// lane samples one vertex and the group broadcasts the samples), the solve
+// is inlined, and K4''b tries alpha 1 first. Of the layouts that
+// scripts/cuda_k4_variants.py comp64 and chord_box64 time on the H100 at
+// the step-0 inputs of 3D CompSquare-40 and -20 (K4''b) and SquareGrid-40
+// and -20 (K4''a) in float64 and at the first prox call of step 5 at -40,
+// these are the fastest at all three (PERF.md has the times): 14-32 %
+// faster than the earlier layouts (K4''b every lane factoring a copy,
+// K4''a 2 lanes in a block of one warp with one lane factoring, 5 warps an
+// SM), of which the plans of K4 and K4' alone give 4-8 %. Two or three
+// Hessian columns a dual pass (DualN) spill 2.4-5.1 KB a lane and lose
+// 20-60 %; the solve spread over the group does not gain; a stage of 32
+// or 64 elements in dynamic shared memory is within 2 %, which would not
+// pay for a translation unit of its own (in this source it pads the other
+// builds' static stages).
+using K4CompDouble = Layout<64, 4, 4, kSpread, true>;
+using K4ChordDouble = Layout<64, 4, 1, kSpread, true>;
+template <>
+struct Build<double, false, true> {  // K4''b
+  using L = K4CompDouble;
+};
+template <>
+struct Build<double, true, false> {  // K4''a
+  using L = K4ChordDouble;
 };
 
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
@@ -399,6 +429,53 @@ __device__ __forceinline__ R absmax(const R* v) {
   return m;
 }
 
+// One element's cells as the G lanes of its group read them where all of
+// them evaluate at the same point: huang3d.cuh's sample4 for this accessor
+// samples vertex v on lane v % G only (sample_m3's operations, so the same
+// bits) and broadcasts each sample within the group's mask, so a lane
+// samples 4 / G vertices, not 4.
+template <class C, int G>
+struct GroupCells {
+  C cells;
+  int lane, base;  // the lane in its group, the group's first lane in its warp
+  unsigned gmask;
+  __device__ __forceinline__ auto operator()(int c) const { return cells(c); }
+};
+
+template <class C, int G, typename R>
+__device__ __forceinline__ void sample4(const GroupCells<C, G>& c, const R* z, R (*m)[6]) {
+  static_assert(4 % G == 0, "a group of 1, 2 or 4 lanes shares the four samples");
+  R mine[4 / G][6];
+#pragma unroll
+  for (int r = 0; r < 4 / G; ++r) {
+    const int v = c.lane + r * G;
+    R x = z[0], y = z[1], w = z[2];  // vertex v's point, by selects (z stays in registers)
+#pragma unroll
+    for (int u = 1; u < 4; ++u)
+      if (v == u) {
+        x = z[3 * u];
+        y = z[3 * u + 1];
+        w = z[3 * u + 2];
+      }
+    sample_m3(c.cells, v, x, y, w, mine[r]);
+  }
+#pragma unroll
+  for (int v = 0; v < 4; ++v)
+#pragma unroll
+    for (int e = 0; e < 6; ++e) m[v][e] = __shfl_sync(c.gmask, mine[v / G][e], c.base + v % G);
+}
+
+// the accessor of the evaluations that every lane of a group makes at the
+// same point: GroupCells where the layout D shares their samples out, else
+// the element's cells as they are
+template <class D, class C>
+__device__ __forceinline__ auto common_cells(const C& cells, int lane, int base, unsigned gmask) {
+  if constexpr (D::kShare)
+    return GroupCells<C, D::kGroup>{cells, lane, base, gmask};
+  else
+    return cells;
+}
+
 // ---- Newton sweeps (K4, K4''b): a group of lanes per element -------------
 
 // A block's staged inputs and its elements' Hessian triangles, for kE
@@ -437,6 +514,17 @@ __device__ __noinline__ void cached_direction(const R* H, const R* g, R inv_w2, 
   direction<1>(H, g, inv_w2, p);
 }
 
+// the step from the factored triangle H in shared memory: inlined where the
+// layout D shares samples out (out of line, K4''b runs as fast and K4''a
+// slower), else out of line
+template <class D, typename R>
+__device__ __forceinline__ void solve(const R* H, const R* g, R inv_w2, R* p) {
+  if constexpr (D::kShare)
+    direction<1>(H, g, inv_w2, p);
+  else
+    cached_direction(H, g, inv_w2, p);
+}
+
 // the triangle H in shared memory, whose columns the group has written,
 // factored in place as the layout D factors (kOneLane or kSpread); returns
 // once the factored triangle is the group's
@@ -452,16 +540,26 @@ __device__ __forceinline__ void factor_in_place(R* H, int lane, unsigned gmask) 
 
 // backtracking over the group: trial a on lane a % G in round a / G; the
 // largest accepted alpha, 0 if none (what the sequential loop of
-// ops/newton.py::_backtrack returns)
-template <int G, typename C, typename R>
-__device__ __forceinline__ R backtrack_group(const R* z, const R* p, const C& cells, const R* h,
-                                             const R* dxpu, const Consts3<R>& k, R e0,
-                                             R det_floor, int lane, int base, unsigned gmask) {
+// ops/newton.py::_backtrack returns). With kFullFirst, the largest step (a
+// = 4, alpha 1) is tried first, on every lane with the samples of the
+// layout D's common evaluations (ccells): accepted, it is the answer, and
+// the rounds take the other four only where it is not.
+template <class D, bool kFullFirst, typename C, typename CC, typename R>
+__device__ __forceinline__ R backtrack_group(const R* z, const R* p, const C& cells,
+                                             const CC& ccells, const R* h, const R* dxpu,
+                                             const Consts3<R>& k, R e0, R det_floor, int lane,
+                                             int base, unsigned gmask) {
+  constexpr int G = D::kGroup;
+  if constexpr (kFullFirst) {
+    if (trial_ok(z, p, alpha_bt<R>(4), ccells, h, dxpu, k, e0, det_floor)) return alpha_bt<R>(4);
+  }
+  constexpr int kRounds = kFullFirst ? 4 : 5;  // the trials left to the rounds
   unsigned accepted = 0;  // bit a: trial a accepted
 #pragma unroll 1
-  for (int r = 0; r * G < 5; ++r) {
+  for (int r = 0; r * G < kRounds; ++r) {
     const int a = r * G + lane;
-    const bool ok = a < 5 && trial_ok(z, p, alpha_bt<R>(a), cells, h, dxpu, k, e0, det_floor);
+    const bool ok =
+        a < kRounds && trial_ok(z, p, alpha_bt<R>(a), cells, h, dxpu, k, e0, det_floor);
     const unsigned votes = __ballot_sync(gmask, ok);
     accepted |= ((votes >> base) & ((1u << G) - 1u)) << (r * G);
   }
@@ -490,6 +588,7 @@ __global__ void __launch_bounds__(D::kThreads, D::kMinBlocks) prox3d_newton_kern
   const int base = (threadIdx.x % 32) - lane;  // the group's first lane in its warp
   const unsigned gmask = ((1u << G) - 1u) << base;
   const SharedCells<R, kE> cells{st.cells + el};
+  const auto ccells = common_cells<D>(cells, lane, base, gmask);  // the group's common evaluations
   const R* dxpu = st.dxpu + el * 12;
   const R* fr = st.fr + el * 12;
   const R* h = kComp ? st.eh + el * 9 : eh.h;
@@ -498,12 +597,17 @@ __global__ void __launch_bounds__(D::kThreads, D::kMinBlocks) prox3d_newton_kern
 #pragma unroll
   for (int c = 0; c < 12; ++c) z[c] = st.z[el * 12 + c];
 
-  if (lane == 0) ih0_out[e] = energy3_unreg(z, cells, h, k);
+  if constexpr (D::kShare) {
+    const R ih0 = energy3_unreg(z, ccells, h, k);  // on every lane, its samples shared out
+    if (lane == 0) ih0_out[e] = ih0;
+  } else {
+    if (lane == 0) ih0_out[e] = energy3_unreg(z, cells, h, k);
+  }
   for (int it = 0; it < max_iters; ++it) {
     // gradient, its norm and the regularized energy at the start
     R g[12];
     R ih;
-    const R e0 = grad3<R>(z, cells, h, dxpu, fr, k, g, ih);
+    const R e0 = grad3<R>(z, ccells, h, dxpu, fr, k, g, ih);
     // retire on a small gradient from the second sweep on, before moving
     // and before the Hessian, which such an element would not use
     if (it > 0 && norm1(g) < k.tol) break;
@@ -526,12 +630,14 @@ __global__ void __launch_bounds__(D::kThreads, D::kMinBlocks) prox3d_newton_kern
       for (int j = lane; j < 12; j += G) hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);
       __syncwarp(gmask);
       factor_in_place<D>(H, lane, gmask);
-      cached_direction(H, g, k.inv_w2, p);
+      solve<D>(H, g, k.inv_w2, p);
     }
 
     const R det_floor = floor_of(edet3(z));
-    const R alpha =
-        backtrack_group<G>(z, p, cells, h, dxpu, k, e0, det_floor, lane, base, gmask);
+    // where the samples are shared out, alpha 1 first: a Newton step near
+    // convergence is taken whole, and the rounds are then not needed
+    const R alpha = backtrack_group<D, D::kShare>(z, p, cells, ccells, h, dxpu, k, e0, det_floor,
+                                                  lane, base, gmask);
     const R step_inf = alpha * absmax(p);
     const bool stalled = step_inf <= Num<R>::kEpsStall * (R(1) + absmax(z));
 #pragma unroll
@@ -591,6 +697,7 @@ __global__ void __launch_bounds__(D::kThreads, D::kMinBlocks)
   const int base = (threadIdx.x % 32) - lane;  // the group's first lane in its warp
   const unsigned gmask = ((1u << G) - 1u) << base;
   const SharedCells<R, kE> cells{st.cells + el};
+  const auto ccells = common_cells<D>(cells, lane, base, gmask);  // the group's common evaluations
   const R* dxpu = st.dxpu + el * 12;
   const R* fr = st.fr + el * 12;
   const R* h = kComp ? st.eh + el * 9 : eh.h;
@@ -604,7 +711,7 @@ __global__ void __launch_bounds__(D::kThreads, D::kMinBlocks)
     // gradient, its norm and the regularized energy at the start
     R g[12];
     R ih;
-    const R e0 = grad3<R>(z, cells, h, dxpu, fr, k, g, ih);
+    const R e0 = grad3<R>(z, ccells, h, dxpu, fr, k, g, ih);
     if (it == 0 && lane == 0) ih0_out[e] = ih;  // the unregularized energy at the input
     // retire on a small gradient from the second sweep on, before moving
     if (it > 0 && norm1(g) < k.tol) break;
@@ -614,8 +721,8 @@ __global__ void __launch_bounds__(D::kThreads, D::kMinBlocks)
     R p[12];
     bool ok = false;
     if (it > 0) {
-      cached_direction(H, g, k.inv_w2, p);
-      ok = trial_ok(z, p, R(1), cells, h, dxpu, k, e0, det_floor);
+      solve<D>(H, g, k.inv_w2, p);
+      ok = trial_ok(z, p, R(1), ccells, h, dxpu, k, e0, det_floor);
     }
     if (!ok) {
       // the Hessian at z into the cache: the entry Hessian in the first
@@ -624,11 +731,11 @@ __global__ void __launch_bounds__(D::kThreads, D::kMinBlocks)
       // else a refresh; then backtracking where the step is rejected
       __syncwarp(gmask);  // every lane has solved with the old cache, if any
       chord_refresh<D>(z, cells, h, dxpu, fr, k, lane, gmask, H);
-      cached_direction(H, g, k.inv_w2, p);
-      ok = it == 0 && trial_ok(z, p, R(1), cells, h, dxpu, k, e0, det_floor);
+      solve<D>(H, g, k.inv_w2, p);
+      ok = it == 0 && trial_ok(z, p, R(1), ccells, h, dxpu, k, e0, det_floor);
       if (!ok) {
-        const R alpha =
-            backtrack_group<G>(z, p, cells, h, dxpu, k, e0, det_floor, lane, base, gmask);
+        const R alpha = backtrack_group<D, false>(z, p, cells, ccells, h, dxpu, k, e0,
+                                                  det_floor, lane, base, gmask);
 #pragma unroll
         for (int i = 0; i < 12; ++i) p[i] = alpha * p[i];
       }

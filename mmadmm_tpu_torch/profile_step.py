@@ -7,7 +7,10 @@ Shoulder-320, then 3D MM-ADMM at 3D Shoulder-40 (the identity monitor,
 768,000 tet slots) on the 3D stencil engine and at 3D CompSquare-20 (a
 computational mesh, 96,000 tets) on the stock engine, 3D CompSquare-40
 (768,000 tets) on the stock engine's kernel route (``prox_backend=
-"pallas"``: K4') and on its generic route (``"vmap"``), then Monitor3320r
+"pallas"``: K4') and on its generic route (``"vmap"``), the kernel route
+with Newton sweeps at 3D CompSquare-40 (``prox_chord=False``: K4''b) and
+with chord sweeps at 3D SquareGrid-40 (``prox_chord=True``, a box mesh:
+K4''a; a run's ``prox_chord`` goes to ``build_problem``), then Monitor3320r
 as a user loads it (float64, the generic prox with the carried Jacobian),
 in turn (or only the runs whose names contain one of the NAMEs), the
 generated meshes in ``--dtype`` (float32 by default; in float64 the
@@ -64,17 +67,25 @@ RUNS = {
                                                              prox_backend="pallas"),
     "3D MM-ADMM stock, 3D CompSquare-40, generic route": dict(_COMP3, nx=40, ny=40, nz=40,
                                                               prox_backend="vmap"),
+    "3D MM-ADMM stock, 3D CompSquare-40, Newton sweeps": dict(_COMP3, nx=40, ny=40, nz=40,
+                                                              prox_backend="pallas",
+                                                              prox_chord=False),
+    "3D MM-ADMM stock, 3D SquareGrid-40, chord sweeps": dict(
+        test_type="SquareGrid", dim=3, mon_type=1, method=0, nx=40, ny=40, nz=40,
+        prox_backend="pallas", prox_chord=True),
     "Monitor3320r float64 (generic route)": M3320R,
 }
 
 
 def profile_run(name: str, dtype: str = "float32") -> None:
+    chord = None
     if isinstance(RUNS[name], str):
         cfg = load_experiment_config(RUNS[name])
     else:
-        cfg = ExperimentConfig(**dict(dict(dt=5e-3, tau=0.1, rho=50.0, dtype=dtype),
-                                      **RUNS[name]))
-    mesh, integ = build_problem(cfg)
+        kw = dict(RUNS[name])
+        chord = kw.pop("prox_chord", None)
+        cfg = ExperimentConfig(**dict(dict(dt=5e-3, tau=0.1, rho=50.0, dtype=dtype), **kw))
+    mesh, integ = build_problem(cfg, prox_chord=chord)
     state = integ.init_state()
     for _ in range(WARM):
         state, _ = integ.step(state)

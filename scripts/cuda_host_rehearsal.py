@@ -13,7 +13,8 @@ type. The one-thread-per-element kernels K2 and K3 are called once per
 element, one after another. The kernels where a group of lanes shares an
 element run a block at a time with one host thread per lane
 (``threadIdx`` is thread-local), ``__syncthreads``, ``__syncwarp`` and
-``__ballot_sync`` being host barriers over the block or the mask's lanes:
+``__ballot_sync`` being host barriers over the block or the mask's lanes,
+and ``__shfl_sync`` of a real an exchange between two of them:
 K1 as shipped (one thread an element, 64 a block) and the group design
 that ``scripts/cuda_k1_variants.py`` builds beside it (``GROUP_KERNEL``
 there) with 1, 2, 3 and 6 lanes per element and one Hessian column a dual
@@ -22,14 +23,15 @@ lanes, and with 2, 3 and 6 passes unrolled together at 1 lane and 3 at 2
 lanes, the 3D kernels in their shipped layouts (``Build`` in
 ``prox3d.cu``) and at other group widths (the Newton kernels K4 and K4''b
 at 4, 8 and 16 lanes, the chord kernels K4' and K4''a at 2, 4 and 8), and
-K4 and K4' in float64 also in every layout and source edit that
-``scripts/cuda_k4_variants.py`` times for them (its ``NEWTON64`` and
-``CHORD64``, and the parent's layouts; a dynamic stage is a static array
-here); each also on the first 1, 30 and 131 columns of its inputs as
-shipped (the block's copies then take the one-value path), and K4 and K4'
-in float64 on kE - 1 and kE + 1 columns (kE their elements a block), on a
-block of carved slots (free all 0; the first block's free set to 0 where
-the mesh has no carved slot) and with max_iters 1. The 3D kernels are
+the four in float64 also in every layout and source edit that
+``scripts/cuda_k4_variants.py`` times for them (its ``NEWTON64``,
+``CHORD64``, ``COMP64`` and ``CHORD_BOX64``, and the parent's layouts; a
+dynamic stage is a static array here); each also on the first 1, 30 and
+131 columns of its inputs as shipped (the block's copies then take the
+one-value path), and the four in float64 on kE - 1 and kE + 1 columns (kE
+their elements a block), on a block of carved slots (free all 0; the
+first block's free set to 0 where the mesh has no carved slot) and with
+max_iters 1. The 3D kernels are
 compiled without their C entries, one library per entry, real type and
 set of source edits, all together. Their outputs
 are compared bit for bit with ``prox2d_plain``, ``eg2d_plain`` and
@@ -76,6 +78,7 @@ from mmadmm_tpu_torch.ops import prox2d as P2  # noqa: E402
 from mmadmm_tpu_torch.ops import prox3d as P3  # noqa: E402
 
 STUB = """#pragma once
+#include <array>
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
@@ -163,6 +166,26 @@ inline int __shfl_sync(unsigned mask, int v, int src) {
   return (int)host_barrier(threadIdx.x / 32, mask, __builtin_popcount(mask))
       .arrive((int)(threadIdx.x % 32) == src ? (unsigned)v : 0u);
 }
+// the real v of lane src of the mask's lanes: each lane's bits through a
+// slot of its warp's, between two barriers of the mask's lanes
+template <typename T>
+inline T shfl_real(unsigned mask, T v, int src) {
+  static std::mutex m;
+  static std::map<unsigned, std::array<T, 32>> slots;
+  T* slot;
+  {
+    std::lock_guard<std::mutex> lk(m);
+    slot = slots[threadIdx.x / 32].data();
+  }
+  HostBarrier& bar = host_barrier(threadIdx.x / 32, mask, __builtin_popcount(mask));
+  slot[threadIdx.x % 32] = v;
+  bar.arrive(0u);
+  const T out = slot[src];
+  bar.arrive(0u);
+  return out;
+}
+inline float __shfl_sync(unsigned mask, float v, int src) { return shfl_real(mask, v, src); }
+inline double __shfl_sync(unsigned mask, double v, int src) { return shfl_real(mask, v, src); }
 """
 
 # one host entry per kernel and real type: the launch becomes a loop over
@@ -310,20 +333,24 @@ K1_RUNS = (0, 111, 211, 311, 611, 121, 131, 161, 231, 321, 112, 113, 116, 213, 1
 # the 3D entries: (chord, comp) of their kernel
 ENTRIES3D = {"host_prox3d": (False, False), "host_prox3d_comp": (False, True),
              "host_prox3d_chord": (True, False), "host_prox3d_chord_comp": (True, True)}
-# K4 and K4' in float64 run every variant the timer builds for them:
+# the 3D kernels in float64 run every variant the timer builds for them:
 # [(label, (layout, text edits))]
 TIMED64 = {("host_prox3d", "double"): [(K4V.PARENT, (K4V.PARENT_K4, ())),
                                        *K4V.NEWTON64.items()],
            ("host_prox3d_chord_comp", "double"): [(K4V.PARENT, (K4V.PARENT_K4C, ())),
-                                                  *K4V.CHORD64.items()]}
+                                                  *K4V.CHORD64.items()],
+           ("host_prox3d_comp", "double"): [(K4V.PARENT, (K4V.PARENT_K4PPB, ())),
+                                            *K4V.COMP64.items()],
+           ("host_prox3d_chord", "double"): [(K4V.PARENT, (K4V.PARENT_K4PPA, ())),
+                                             *K4V.CHORD_BOX64.items()]}
 
 
 def variants3d(entry, real):
     """``[(text edits, [(label, C++ layout)])]`` that a 3D entry runs in
     ``real``, by the edits of the source they need (none first): the
     shipped layout, its kernel at other group widths (the Newton kernels at
-    4, 8 and 16 lanes, the chord kernels at 2, 4 and 8), then for K4 and K4'
-    in float64 the variant timer's."""
+    4, 8 and 16 lanes, the chord kernels at 2, 4 and 8), then in float64 the
+    variant timer's."""
     chord, comp = ENTRIES3D[entry]
     shipped = f"Build<{real}, {str(chord).lower()}, {str(comp).lower()}>::L"
     at = "ChordAt" if chord else "NewtonAt"
@@ -467,9 +494,9 @@ CASES = [
 
 
 def shipped_elements(entry):
-    """Elements a block of the shipped float64 layout of K4
-    (``host_prox3d``) or K4' (``host_prox3d_chord_comp``)."""
-    alias = {"host_prox3d": "K4Double", "host_prox3d_chord_comp": "K4ChordCompDouble"}[entry]
+    """Elements a block of the shipped float64 layout of a 3D entry."""
+    alias = {"host_prox3d": "K4Double", "host_prox3d_chord_comp": "K4ChordCompDouble",
+             "host_prox3d_comp": "K4CompDouble", "host_prox3d_chord": "K4ChordDouble"}[entry]
     with open(os.path.join(CSRC, "prox3d.cu")) as f:
         threads, lanes = re.search(r"using %s = Layout<(\d+), (\d+)," % alias, f.read()).groups()
     return int(threads) // int(lanes)
@@ -479,7 +506,7 @@ def runs_of(entry, dtype, max_iters):
     """``[(library, variant, label, cut, max_iters)]`` of an entry: K1 as
     shipped and its group designs (``K1_RUNS``), a 3D kernel in every
     variant of ``variants3d``, each on all the inputs; then as shipped on
-    the first 1, 30 and 131 columns; for K4 and K4' in float64 also on kE -
+    the first 1, 30 and 131 columns; in float64 also on kE -
     1 and kE + 1 columns (kE its elements a block), on a block of carved
     slots and with ``max_iters`` 1."""
     if entry == "host_prox2d":

@@ -1,20 +1,31 @@
 """The 3D prox kernels of ``csrc/prox3d.cu`` against the designs they
 replaced and against variants of their layouts, timed on the card.
 
-    python3 scripts/cuda_k4_variants.py [newton] [chord] [newton64] [chord64]
+    python3 scripts/cuda_k4_variants.py [newton] [chord] [newton64] [chord64] [comp64]
+        [chord_box64] [--interleave=N] [--only='WORDS|...'] [--sass]
 
 ``newton`` times the float Newton-sweep kernels K4 and K4''b, ``chord`` the
-float chord-sweep kernels K4' and K4''a, ``newton64`` K4's float64 build
-and ``chord64`` K4''s float64 build; with no argument, all four. Each
-build is a copy of ``csrc/`` in the git-ignored
-``mmadmm_tpu_torch/_build/k4_variants/``, built by plain ``nvcc``, all
-started together. A build of a layout changes one alias of
+float chord-sweep kernels K4' and K4''a, ``newton64`` K4's float64 build,
+``chord64`` K4''s, ``comp64`` K4''b's and ``chord_box64`` K4''a's; with
+no family named, all six. ``--only`` keeps, of the named families' builds,
+the parent's and those whose names hold one of the words;
+``--interleave=N`` times N single launches of each variant, one of every
+variant a sweep, the order turned every sweep, against the card's drift
+over a run (by default each variant is timed twice, a median of 20
+launches each, in turns forward and back); ``--sass`` also counts each timed kernel's
+instructions (``cuobjdump -sass``), to tell builds of the same code from
+builds of other code. Each build is a copy of ``csrc/`` in the
+git-ignored ``mmadmm_tpu_torch/_build/k4_variants/``, built by plain
+``nvcc``, all started together. A build of a layout changes one alias of
 ``prox3d.cu`` (``NewtonFloat``, ``ChordFloat``, ``K4Double``,
-``K4ChordCompDouble``: ``Layout<threads a block, lanes an element, blocks
-an SM at least, factor>``), some also a few lines of its text
+``K4ChordCompDouble``, ``K4CompDouble``, ``K4ChordDouble``:
+``Layout<threads a block, lanes an element, blocks an SM at least, factor,
+samples shared out>``), some also a few lines of its text
 (``GLOBAL_CELLS``, ``IN_ORDER``, ``CARVEOUT_50``, ``DYNAMIC_STAGE``,
-``HESS_COLS``, ``NOINLINE``, ``INLINED``, ``ROLLED``); the float64 variant builds keep
-only the timed kernel's entry. The builds:
+``HESS_COLS``, ``NOINLINE``, ``INLINED``, ``ROLLED``, ``SPREAD_SOLVE``,
+``HESS_N2``, ``HESS_N3``, ``BACKTRACK_IN_ROUNDS``, ``CHORD_FULL_FIRST``,
+``SOLVE_OUT_OF_LINE``); the float64 variant
+builds keep only the timed kernel's entry. The builds:
 
 - ``shipped``: ``prox3d.cu`` as it is (every kernel's ``ptxas`` line);
 - ``thread`` (with ``newton`` or ``chord``): ``prox3d.cu`` with two
@@ -53,7 +64,17 @@ only the timed kernel's entry. The builds:
 - ``chord64``: K4' in float64 in the parent's layout (``PARENT_K4C``: 16
   elements of 2 lanes, a block of one warp, the cells staged, one lane
   factoring: K4''a's layout in float64) and the variants of ``CHORD64`` (the same kinds,
-  and the sweep loop kept rolled).
+  and the sweep loop kept rolled);
+- ``comp64`` and ``chord_box64``: K4''b and K4''a in float64 in the
+  parent's layouts (``PARENT_K4PPB``: 4 lanes, every lane factoring a
+  copy, at least 3 blocks an SM; ``PARENT_K4PPA``: 2 lanes in a block of
+  one warp, one lane factoring) and the variants of ``COMP64`` and
+  ``CHORD_BOX64``: K4's and K4''s plans, 2 lanes, the cached solve
+  spread over the group (``SPREAD_SOLVE``), two or three Hessian columns a
+  dual pass (``HESS_N2``, ``HESS_N3``: dual.cuh's ``DualN``), the samples
+  of the group's common evaluations shared out (``GroupCells``), the
+  backtracking in rounds of the five trials or alpha 1 first, the solve
+  inlined, 32 or 64 elements a block in dynamic shared memory.
 
 It prints each build's ``-Xptxas -v`` registers, stack, spills and shared
 bytes and the blocks an SM holds of each timed kernel (the occupancy
@@ -73,7 +94,13 @@ variant differs, after timing the rest), on:
   SquareGrid-40 in float64, against ``prox3d_plain`` in float64;
 - K4''s float64 build at the stock engine's step-0 inputs of 3D
   CompSquare-40 and CompSquare-20 in float64 on the kernel route, against
-  ``prox3d_chord_comp_plain`` in float64.
+  ``prox3d_chord_comp_plain`` in float64;
+- K4''b's float64 build at the stock engine's step-0 inputs of 3D
+  CompSquare-40 and -20 in float64 with ``prox_chord=False`` and at the
+  first prox call of step ``LATER_STEP`` (5) at -40 (the path run that
+  far on the shipped build), against ``prox3d_comp_plain``; K4''a's at
+  those of 3D SquareGrid-40 and -20 with ``prox_chord=True``, against
+  ``prox3d_chord_plain``.
 
 Prints the card's name and power limit first. Needs a CUDA card; run it
 from the root of the repo.
@@ -85,6 +112,7 @@ import ctypes
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -335,6 +363,12 @@ def _chord(g, blocks, factor_one_lane=True, *edits):
 PARENT_K4 = "Layout<64, 4, 4, kEveryLane>"
 PARENT_K4C = "Layout<32, 2, 1, kOneLane>"
 PARENT = "parent's layout"
+# K4''b and K4''a in float64 as the parent commit lays them out: 16 elements
+# a block, the cells staged, K4''b at 4 lanes with every lane factoring a
+# copy and at least 3 blocks an SM, K4''a at 2 lanes (one warp) with one
+# lane factoring
+PARENT_K4PPB = "Layout<64, 4, 3, kEveryLane>"
+PARENT_K4PPA = "Layout<32, 2, 1, kOneLane>"
 
 # a block's stage in dynamic shared memory (over the 48 KB of static shared
 # memory a block may have), its size set as the kernel's dynamic maximum
@@ -402,6 +436,90 @@ def global_cells(in_order=False):
     )
 
 
+# the Hessian's columns in dual passes of n tangents each (dual.cuh's DualN:
+# every column's bits are those of hess_col's one-tangent pass): lane l of G
+# takes its columns l, l + G, ... n to a pass, the last pass the rest; in the
+# Newton kernel's in-place branch and in the chord refresh
+HESS_COL_N = r"""// columns j0, j0 + G, ..., j0 + (N - 1) G of the lower triangle of the
+// Hessian at z (rows i >= j), from one dual pass with N tangents; a column
+// past 11 is left out
+template <int N, int G, typename C, typename R>
+__device__ __forceinline__ void hess_col_n(int j0, const R* z, const C& cells, const R* h,
+                                           const R* dxpu, const R* fr, const Consts3<R>& k,
+                                           R* H) {
+  DualN<R, N> zd[12], gd[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    zd[i].v = z[i];
+#pragma unroll
+    for (int t = 0; t < N; ++t) zd[i].d[t] = i == j0 + t * G ? R(1) : R(0);
+  }
+  DualN<R, N> ihd;
+  grad3<DualN<R, N>>(zd, cells, h, dxpu, fr, k, gd, ihd);
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    const int j = j0 + t * G;
+    if (j >= 12) continue;
+    const R frj = fr[j];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      if (i < j) continue;
+      R hv = gd[i].d[t] * fr[i] * frj;
+      if (i == j) hv = hv + (R(1) - fr[i]) + Num<R>::kLevenberg;
+      H[tri(i, j)] = hv;
+    }
+  }
+}
+
+// lane's columns of the Hessian, N to a dual pass
+template <int N, int G, typename C, typename R>
+__device__ __forceinline__ void hess_cols_n(int lane, const R* z, const C& cells, const R* h,
+                                            const R* dxpu, const R* fr, const Consts3<R>& k,
+                                            R* H) {
+  constexpr int kCols = (12 + G - 1) / G, kRest = kCols % N;
+#pragma unroll 1
+  for (int c = 0; c + N <= kCols; c += N)
+    hess_col_n<N, G>(lane + c * G, z, cells, h, dxpu, fr, k, H);
+  if constexpr (kRest > 0)
+    hess_col_n<kRest, G>(lane + (kCols - kRest) * G, z, cells, h, dxpu, fr, k, H);
+}
+
+"""
+
+
+def hess_passes(n):
+    return (
+        ("// ---- Newton sweeps (K4, K4''b)", HESS_COL_N + "// ---- Newton sweeps (K4, K4''b)"),
+        ("      __syncwarp(gmask);  // every lane has solved with the last sweep's factors\n"
+         "#pragma unroll 1\n"
+         "      for (int j = lane; j < 12; j += G) "
+         "hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);\n",
+         "      __syncwarp(gmask);  // every lane has solved with the last sweep's factors\n"
+         f"      hess_cols_n<{n}, G>(lane, z, cells, h, dxpu, fr, k, H);\n"),
+        ("#pragma unroll 1\n"
+         "  for (int j = lane; j < 12; j += D::kGroup) "
+         "hess_col<1>(j, z, cells, h, dxpu, fr, k, fr[j], H);\n",
+         f"  hess_cols_n<{n}, D::kGroup>(lane, z, cells, h, dxpu, fr, k, H);\n"),
+    )
+
+
+HESS_N2, HESS_N3 = hess_passes(2), hess_passes(3)
+# the solve out of line on a layout that shares samples out (inlined there
+# in the source)
+SOLVE_OUT_OF_LINE = (("  if constexpr (D::kShare)\n    direction<1>(H, g, inv_w2, p);\n  else\n",
+                      ""),)
+# the Newton sweep's backtracking in rounds of the five trials on a layout
+# that shares samples out, as the other layouts do, instead of alpha 1 first
+# on every lane
+BACKTRACK_IN_ROUNDS = (("backtrack_group<D, D::kShare>(", "backtrack_group<D, false>("),)
+# the chord sweep's backtracking with alpha 1 first, on a layout that shares
+# samples out: in the first sweep in place of the trial at alpha 1 before it
+CHORD_FULL_FIRST = (
+    ("ok = it == 0 && trial_ok(z, p, R(1), ccells, h, dxpu, k, e0, det_floor);",
+     "ok = !D::kShare && it == 0 && trial_ok(z, p, R(1), ccells, h, dxpu, k, e0, det_floor);"),
+    ("backtrack_group<D, false>(z, p, cells, ccells, h, dxpu, k, e0,",
+     "backtrack_group<D, D::kShare>(z, p, cells, ccells, h, dxpu, k, e0,"),
+)
 GLOBAL_CELLS = global_cells()
 IN_ORDER = global_cells(in_order=True)
 # shared memory's share of the SM's 256 KB asked for: 50 %
@@ -507,6 +625,139 @@ CHORD64 = {
 }
 
 
+# the cached solve (direction<1>) by the group: the forward substitution's
+# rows spread over the lanes (lane l the rows l, l + G, ...), each row's
+# updates in direction's order as each solved entry arrives from the lane
+# that owns its row (__shfl_sync within gmask), the divisions by the
+# diagonal spread the same way and broadcast, then every lane the back
+# substitution; each entry's operations in direction's order
+SOLVE_GROUP = r"""
+template <int G, typename R>
+__device__ __noinline__ void cached_direction_group(const R* H, const R* g, R inv_w2, R* p,
+                                                    int lane, int base, unsigned gmask) {
+  constexpr int kRows = (12 + G - 1) / G;
+  R s[kRows];  // the rows lane + r G
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) s[r] = lane + r * G < 12 ? -g[lane + r * G] : R(0);
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    const R zk = __shfl_sync(gmask, s[k / G], base + k % G);  // row k, solved
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = lane + r * G;
+      if (i > k && i < 12) s[r] = s[r] - H[tri(i, k)] * zk;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    if (lane + r * G < 12) s[r] = s[r] / H[tri(lane + r * G, lane + r * G)];
+  R q[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) q[i] = __shfl_sync(gmask, s[i / G], base + i % G);
+#pragma unroll
+  for (int i = 11; i >= 0; --i) {
+    R t = q[i];
+#pragma unroll
+    for (int k = i + 1; k < 12; ++k) t = t - H[tri(k, i)] * p[k];
+    p[i] = t;
+  }
+  bool finite = true;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) finite = finite && isfinite(p[i]);
+  if (!finite) {
+#pragma unroll
+    for (int i = 0; i < 12; ++i) p[i] = -g[i] * inv_w2;
+  }
+}
+
+"""
+SPREAD_SOLVE = (
+    ("// the triangle H in shared memory, whose columns the group has written,\n",
+     SOLVE_GROUP + "// the triangle H in shared memory, whose columns the group has written,\n"),
+    ("solve<D>(H, g, k.inv_w2, p);",
+     "cached_direction_group<G>(H, g, k.inv_w2, p, lane, base, gmask);"),
+)
+
+# the variants timed for K4''b in float64 (comp64) and K4''a in float64
+# (chord_box64), beside the parent's, as NEWTON64 and CHORD64
+COMP64 = {
+    "factor spread, at least 4 blocks (K4's layout)": ("Layout<64, 4, 4, kSpread>", ()),
+    "one lane factors, at least 4 blocks": ("Layout<64, 4, 4, kOneLane>", ()),
+    "factor spread, solve spread over the group": ("Layout<64, 4, 4, kSpread>", SPREAD_SOLVE),
+    "factor spread, solve inlined": ("Layout<64, 4, 4, kSpread>", INLINED),
+    "factor spread, 2 lanes (16 elements a block of 32)": ("Layout<32, 2, 1, kSpread>", ()),
+    "factor spread, 32 elements a block of 128 in dynamic shared memory":
+        ("Layout<128, 4, 2, kSpread>", DYNAMIC_STAGE),
+    "factor spread, 32 elements a block of 128 in dynamic shared memory, solve inlined":
+        ("Layout<128, 4, 2, kSpread>", DYNAMIC_STAGE + INLINED),
+    "factor spread, 32 elements a block of 128 in dynamic shared memory, solve spread":
+        ("Layout<128, 4, 2, kSpread>", DYNAMIC_STAGE + SPREAD_SOLVE),
+    "factor spread, 64 elements a block of 256 in dynamic shared memory":
+        ("Layout<256, 4, 1, kSpread>", DYNAMIC_STAGE),
+    "factor spread, 2 Hessian columns a dual pass": ("Layout<64, 4, 4, kSpread>", HESS_N2),
+    "factor spread, 3 Hessian columns a dual pass": ("Layout<64, 4, 4, kSpread>", HESS_N3),
+    "factor spread, 2 Hessian columns a dual pass, solve inlined":
+        ("Layout<64, 4, 4, kSpread>", HESS_N2 + INLINED),
+    "factor spread, 3 Hessian columns a dual pass, solve inlined":
+        ("Layout<64, 4, 4, kSpread>", HESS_N3 + INLINED),
+    "factor spread, samples shared out, backtracking in rounds":
+        ("Layout<64, 4, 4, kSpread, true>", SOLVE_OUT_OF_LINE + BACKTRACK_IN_ROUNDS),
+    "factor spread, samples shared out, solve inlined, backtracking in rounds":
+        ("Layout<64, 4, 4, kSpread, true>", BACKTRACK_IN_ROUNDS),
+    "factor spread, samples shared out": ("Layout<64, 4, 4, kSpread, true>", SOLVE_OUT_OF_LINE),
+    "factor spread, samples shared out, solve inlined (the shipped layout)":
+        ("Layout<64, 4, 4, kSpread, true>", ()),
+    "factor spread, samples shared out, 32 elements a block of 128 in dynamic shared memory, "
+    "backtracking in rounds":
+        ("Layout<128, 4, 2, kSpread, true>",
+         DYNAMIC_STAGE + SOLVE_OUT_OF_LINE + BACKTRACK_IN_ROUNDS),
+    "factor spread, samples shared out, solve inlined, 32 elements a block of 128 in dynamic "
+    "shared memory": ("Layout<128, 4, 2, kSpread, true>", DYNAMIC_STAGE),
+}
+CHORD_BOX64 = {
+    "4 lanes, 16 elements a block of 64, factor spread (K4''s layout)":
+        ("Layout<64, 4, 1, kSpread>", ()),
+    "2 lanes, 16 elements a block of 32, factor spread": ("Layout<32, 2, 1, kSpread>", ()),
+    "4 lanes, factor spread, solve spread over the group":
+        ("Layout<64, 4, 1, kSpread>", SPREAD_SOLVE),
+    "2 lanes, factor spread, solve spread over the group":
+        ("Layout<32, 2, 1, kSpread>", SPREAD_SOLVE),
+    "4 lanes, factor spread, sweep loop rolled": ("Layout<64, 4, 1, kSpread>", ROLLED),
+    "4 lanes, factor spread, 32 elements a block of 128 in dynamic shared memory":
+        ("Layout<128, 4, 2, kSpread>", DYNAMIC_STAGE),
+    "4 lanes, factor spread, 64 elements a block of 256 in dynamic shared memory":
+        ("Layout<256, 4, 1, kSpread>", DYNAMIC_STAGE),
+    "2 lanes, factor spread, 32 elements a block of 64 in dynamic shared memory":
+        ("Layout<64, 2, 2, kSpread>", DYNAMIC_STAGE),
+    "4 lanes, factor spread, 32 elements a block of 128 in dynamic shared memory, solve spread":
+        ("Layout<128, 4, 2, kSpread>", DYNAMIC_STAGE + SPREAD_SOLVE),
+    "4 lanes, factor spread, 2 Hessian columns a dual pass":
+        ("Layout<64, 4, 1, kSpread>", HESS_N2),
+    "4 lanes, factor spread, 3 Hessian columns a dual pass":
+        ("Layout<64, 4, 1, kSpread>", HESS_N3),
+    "2 lanes, factor spread, 2 Hessian columns a dual pass":
+        ("Layout<32, 2, 1, kSpread>", HESS_N2),
+    "2 lanes, factor spread, 3 Hessian columns a dual pass":
+        ("Layout<32, 2, 1, kSpread>", HESS_N3),
+    "4 lanes, factor spread, samples shared out":
+        ("Layout<64, 4, 1, kSpread, true>", SOLVE_OUT_OF_LINE),
+    "2 lanes, factor spread, samples shared out":
+        ("Layout<32, 2, 1, kSpread, true>", SOLVE_OUT_OF_LINE),
+    "4 lanes, factor spread, samples shared out, alpha 1 first":
+        ("Layout<64, 4, 1, kSpread, true>", SOLVE_OUT_OF_LINE + CHORD_FULL_FIRST),
+    "4 lanes, factor spread, samples shared out, solve inlined (the shipped layout)":
+        ("Layout<64, 4, 1, kSpread, true>", ()),
+    "4 lanes, factor spread, samples shared out, solve inlined, alpha 1 first":
+        ("Layout<64, 4, 1, kSpread, true>", CHORD_FULL_FIRST),
+    "4 lanes, factor spread, samples shared out, 32 elements a block of 128 in dynamic shared "
+    "memory": ("Layout<128, 4, 2, kSpread, true>", DYNAMIC_STAGE + SOLVE_OUT_OF_LINE),
+    "4 lanes, factor spread, samples shared out, solve inlined, 32 elements a block of 128 in "
+    "dynamic shared memory": ("Layout<128, 4, 2, kSpread, true>", DYNAMIC_STAGE),
+    "4 lanes, factor spread, samples shared out, solve inlined, 64 elements a block of 256 in "
+    "dynamic shared memory": ("Layout<256, 4, 1, kSpread, true>", DYNAMIC_STAGE),
+}
+
+
 def apply_edits(s, edits):
     """prox3d.cu with the text ``edits`` ((old, new[, count]), in order)."""
     for old, new, *count in edits:
@@ -528,19 +779,32 @@ extern "C" int mm_prox3d_layout(int, int, int, int* out) {{
 """
 
 
-def _only(s, entry, build):
+def _only(s, entry, build, *more):
     """``s`` with its C entries cut to ``entry`` and the layout entry of
-    ``build`` ((chord, comp, f64)) alone: a build of one kernel."""
+    ``build`` ((chord, comp, f64)) alone: a build of one kernel; with
+    ``more`` (entry, build) pairs, a build of those kernels together, the
+    layout entry choosing among them."""
     head = s[:s.index("}  // namespace\n") + len("}  // namespace\n")]
-    m = re.search(r'extern "C" int %s\(.*?\n}\n' % entry, s, re.S)
-    chord, comp, f64 = build
-    return head + "\n" + m.group(0) + LAYOUT_ONE.format(
-        real="double" if f64 else "float", chord=str(bool(chord)).lower(),
-        comp=str(bool(comp)).lower())
+    kernels = ((entry, build),) + more
+    entries = "".join(re.search(r'extern "C" int %s\(.*?\n}\n' % e, s, re.S).group(0)
+                      for e, _ in kernels)
+    layouts = [LAYOUT_ONE.format(real="double" if f64 else "float",
+                                 chord=str(bool(chord)).lower(), comp=str(bool(comp)).lower())
+               for _, (chord, comp, f64) in kernels]
+    if not more:
+        return head + "\n" + entries + layouts[0]
+    cases = "".join(
+        f"  if (chord == {c} && comp == {m} && f64 == {f}) "
+        + re.search(r"return layout_of<[^;]*;", text).group(0) + "\n"
+        for (_, (c, m, f)), text in zip(kernels, layouts))
+    return (head + "\n" + entries + 'extern "C" int mm_prox3d_layout(int chord, int comp, int '
+            "f64, int* out) {\n" + cases + "  return (int)cudaErrorInvalidValue;\n}\n")
 
 
 K4_F64 = ("mm_prox3d_f64", (0, 0, 1))
 K4C_F64 = ("mm_prox3d_chord_comp_f64", (1, 1, 1))
+K4PPB_F64 = ("mm_prox3d_comp_f64", (0, 1, 1))
+K4PPA_F64 = ("mm_prox3d_chord_f64", (1, 0, 1))
 
 
 def _double(alias, variant, kernel):
@@ -580,8 +844,23 @@ NEWTON64_BUILDS = {f"K4 float64, {name}": _double("K4Double", variant, K4_F64)
                    for name, variant in {PARENT: (PARENT_K4, ()), **NEWTON64}.items()}
 CHORD64_BUILDS = {f"K4' float64, {name}": _double("K4ChordCompDouble", variant, K4C_F64)
                   for name, variant in {PARENT: (PARENT_K4C, ()), **CHORD64}.items()}
+# the shipped source built again, and its two float64 stock-engine builds
+# (K4''b, K4''a) as shipped, built alone together: what their code is in
+# a translation unit of their own
+TOGETHER = {
+    "shipped, built again": lambda s: s,
+    "K4''b and K4''a float64 as shipped, built together alone":
+        lambda s: _only(s, *K4PPB_F64, K4PPA_F64),
+}
+COMP64_BUILDS = {f"K4''b float64, {name}": _double("K4CompDouble", variant, K4PPB_F64)
+                 for name, variant in {PARENT: (PARENT_K4PPB, ()), **COMP64}.items()}
+CHORD_BOX64_BUILDS = {f"K4''a float64, {name}": _double("K4ChordDouble", variant, K4PPA_F64)
+                      for name, variant in {PARENT: (PARENT_K4PPA, ()), **CHORD_BOX64}.items()}
+COMP64_BUILDS.update(TOGETHER)
+CHORD_BOX64_BUILDS.update(TOGETHER)
 FAMILY_BUILDS = {"newton": NEWTON_BUILDS, "chord": CHORD_BUILDS, "newton64": NEWTON64_BUILDS,
-                 "chord64": CHORD64_BUILDS}
+                 "chord64": CHORD64_BUILDS, "comp64": COMP64_BUILDS,
+                 "chord_box64": CHORD_BOX64_BUILDS}
 THREAD_NAMES = {
     "newton": {0: "one thread per element, retire before the Hessian",
                1: "one thread per element, retire after the step"},
@@ -589,7 +868,8 @@ THREAD_NAMES = {
 }
 # the builds (chord, comp, f64) a family times
 FAMILY_KERNELS = {"newton": ((0, 0, 0), (0, 1, 0)), "chord": ((1, 1, 0), (1, 0, 0)),
-                  "newton64": ((0, 0, 1),), "chord64": ((1, 1, 1),)}
+                  "newton64": ((0, 0, 1),), "chord64": ((1, 1, 1),), "comp64": ((0, 1, 1),),
+                  "chord_box64": ((1, 0, 1),)}
 FACTOR_NAMES = {"0": "every lane factors", "1": "one lane factors", "2": "factor spread"}
 # the eight builds of prox3d.cu, (chord, comp, f64), and their names
 KERNEL_NAMES = {(c, m, f): ({(0, 0): "K4", (0, 1): "K4''b", (1, 1): "K4'", (1, 0): "K4''a"}[c, m]
@@ -601,13 +881,14 @@ ALL_KERNELS = tuple(KERNEL_NAMES)
 def _kernel_name(mangled):
     """A readable name of a kernel in a ptxas log, or None."""
     t = re.search(r"prox3d_(newton|chord)_kernelI([fd])Lb([01])E.*?LayoutILi(\d+)ELi(\d+)ELi(\d+)E"
-                  r"Li(\d+)E", mangled)
+                  r"Li(\d+)ELb([01])E", mangled)
     if t:
-        kind, real, comp, threads, lanes, blocks, factor = t.groups()
+        kind, real, comp, threads, lanes, blocks, factor, share = t.groups()
         name = {("newton", "0"): "K4", ("newton", "1"): "K4''b", ("chord", "1"): "K4'",
                 ("chord", "0"): "K4''a"}[kind, comp]
         return (f"{name} {'float64' if real == 'd' else 'float32'}, {threads} threads, {lanes} "
-                f"lanes, at least {blocks} blocks an SM, {FACTOR_NAMES[factor]}")
+                f"lanes, at least {blocks} blocks an SM, {FACTOR_NAMES[factor]}"
+                + (", samples shared out" if share == "1" else ""))
     u = re.search(r"prox3d_thread_kernelILb([01])ELb([01])E", mangled)
     if u:
         return ("K4''b" if u.group(1) == "1" else "K4") + ", " + THREAD_NAMES["newton"][
@@ -641,6 +922,21 @@ def _ptxas(out: str):
     return rows
 
 
+def sass_counts(so: str):
+    """``{kernel: SASS instructions}`` of the 3D prox kernels in a built
+    library (``cuobjdump -sass`` of the toolkit)."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name = _kernel_name(func.split("\n", 1)[0])
+        if name:
+            counts[name] = sum(1 for line in func.split("\n")[1:]
+                               if re.match(r"\s*/\*[0-9a-f]{4,}\*/", line))
+    return counts
+
+
 def resident(lib, build):
     """``(blocks an SM, threads a block)`` of the kernel ``build`` ((chord,
     comp, f64)) of a loaded library."""
@@ -652,9 +948,12 @@ def resident(lib, build):
 
 # the builds that failed to build or to agree with the plain version
 FAILED = []
+# the step whose first prox call gives comp64's and chord_box64's later
+# inputs: the path runs that many steps on the shipped build first
+LATER_STEP = 5
 
 
-def build_all(builds, families):
+def build_all(builds, families, sass=False):
     jobs = {}
     os.makedirs(OUT, exist_ok=True)
     for i, (name, edit) in enumerate(builds.items()):
@@ -682,6 +981,9 @@ def build_all(builds, families):
         for kernel, regs, stack, st, ld, smem in _ptxas(out):
             print(f"  ptxas {kernel}: {regs} registers, {stack} bytes stack frame, {st} "
                   f"bytes spill stores, {ld} bytes spill loads, {smem} bytes shared", flush=True)
+        if sass:
+            for kernel, count in sass_counts(so).items():
+                print(f"  SASS {kernel}: {count} instructions", flush=True)
         lib = ctypes.CDLL(so)
         for fn, sig in P3._SIGNATURES.items():
             f = getattr(lib, fn, None)
@@ -730,6 +1032,21 @@ def cases(families):
             out[f"K4' float64 at 3D CompSquare-{n} float64 step 0"] = (
                 "chord64", C.stock_inputs(comp), None, comp, "mm_prox3d_chord_comp_f64",
                 P3.prox3d_chord_comp_plain)
+    for family, name, path, entry, plain in (
+            ("comp64", "K4''b", "3D CompSquare-{} float64", "mm_prox3d_comp_f64",
+             P3.prox3d_comp_plain),
+            ("chord_box64", "K4''a", "3D SquareGrid-{} float64", "mm_prox3d_chord_f64",
+             P3.prox3d_chord_plain)):
+        if family not in families:
+            continue
+        for n, steps in ((40, 0), (20, 0), (40, LATER_STEP)):
+            integ = C.f64_stock(f"{path.format(n)} {name}", n)[2]
+            state = integ.init_state()
+            for _ in range(steps):
+                state, _ = integ.step(state)
+            ehat = None if integ.mesh.comp_mesh else integ.mesh.ehat_np.reshape(-1)
+            out[f"{name} float64 at {path.format(n)} step {steps}"] = (
+                family, C.stock_inputs(integ, state), ehat, integ, entry, plain)
     if "chord" in families:
         for n in (40, 20):
             comp = C.comp_square(n)[2]
@@ -748,6 +1065,9 @@ def main() -> int:
         print("cuda_k4_variants: no CUDA device", file=sys.stderr)
         return 1
     families = [a for a in sys.argv[1:] if a in FAMILY_BUILDS] or list(FAMILY_BUILDS)
+    opts = dict(a[2:].split("=", 1) for a in sys.argv[1:] if a.startswith("--") and "=" in a)
+    interleave = int(opts.get("interleave", 0))
+    only = [w for w in opts.get("only", "").split("|") if w]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)}; {smi}; torch {torch.__version__}", flush=True)
@@ -755,8 +1075,11 @@ def main() -> int:
     if "newton" in families or "chord" in families:
         builds.update(THREAD_BUILD)
     for family in families:
-        builds.update(FAMILY_BUILDS[family])
-    libs = build_all(builds, families)
+        builds.update({name: b for name, b in FAMILY_BUILDS[family].items()
+                       if not only or PARENT in name or any(w in name for w in only)})
+    libs = build_all(builds, families, sass="--sass" in sys.argv[1:])
+    if SHIPPED in libs:  # the paths that cases() runs take the shipped build made here
+        cuda_build._loaded.setdefault("prox3d", libs[SHIPPED])
     for label, (family, inputs, ehat, integ, entry, plain) in cases(families).items():
         z, n = inputs[0], inputs[0].shape[1]
         comp_mesh = ehat is None
@@ -769,9 +1092,12 @@ def main() -> int:
         eh_ptr = inputs[4].data_ptr() if comp_mesh else None
         order = [v for v in (*THREAD_NAMES.get(family, {}), SHIPPED, *FAMILY_BUILDS[family])
                  if isinstance(v, int) or v in libs]
-        times, differ = {v: [] for v in order}, {}
-        for v in order + order[::-1]:
+        times, differ, outs = {v: [] for v in order}, {}, {}
+
+        def launcher(v):
+            """One launch of variant ``v`` into its own outputs."""
             zo, ih = torch.empty_like(z), torch.empty(n, dtype=z.dtype, device=z.device)
+            outs[v] = (zo, ih)
             if isinstance(v, int):
                 def call(design=v):
                     return libs["thread"].mm_prox3d_thread(
@@ -784,19 +1110,42 @@ def main() -> int:
                                                integ.prox_max_iters,
                                                torch.cuda.current_stream().cuda_stream)
 
-            def checked(call=call, v=v):
+            def checked():
                 rc = call()
                 if rc != 0:
                     raise RuntimeError(f"{label}, {v}: CUDA error {rc}")
+            return checked
 
-            times[v].append(C.time_kernel(checked))
-            if not (torch.equal(zo, zp) and torch.equal(ih, ihp)):
+        launch = {v: launcher(v) for v in order}
+        if interleave:  # one launch of each variant a sweep, the order turned every sweep
+            for v in order:
+                launch[v]()
+            for i in range(interleave):
+                for v in order if i % 2 == 0 else order[::-1]:
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    launch[v]()
+                    b.record()
+                    b.synchronize()
+                    times[v].append(a.elapsed_time(b))
+        else:
+            for v in order + order[::-1]:
+                times[v].append(C.time_kernel(launch[v]))
+        for v in order:
+            if not (torch.equal(outs[v][0], zp) and torch.equal(outs[v][1], ihp)):
                 differ[v] = True
         print(f"{label} ({n} slots), each variant against the plain version:", flush=True)
         for v in order:
             name = THREAD_NAMES.get(family, {}).get(v, v)
-            print(f"  {name}: {' and '.join(f'{t:.4f}' for t in times[v])} ms"
-                  + (", NOT bit-equal" if differ.get(v) else ", bit-equal"), flush=True)
+            if interleave:
+                q = statistics.quantiles(times[v], n=4)
+                shown = (f"median {statistics.median(times[v]):.4f} ms of {interleave} launches "
+                         f"(quartiles {q[0]:.4f}, {q[2]:.4f})")
+            else:
+                shown = f"{' and '.join(f'{t:.4f}' for t in times[v])} ms"
+            print(f"  {name}: {shown}" + (", NOT bit-equal" if differ.get(v) else ", bit-equal"),
+                  flush=True)
         FAILED.extend(f"{label}, {v}" for v in differ)
     if FAILED:
         print(f"failed: {FAILED}", flush=True)

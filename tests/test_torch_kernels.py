@@ -788,30 +788,33 @@ def test_float64_stock_paths_launch_their_float64_kernel(variant):
     assert trace[steps - 1] < trace[0]
 
 
-# The float64 K4 and K4' (``mm_prox3d_f64``, ``mm_prox3d_chord_comp_f64``)
-# at their block edges, bit for bit against their plain versions: a block of
-# E elements (E from the built library's layout, ``prox3d.layout``) cut 1,
-# E - 1 and E + 1 columns in, one block of carved slots only (free all 0;
-# the stock engine's CompSquare has none, so there the first block's free
-# is set to 0) and at most 1 sweep; each one launch, counted in
+# The float64 builds of prox3d.cu (``mm_prox3d_f64``,
+# ``mm_prox3d_chord_comp_f64``, ``mm_prox3d_chord_f64``,
+# ``mm_prox3d_comp_f64``) at their block edges, bit for bit against their
+# plain versions: a block of E elements (E from the built library's layout,
+# ``prox3d.layout``) cut 1, E - 1 and E + 1 columns in, one block of carved
+# slots only (free all 0; where the inputs have too few, the first block's
+# free is set to 0) and at most 1 sweep; each one launch, counted in
 # ``launches_f64``. K4 on 3D Shoulder nx=8 in float64 (its carved slots),
-# K4' on the stock engine's float64 CompSquare nx=4.
+# K4', K4''a and K4''b on their stock-engine float64 inputs at nx=4
+# (``_k4_64``).
 K4_64_EDGES = ["n=1", "n=E-1", "n=E+1", "carved block", "max_iters=1"]
+K4_64_ENTRIES = {"K4": "mm_prox3d_f64", "K4'": "mm_prox3d_chord_comp_f64",
+                 "K4''a": "mm_prox3d_chord_f64", "K4''b": "mm_prox3d_comp_f64"}
 
 
 @pytest.mark.parametrize("case", K4_64_EDGES)
-@pytest.mark.parametrize("variant", ["K4", "K4'"])
+@pytest.mark.parametrize("variant", list(K4_64_ENTRIES))
 def test_k4_k4c_f64_block_edges_bit_equal_to_plain(variant, case):
     _card()
     if variant == "K4":
         _, integ = build_problem(ExperimentConfig(
             test_type="Shoulder", dim=3, mon_type=0, nx=8, ny=8, nz=8, dtype="float64"))
         inputs, args = _inputs(integ)
-        kernel, plain, entry = P3.prox3d, P3.prox3d_plain, "mm_prox3d_f64"
+        kernel, plain = P3.prox3d, P3.prox3d_plain
     else:
-        _, kernel, plain, inputs, args = _k4_64("K4'")
-        entry = "mm_prox3d_chord_comp_f64"
-    _, threads, lanes = P3.layout(entry)
+        _, kernel, plain, inputs, args = _k4_64(variant)
+    _, threads, lanes = P3.layout(K4_64_ENTRIES[variant])
     e = threads // lanes
     args = list(args)
     if case == "max_iters=1":
