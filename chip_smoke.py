@@ -20,9 +20,10 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    through the stock engine's element-major entry on Monitor3320r's
    (265,004 triangles), K4''a and K4''b on the stock engine's step-0
    inputs of 3D SquareGrid and CompSquare at nx=4, nx=20 and, in their
-   main paths, nx=40 (768,000 tets); K4, K4' and K4'' bit for bit; and
-   the float64 builds of K1, K2 and K3 on the step-0 inputs of
-   Shoulder-320 in float64, of K4 on those of 3D Shoulder-40 and 3D
+   main paths, nx=40 (768,000 tets); K2, K3, K4, K4' and K4'' bit for
+   bit; and the float64 builds of K1, K2 and K3 on the step-0 inputs of
+   Shoulder-320 in float64 (K2 and K3 also at Shoulder nx=16), of K4 on
+   those of 3D Shoulder-40 and 3D
    SquareGrid-40 in float64, and of K4', K4''a and K4''b on the float64
    kernel route's at nx=4 and (in their paths) at CompSquare-20/-40 and
    SquareGrid-40, each bit for bit;
@@ -79,8 +80,11 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    CompSquare-20's step 1 within rtol 1e-7, the ADMM counts printed beside
    the JAX package's), and card against CPU on that route at nx=4 (rtol
    1e-10, the same ADMM counts);
-5. timing: each kernel alone (median of 20 launches, CUDA events), its
-   plain version once, and its bound (float64 rows: 8-byte values, the
+5. timing: each kernel alone as a call of its wrapper (median of 20
+   single calls between CUDA events: what a path pays, the wrapper's host
+   work included) and as a launch of its bare C entry into the same
+   outputs (median of 5 runs of 20 back-to-back launches: its device
+   time), its plain version once, and its bound (float64 rows: 8-byte values, the
    float64 operation rate); one JSON line ``{"kernels": [...]}`` (K4' on
    CompSquare-40's step-0 inputs, and on CompSquare-20's on a line of its
    own, in each dtype; K4's bound at 3D SquareGrid-40's step-0 inputs on a
@@ -514,10 +518,11 @@ def compare4pp(label, integ, variant):
 
 
 def compare_be(label, z, cells, ehat):
-    """K2 and K3 against their plain versions. Bands of
-    tests/test_torch_be2d.py: ih within rtol 2e-5; g and the 21 Hessian
-    channels within rtol 1e-4 and atol 1e-6 of the slot's largest entry.
-    Returns ``(K2 max abs error, K3 max abs error)``."""
+    """K2 and K3 against their plain versions, bit for bit (``torch.equal``
+    on g, ih and H), after the bands of tests/test_torch_be2d.py: ih within
+    rtol 2e-5; g and the 21 Hessian channels within rtol 1e-4 and atol 1e-6
+    of the slot's largest entry. Returns ``(K2 max abs error, K3 max abs
+    error)``."""
     from mmadmm_tpu_torch.ops import be2d as B
 
     gk, ihk = B.eg2d(z, cells, ehat)
@@ -533,6 +538,8 @@ def compare_be(label, z, cells, ehat):
     say(f"{label}: {z.shape[1]} slots; within bands; K2 max |ih err| {err_ih:.3e}, "
         f"max |g err| {err_g:.3e}, bit-equal {100 * same_eg:.2f}% of slots; "
         f"K3 max |H err| {err_h:.3e}, bit-equal {100 * same_h:.2f}% of slots")
+    if not (torch.equal(gk, gp) and torch.equal(ihk, ihp) and torch.equal(Hk, Hp)):
+        raise AssertionError(f"{label}: K2 or K3 not bit-equal to its plain version")
     return max(err_ih, err_g), err_h
 
 
@@ -573,12 +580,81 @@ def time_kernel(fn, n=20):
     return statistics.median(times)
 
 
+def time_launches(fn, n=20):
+    """ms a launch over one run of ``n`` back-to-back calls of ``fn``
+    between two CUDA events: where a call's host work is shorter than its
+    kernel, the kernels follow each other and the host does not show."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def bare_entry(ops, call):
+    """``(out, launch)``: ``call()``'s result, and a function that repeats
+    the one C entry of the op module ``ops`` that ``call`` made, with the
+    same arguments and into the same outputs, without the wrapper's checks,
+    allocations, conversions or count. The entries are those ``ops`` binds
+    (its ``_SIGNATURES``), looked up by name on its library."""
+    lib, made = ops.library(), []
+
+    def recorder(fn):
+        def record(*args):
+            made.append((fn, args))
+            return fn(*args)
+        return record
+
+    saved = {name: getattr(lib, name) for name in ops._SIGNATURES}
+    for name, fn in saved.items():
+        setattr(lib, name, recorder(fn))
+    try:
+        out = call()
+    finally:
+        for name, fn in saved.items():
+            setattr(lib, name, fn)
+    if len(made) != 1:
+        raise AssertionError(f"the wrapper made {len(made)} C calls, not 1")
+    fn, args = made[0]
+
+    def launch():
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
+    return out, launch
+
+
+def time_bare(ops, call, runs=5):
+    """The median, over ``runs`` runs, of the ms a launch of the C entry
+    that ``call`` makes, in runs of 20 back-to-back launches into
+    preallocated outputs (``bare_entry``, ``time_launches``)."""
+    _, launch = bare_entry(ops, call)
+    launch()
+    torch.cuda.synchronize()
+    return statistics.median(time_launches(launch) for _ in range(runs))
+
+
+def times(ops, call):
+    """``(ms a call of the wrapper, ms a launch of its C entry)``:
+    ``time_kernel(call)``, and ``time_bare`` of the C entry of the op module
+    ``ops`` that ``call`` makes."""
+    return time_kernel(call), time_bare(ops, call)
+
+
 def time_plain(fn):
     torch.cuda.synchronize()
     t = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t)
+
+
+def shown(t):
+    """``times(...)`` as a row's line prints it."""
+    return (f"{t[0]:.4f} ms a call of the wrapper (median of 20 calls), {t[1]:.4f} ms a launch "
+            f"of its C entry (median of 5 runs of 20 back-to-back launches)")
 
 
 def bound(fn, n_floats, f64=False):
@@ -1003,6 +1079,11 @@ def main() -> int:
     # stencil engines' step-0 inputs, at nx=16 / nx=4 and on the main paths'
     compare_f64("K1 float64 vs plain, Shoulder nx=16", P.prox2d, P.prox2d_plain,
                 *prox_call(shoulder(16, dtype="float64")[2]))
+    zs64, cs64, ehs64 = be_inputs(shoulder(16, 1, dtype="float64")[2])
+    compare_f64("K2 float64 vs plain, Shoulder nx=16", B.eg2d, B.eg2d_plain, (zs64, cs64),
+                (ehs64,))
+    compare_f64("K3 float64 vs plain, Shoulder nx=16", B.hess2d, B.hess2d_plain, (zs64, cs64),
+                (ehs64,))
     compare_f64("K4 float64 vs plain, 3D SquareGrid nx=4", P3.prox3d, P3.prox3d_plain,
                 *prox_call(box3d("SquareGrid", 1, 4, dtype="float64")[2]))
     # the float64 builds of K4', K4''a and K4''b on the float64 kernel
@@ -1222,20 +1303,23 @@ def main() -> int:
     stats = {}
     rows = []
 
-    def row(name, source, replaces, launches, err, ms, plain_ms, b, f64=False):
+    def row(name, source, replaces, launches, err, t, plain_ms, b, f64=False):
+        """A kernel's row; ``t`` is ``times(...)``: ``ms`` a call through
+        the wrapper, as a path pays it, ``device_ms`` a launch of the bare C
+        entry."""
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "launches": launches, "max_abs_err": err, "ms": t[0], "device_ms": t[1],
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
         })
-        say(f"{name}: {ms:.4f} ms (median of 20); plain {plain_ms:.1f} ms; bound "
-            f"{b[0]:.4f} ms by {b[1]} ({b[2]:.4e} operations at "
-            f"{'33.5' if f64 else '67'} TFLOP/s, {b[3]} bytes at 3.35 TB/s)")
+        say(f"{name}: {shown(t)}; plain {plain_ms:.1f} ms; bound {b[0]:.4f} ms by {b[1]} "
+            f"({b[2]:.4e} operations at {'33.5' if f64 else '67'} TFLOP/s, {b[3]} bytes at "
+            f"3.35 TB/s), the C entry at {100 * b[0] / t[1]:.1f} % of it")
 
     n = z.shape[1]
     row("prox2d", "mmadmm_tpu_torch/csrc/prox2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:573",
         launched["prox2d"] + launched_s["Monitor3320r"]["prox2d"], k1_err,
-        time_kernel(lambda: P.prox2d(z, dxpu, free, cells, *args)),
+        times(P, lambda: P.prox2d(z, dxpu, free, cells, *args)),
         time_plain(lambda: P.prox2d_plain(z, dxpu, free, cells, *args)),
         bound(lambda: P.prox2d_plain(z, dxpu, free, cells, *args, stats=stats),
               n * (6 + 6 + 6 + 48 + 6 + 1)))
@@ -1243,20 +1327,23 @@ def main() -> int:
     zb, cb, eh = be_in
     row("eg2d", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:501",
         launched_e["eg2d"] + launched_b["eg2d"], k2_err,
-        time_kernel(lambda: B.eg2d(zb, cb, eh)), time_plain(lambda: B.eg2d_plain(zb, cb, eh)),
+        times(B, lambda: B.eg2d(zb, cb, eh)),
+        time_plain(lambda: B.eg2d_plain(zb, cb, eh)),
         bound(lambda: B.eg2d_plain(zb, cb, eh), n * (6 + 48 + 6 + 1)))
+    say(f"K3 launches with the block {B.hess_block(torch.float32)} in float32, "
+        f"{B.hess_block(torch.float64)} in float64")
     row("hess2d", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:514",
         launched_b["hess2d"], k3_err,
-        time_kernel(lambda: B.hess2d(zb, cb, eh)),
+        times(B, lambda: B.hess2d(zb, cb, eh)),
         time_plain(lambda: B.hess2d_plain(zb, cb, eh)),
         bound(lambda: B.hess2d_plain(zb, cb, eh), n * (6 + 48 + 21)))
     ptimes = {}
     per_elem4 = 12 + 12 + 12 + 216 + 12 + 1
     for label, (_, integ3, err, (z3, d3, f3, c3)) in box.items():
         a3 = (integ3.mesh.ehat_np.reshape(-1), integ3.w, integ3.prox_tol, integ3.prox_max_iters)
-        ptimes[label] = (err, time_kernel(lambda: P3.prox3d(z3, d3, f3, c3, *a3)),
+        ptimes[label] = (err, times(P3, lambda: P3.prox3d(z3, d3, f3, c3, *a3)),
                          time_plain(lambda: P3.prox3d_plain(z3, d3, f3, c3, *a3)))
-        say(f"K4 at {label} step 0: {ptimes[label][1]:.4f} ms (median of 20); plain "
+        say(f"K4 at {label} step 0: {shown(ptimes[label][1])}; plain "
             f"{ptimes[label][2]:.1f} ms")
     # K4's bound at 3D SquareGrid-40 step 0 (its row is Shoulder-40's)
     _, integ3, _, (z3, d3, f3, c3) = box["3D SquareGrid-40"]
@@ -1281,24 +1368,24 @@ def main() -> int:
     m_args = (m_integ.mesh.ehat_np.reshape(-1), m_integ.w, m_integ.prox_tol,
               m_integ.prox_max_iters)
     stats_m = {}
-    m_ms = time_kernel(lambda: P.prox2d(*m_in, *m_args))
+    m_ms = times(P, lambda: P.prox2d(*m_in, *m_args))
     m_plain = time_plain(lambda: P.prox2d_plain(*m_in, *m_args))
     m_bound = bound(lambda: P.prox2d_plain(*m_in, *m_args, stats=stats_m),
                     m_in[0].shape[1] * (6 + 6 + 6 + 48 + 6 + 1))
-    say(f"K1 at Monitor3320r step 0 ({m_in[0].shape[1]} triangles): {m_ms:.4f} ms (median of "
-        f"20); plain {m_plain:.1f} ms; bound {m_bound[0]:.4f} ms by {m_bound[1]} "
+    say(f"K1 at Monitor3320r step 0 ({m_in[0].shape[1]} triangles): {shown(m_ms)}; plain "
+        f"{m_plain:.1f} ms; bound {m_bound[0]:.4f} ms by {m_bound[1]} "
         f"({m_bound[2]:.4e} operations, {m_bound[3]} bytes); {work(stats_m)}")
     # K4' on CompSquare-20's step-0 inputs, then its row on CompSquare-40's
     per_elem4c = 12 + 12 + 12 + 216 + 9 + 12 + 1
     i20, _, c20 = stock["3D CompSquare-20"][1:]
     a20 = (i20.w, i20.prox_tol, i20.prox_max_iters)
     stats20 = {}
-    ms20 = time_kernel(lambda: P3.prox3d_chord_comp(*c20, *a20))
+    ms20 = times(P3, lambda: P3.prox3d_chord_comp(*c20, *a20))
     plain20 = time_plain(lambda: P3.prox3d_chord_comp_plain(*c20, *a20))
     b20 = bound(lambda: P3.prox3d_chord_comp_plain(*c20, *a20, stats=stats20),
                 c20[0].shape[1] * per_elem4c)
-    say(f"K4' at 3D CompSquare-20 step 0 ({c20[0].shape[1]} tets): {ms20:.4f} ms (median of "
-        f"20); plain {plain20:.1f} ms; bound {b20[0]:.4f} ms by {b20[1]} ({b20[2]:.4e} "
+    say(f"K4' at 3D CompSquare-20 step 0 ({c20[0].shape[1]} tets): {shown(ms20)}; plain "
+        f"{plain20:.1f} ms; bound {b20[0]:.4f} ms by {b20[1]} ({b20[2]:.4e} "
         f"operations, {b20[3]} bytes); {work(stats20)}")
     i40, err40, c40 = stock["3D CompSquare-40"][1:]
     a40 = (i40.w, i40.prox_tol, i40.prox_max_iters)
@@ -1306,7 +1393,7 @@ def main() -> int:
     row("prox3d_chord_comp", "mmadmm_tpu_torch/csrc/prox3d.cu",
         "mmadmm_tpu/ops/prox_pallas3d.py:418",
         sum(launched_s[k]["prox3d_chord_comp"] for k in ("3D CompSquare-20", "3D CompSquare-40")),
-        err40, time_kernel(lambda: P3.prox3d_chord_comp(*c40, *a40)),
+        err40, times(P3, lambda: P3.prox3d_chord_comp(*c40, *a40)),
         time_plain(lambda: P3.prox3d_chord_comp_plain(*c40, *a40)),
         bound(lambda: P3.prox3d_chord_comp_plain(*c40, *a40, stats=stats4),
               c40[0].shape[1] * per_elem4c))
@@ -1317,7 +1404,8 @@ def main() -> int:
         stats_p = {}
         per_elem = 12 + 12 + 12 + 216 + (9 if name == "prox3d_comp" else 0) + 12 + 1
         row(name, "mmadmm_tpu_torch/csrc/prox3d.cu", "mmadmm_tpu/ops/prox_pallas3d.py:418",
-            launched_k[label][name], err, time_kernel(lambda: kernel(*inputs_p, *args_p)),
+            launched_k[label][name], err,
+            times(P3, lambda: kernel(*inputs_p, *args_p)),
             time_plain(lambda: plain(*inputs_p, *args_p)),
             bound(lambda: plain(*inputs_p, *args_p, stats=stats_p),
                   inputs_p[0].shape[1] * per_elem))
@@ -1329,32 +1417,32 @@ def main() -> int:
     stats = {}
     row("prox2d_f64", "mmadmm_tpu_torch/csrc/prox2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:573",
         launched64["MM-ADMM float64"]["prox2d_f64"], k1_64_err,
-        time_kernel(lambda: P.prox2d(z64, d64, f64_, c64, *a64)),
+        times(P, lambda: P.prox2d(z64, d64, f64_, c64, *a64)),
         time_plain(lambda: P.prox2d_plain(z64, d64, f64_, c64, *a64)),
         bound(lambda: P.prox2d_plain(z64, d64, f64_, c64, *a64, stats=stats),
               z64.shape[1] * (6 + 6 + 6 + 48 + 6 + 1), f64=True), f64=True)
     k1_work("K1 float64 step-0 work at Shoulder-320 float64", k1_64[0], a64, stats)
     row("eg2d_f64", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:501",
         launched64["Euler float64"]["eg2d_f64"] + launched64["backward Euler float64"]["eg2d_f64"],
-        k2_64_err, time_kernel(lambda: B.eg2d(zb64, cb64, eh64)),
+        k2_64_err, times(B, lambda: B.eg2d(zb64, cb64, eh64)),
         time_plain(lambda: B.eg2d_plain(zb64, cb64, eh64)),
         bound(lambda: B.eg2d_plain(zb64, cb64, eh64), zb64.shape[1] * (6 + 48 + 6 + 1),
               f64=True), f64=True)
     row("hess2d_f64", "mmadmm_tpu_torch/csrc/be2d.cu", "mmadmm_tpu/ops/prox_pallas2d.py:514",
         launched64["backward Euler float64"]["hess2d_f64"], k3_64_err,
-        time_kernel(lambda: B.hess2d(zb64, cb64, eh64)),
+        times(B, lambda: B.hess2d(zb64, cb64, eh64)),
         time_plain(lambda: B.hess2d_plain(zb64, cb64, eh64)),
         bound(lambda: B.hess2d_plain(zb64, cb64, eh64), zb64.shape[1] * (6 + 48 + 21),
               f64=True), f64=True)
     for label in ("3D SquareGrid-40 float64", "3D Shoulder-40 float64"):
         (inp, a4), err, plain_s = k4_64[label]
-        ms = time_kernel(lambda: P3.prox3d(*inp, *a4))
+        ms = times(P3, lambda: P3.prox3d(*inp, *a4))
         if label == "3D SquareGrid-40 float64":
             stats_sq = {}
             b_sq = bound(lambda: P3.prox3d_plain(*inp, *a4, stats=stats_sq),
                          inp[0].shape[1] * per_elem4, f64=True)
-            say(f"K4 float64 at {label} step 0: {ms:.4f} ms (median of 20); plain "
-                f"{1e3 * plain_s:.1f} ms; bound {b_sq[0]:.4f} ms by {b_sq[1]} ({b_sq[2]:.4e} "
+            say(f"K4 float64 at {label} step 0: {shown(ms)}; plain {1e3 * plain_s:.1f} ms; "
+                f"bound {b_sq[0]:.4f} ms by {b_sq[1]} ({b_sq[2]:.4e} "
                 f"operations at 33.5 TFLOP/s, {b_sq[3]} bytes at 3.35 TB/s); {work(stats_sq)}")
             continue
         stats64 = {}
@@ -1370,14 +1458,14 @@ def main() -> int:
     # a line of its own, each row on its -40 path's
     for label, (name, (inp, a4), err, plain_s) in k4_64s.items():
         kernel, plain = _wrappers()[name], getattr(P3, f"{name}_plain")
-        ms = time_kernel(lambda: kernel(*inp, *a4))
+        ms = times(P3, lambda: kernel(*inp, *a4))
         stats_p = {}
         per_elem = 12 + 12 + 12 + 216 + (0 if name == "prox3d_chord" else 9) + 12 + 1
         if "-20" in label:
             b = bound(lambda: plain(*inp, *a4, stats=stats_p), inp[0].shape[1] * per_elem,
                       f64=True)
-            say(f"{name} float64 at {label} step 0 ({inp[0].shape[1]} tets): {ms:.4f} ms (median "
-                f"of 20); plain {1e3 * plain_s:.1f} ms; bound {b[0]:.4f} ms by {b[1]} "
+            say(f"{name} float64 at {label} step 0 ({inp[0].shape[1]} tets): {shown(ms)}; plain "
+                f"{1e3 * plain_s:.1f} ms; bound {b[0]:.4f} ms by {b[1]} "
                 f"({b[2]:.4e} operations at 33.5 TFLOP/s, {b[3]} bytes at 3.35 TB/s); "
                 f"{work(stats_p)}")
             continue

@@ -64,11 +64,9 @@ struct Common {
   T tr, det_m, det_fj, G, abs_k, sqrt_tr, sqrt_dfj, inv_sqrt_dm;
 };
 
-template <typename T, typename C, typename R>
-__device__ __forceinline__ void common(const T* z, C cells, const Consts<R>& k,
-                                       Common<T>& t) {
-#pragma unroll
-  for (int v = 0; v < 3; ++v) sample_m(cells + 16 * v, z[2 * v], z[2 * v + 1], t.m[v][0], t.m[v][1], t.m[v][2]);
+// the terms after the monitor samples, from the samples in t.m (see common)
+template <typename T, typename R>
+__device__ __forceinline__ void common_tail(const T* z, const Consts<R>& k, Common<T>& t) {
   T ms00 = t.m[0][0] + t.m[1][0] + t.m[2][0];
   T ms01 = t.m[0][1] + t.m[1][1] + t.m[2][1];
   T ms11 = t.m[0][2] + t.m[1][2] + t.m[2][2];
@@ -114,6 +112,15 @@ __device__ __forceinline__ void common(const T* z, C cells, const Consts<R>& k,
   t.abs_k = abs_(edet * R(0.5));
 }
 
+template <typename T, typename C, typename R>
+__device__ __forceinline__ void common(const T* z, C cells, const Consts<R>& k,
+                                       Common<T>& t) {
+#pragma unroll
+  for (int v = 0; v < 3; ++v)
+    sample_m(cells + 16 * v, z[2 * v], z[2 * v + 1], t.m[v][0], t.m[v][1], t.m[v][2]);
+  common_tail(z, k, t);
+}
+
 // (ih_unregularized, e_regularized) at z
 template <typename C, typename R>
 __device__ __forceinline__ void energy(const R* z, C cells, const R* dxpu,
@@ -133,13 +140,9 @@ __device__ __forceinline__ R energy_unreg(const R* z, C cells, const Consts<R>& 
   return t.abs_k * t.G;
 }
 
-// masked regularized gradient into g, the unregularized energy into ih;
-// returns e_reg
-template <typename T, typename C, typename R>
-__device__ __forceinline__ T grad(const T* z, C cells, const R* dxpu, const R* fr,
-                                  const Consts<R>& k, T* g, T& ih) {
-  Common<T> t;
-  common(z, cells, k, t);
+// the unregularized, unmasked gradient at the point of t into raw
+template <typename T, typename R = real_t<T>>
+__device__ __forceinline__ void raw_grad(const Common<T>& t, T* raw) {
   T s_j = t.det_m * t.sqrt_tr;
   T dj00 = s_j * t.mj00;
   T dj01 = s_j * t.mj01;
@@ -185,8 +188,24 @@ __device__ __forceinline__ T grad(const T* z, C cells, const R* dxpu, const R* f
   T g0x = v00 + v10 + bc0;
   T g0y = v01 + v11 + bc1;
   T abs_k = t.abs_k;
-  T raw[6] = {g0x * abs_k, g0y * abs_k, -v00 * abs_k, -v01 * abs_k, -v10 * abs_k, -v11 * abs_k};
-  ih = abs_k * t.G;
+  raw[0] = g0x * abs_k;
+  raw[1] = g0y * abs_k;
+  raw[2] = -v00 * abs_k;
+  raw[3] = -v01 * abs_k;
+  raw[4] = -v10 * abs_k;
+  raw[5] = -v11 * abs_k;
+}
+
+// masked regularized gradient into g, the unregularized energy into ih;
+// returns e_reg
+template <typename T, typename C, typename R>
+__device__ __forceinline__ T grad(const T* z, C cells, const R* dxpu, const R* fr,
+                                  const Consts<R>& k, T* g, T& ih) {
+  Common<T> t;
+  common(z, cells, k, t);
+  T raw[6];
+  raw_grad(t, raw);
+  ih = t.abs_k * t.G;
   T reg = (dxpu[0] - z[0]) * (dxpu[0] - z[0]);
   for (int i = 1; i < 6; ++i) reg = reg + (dxpu[i] - z[i]) * (dxpu[i] - z[i]);
   T e_reg = ih + k.half_w2 * reg;

@@ -108,6 +108,8 @@ hess2d.launches = hess2d.launches_f64 = 0
 
 _P, _N, _F, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
+    # mm_hess2d_block(f64, shape): K3's block in float (0) or double
+    "mm_hess2d_block": ([ctypes.c_int, ctypes.POINTER(ctypes.c_int)], None),
     # mm_eg2d(z, cells, g, ih, n, h00, h01, h10, h11, stream), Ehat in float;
     # mm_eg2d_f64 the same with double
     "mm_eg2d": ([_P] * 4 + [_N] + [_F] * 4 + [_P], ctypes.c_int),
@@ -121,3 +123,12 @@ _SIGNATURES = {
 def library() -> ctypes.CDLL:
     """K2's and K3's library, built from ``csrc/be2d.cu`` at first use."""
     return load_library("be2d", _SIGNATURES)
+
+
+def hess_block(dtype) -> dict:
+    """The block K3 launches with in ``dtype`` (float32 or float64), from
+    the built library: ``elements`` and ``threads`` (one thread an
+    element)."""
+    shape = (ctypes.c_int * 2)()
+    library().mm_hess2d_block(int(dtype == torch.float64), shape)
+    return dict(zip(("elements", "threads"), shape))

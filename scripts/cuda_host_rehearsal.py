@@ -2,15 +2,20 @@
 PyTorch versions, in float32 and in float64, as the card builds them: a
 rehearsal of their arithmetic where there is no card and no ``nvcc``.
 
-    python scripts/cuda_host_rehearsal.py
+    python scripts/cuda_host_rehearsal.py [prox2d] [be2d] [prox3d]
 
-Compiles ``mmadmm_tpu_torch/csrc/prox2d.cu``, ``be2d.cu`` and
-``prox3d.cu`` with ``g++ -ffp-contract=off`` (no fused multiply-add, as
-``nvcc --fmad=false``) against a stub ``cuda_runtime.h`` that defines
+Naming sources runs only their kernels (all three by default). Compiles
+``mmadmm_tpu_torch/csrc/prox2d.cu``, ``be2d.cu`` and ``prox3d.cu`` with
+``g++ -ffp-contract=off`` (no fused multiply-add, as ``nvcc
+--fmad=false``) against a stub ``cuda_runtime.h`` that defines
 ``__device__``, ``__ldg``, ``threadIdx`` and the like as host code, into a
 temporary directory, each kernel through one ``extern "C"`` entry per real
-type. The one-thread-per-element kernels K2 and K3 are called once per
-element, one after another. The kernels where a group of lanes shares an
+type. K2 and the six-pass K3 that ``scripts/cuda_k3_variants.py``
+generates (``PARENT_KERNEL``) are called once per element, one after
+another; K3 as shipped, and in every layout of that script's ``LAYOUTS``
+(one library each) a block at a time with one host thread per lane, at
+all columns and at 1, E - 1, E and E + 1 (E the layout's elements a
+block). The kernels where a group of lanes shares an
 element run a block at a time with one host thread per lane
 (``threadIdx`` is thread-local), ``__syncthreads``, ``__syncwarp`` and
 ``__ballot_sync`` being host barriers over the block or the mask's lanes,
@@ -67,6 +72,7 @@ sys.path.insert(0, os.getcwd())
 sys.path.insert(0, os.path.join(os.getcwd(), "scripts"))
 
 import cuda_k1_variants as K1V  # noqa: E402
+import cuda_k3_variants as K3V  # noqa: E402
 import cuda_k4_variants as K4V  # noqa: E402
 
 from mmadmm_tpu_torch import ExperimentConfig, build_problem  # noqa: E402
@@ -88,6 +94,7 @@ STUB = """#pragma once
 #include <tuple>
 #include <utility>
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
@@ -240,17 +247,46 @@ int host_prox2d(int gnu, const R* z, const R* dxpu, const R* fr, const R* cells,
 }
 """,
     "be2d": """
-// K2 (hess 0) or K3 (hess 1): out is g [6, n] then ih [n], or H [21, n]
+#include <thread>
+#include <vector>
+
+// a kernel of kT threads a block over the blocks of kE elements, one host
+// thread per lane
+template <int kT, int kE, typename F>
+int host_blocks(long long n, F kernel) {
+  blockDim.x = kT;
+  for (long long b = 0; b * kE < n; ++b) {
+    blockIdx.x = b;
+    std::vector<std::thread> lanes;
+    for (unsigned t = 0; t < (unsigned)kT; ++t)
+      lanes.emplace_back([=] {
+        threadIdx.x = t;
+        kernel();
+      });
+    for (auto& l : lanes) l.join();
+  }
+  return 0;
+}
+
+// code 0: K2 (out is g [6, n] then ih [n]); 1: K3 as shipped (out is
+// H [21, n]); 2: the six-pass K3 of scripts/cuda_k3_variants.py
+// (PARENT_KERNEL), in the unit that has it; 3: K3 in the layout of that
+// script's LAYOUT_KERNEL that the unit builds
 template <typename R>
-int host_be2d(int hess, const R* z, const R* cells, R* out, long long n, const R* c) {
+int host_be2d(int code, const R* z, const R* cells, R* out, long long n, const R* c) {
   Consts<R> k{c[0], c[1], c[2], c[3], R(0), R(0), R(0), R(0)};
+  constexpr int kE = kK3Threads<R>;
+  if (code == 1)
+    return host_blocks<kE, kE>(n, [=] { hess2d_kernel<R>(z, cells, out, n, k); });
+  if (code == 3) LAYOUT_CALL;
+  if (code != 0 && code != 2) return 1;
   blockDim.x = 128;
   for (long long e = 0; e < n; ++e) {
     blockIdx.x = e / 128; threadIdx.x = e % 128;
-    if (hess)
-      hess2d_kernel<R>(z, cells, out, n, k);
-    else
+    if (code == 0)
       eg2d_kernel<R>(z, cells, out, out + 6 * n, n, k);
+    else
+      PARENT_CALL;
   }
   return 0;
 }
@@ -406,15 +442,58 @@ def _kernels_only(src):
     return src[:src.index("}  // namespace\n") + len("}  // namespace\n")]
 
 
+# K3 in a unit's layout of the variant timer (host_be2d's code 3)
+LAYOUT_CALL = """{
+    using D = k3layout::Layout<R>;
+    return host_blocks<D::kThreads, D::kE>(
+        n, [=] { k3layout::hess2d_kernel<R, D>(z, cells, out, n, k); });
+  }"""
+
+
+def unit_be2d(label):
+    """The host library of K3 in the layout ``label`` of
+    ``scripts/cuda_k3_variants.py``."""
+    return f"be2d {label}"
+
+
+def elements(layout):
+    """Elements a block of a K3 layout, ``HessLayout<threads, G, ...>``."""
+    threads, g = (int(v) for v in re.match(r"HessLayout<(\d+), (\d+),", layout).groups())
+    return threads // 32 * (32 // g)
+
+
+def k3_elements(lib, f64):
+    """Elements a block of K3 as shipped, from the host library's
+    ``mm_hess2d_block``."""
+    shape = (ctypes.c_int * 2)()
+    lib.mm_hess2d_block(int(f64), shape)
+    return shape[0]
+
+
+def be2d_runs(f64, lib):
+    """``[(library, code, label, elements)]`` of the K2 and K3 runs: K2, K3
+    as shipped (``lib`` the host library that has it), the six-pass K3, then
+    K3 in every layout of the variant timer (``elements`` a block, None
+    where the kernel is one thread an element of 128 with no block of its
+    own)."""
+    return ([("be2d", 0, "K2 eg2d", None),
+             ("be2d", 1, "K3 hess2d as shipped", k3_elements(lib, f64)),
+             ("be2d", 2, "K3 hess2d, " + K3V.PARENT, None)]
+            + [(unit_be2d(label), 3, f"K3 hess2d, {label}", elements(K3V.LAYOUTS[label][f64]))
+               for label in K3V.LAYOUTS])
+
+
 def unit3d(entry, real, i):
     """The host library of a 3D entry's ``i``-th group of variants."""
     return f"prox3d {entry} {real} {i}"
 
 
-def build(tmp: str) -> dict:
-    """The host libraries, compiled together: prox2d and be2d one each;
-    prox3d one per 3D entry, real type and text edits of its variants
-    (``unit3d``), each with its kernels only."""
+def build(tmp: str, only) -> dict:
+    """The host libraries of the sources in ``only``, compiled together:
+    prox2d one; be2d one for K2, K3 as shipped and the six-pass K3, and one
+    per K3 layout of the variant timer (``unit_be2d``); prox3d one per 3D
+    entry, real type and text edits of its variants (``unit3d``), each with
+    its kernels only."""
     with open(os.path.join(tmp, "cuda_runtime.h"), "w") as f:
         f.write(STUB)
     for name in os.listdir(CSRC):
@@ -424,10 +503,22 @@ def build(tmp: str) -> dict:
             f.write(src)
     units = {}
     for name, entries in HOST_ENTRIES.items():
+        if name not in only:
+            continue
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             src = f.read()
         if name == "prox2d":  # K1's group design, which the variant timer builds
             src = src.replace(K1V.LAUNCH, K1V.GROUP_HELPERS + K1V.GROUP_KERNEL + K1V.LAUNCH)
+        if name == "be2d":  # K2, K3 as shipped, the six-pass K3 and every layout
+            parent = (entries.replace("PARENT_CALL", "hess2d_parent_kernel<R>(z, cells, out, n, k)")
+                      .replace("LAYOUT_CALL", "return 1"))
+            units[name] = _host_source(K3V.with_parent(src)) + parent + _c_entries(name)
+            laid_out = (entries.replace("PARENT_CALL", "return 1")
+                        .replace("LAYOUT_CALL", LAYOUT_CALL))
+            for label, (f, d) in K3V.LAYOUTS.items():
+                units[unit_be2d(label)] = (
+                    _host_source(K3V.with_layouts(src, f, d)) + laid_out + _c_entries(name))
+            continue
         if name != "prox3d":
             units[name] = _host_source(src) + entries + _c_entries(name)
             continue
@@ -535,6 +626,11 @@ def _report(label, kw, m, same):
 
 
 def main() -> int:
+    only = set(sys.argv[1:]) or set(HOST_ENTRIES)
+    if not only <= set(HOST_ENTRIES):
+        print(f"sources are {sorted(HOST_ENTRIES)}, not {sorted(only - set(HOST_ENTRIES))}",
+              file=sys.stderr)
+        return 2
     a = torch.tensor(np.random.default_rng(0).uniform(0.01, 10.0, 1_000_003).astype(np.float32))
     differ = float((torch.sqrt(a) != correctly_rounded_sqrt(a)).float().mean())
     print(f"PyTorch CPU sqrt differs from the correctly rounded f32 sqrt on {100 * differ:.2f} % "
@@ -546,9 +642,12 @@ def main() -> int:
     rng = np.random.default_rng(0)
     failed = 0
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(tmp)
+        libs = build(tmp, only)
         for kw, chord in CASES:
             kw = dict(dict(method=0, dt=5e-3, tau=0.1, rho=50.0, dtype="float32"), **kw)
+            runs_prox = ("prox2d" if kw["dim"] == 2 and chord is None else "prox3d") in only
+            if not (runs_prox or (kw["dim"] == 2 and "be2d" in only)):
+                continue
             dtype = getattr(torch, kw["dtype"])
             sfx, real = (("_f64", ctypes.c_double) if dtype == torch.float64
                          else ("_f32", ctypes.c_float))
@@ -584,7 +683,8 @@ def main() -> int:
                 pargs = (ehat,)
             n = args[0].shape[1]
             plains = {}  # the plain version's outputs by (cut, max_iters)
-            for lib, v, label, cut, iters in runs_of(entry, dtype, integ.prox_max_iters):
+            for lib, v, label, cut, iters in (runs_of(entry, dtype, integ.prox_max_iters)
+                                              if runs_prox else ()):
                 a_m = args
                 if cut == "carved":  # a block of slots whose free mask is all 0
                     carved = torch.nonzero(args[2].sum(0) == 0)[:, 0]
@@ -608,18 +708,27 @@ def main() -> int:
                     ", a block of carved slots" if cut == "carved" else
                     f", first {m} columns" if cut else "") + (
                     f", max_iters {iters}" if iters != integ.prox_max_iters else ""), kw, m, same)
-            if kw["dim"] == 2:  # K2 and K3 on the same slots
+            if kw["dim"] == 2 and "be2d" in only:  # K2, K3 and K3 at its block's edges
                 zb = z.contiguous()
                 cb = integ.cells(zb)
-                for hess, plain_be, rows in ((0, B.eg2d_plain, 7), (1, B.hess2d_plain, 21)):
-                    out = torch.empty((rows, n), dtype=dtype)
-                    getattr(libs["be2d"], "host_be2d" + sfx)(
-                        hess, zb.data_ptr(), cb.data_ptr(), out.data_ptr(), n, (real * 4)(*ehat))
-                    ref = plain_be(zb, cb, ehat)
-                    ref = torch.cat([ref[0], ref[1][None]]) if hess == 0 else ref
-                    same = float((out == ref).all(0).float().mean())
-                    failed += same < 1.0
-                    _report("be2d " + ("K3 hess2d" if hess else "K2 eg2d"), kw, n, same)
+                for lib, code, label, e in be2d_runs(dtype == torch.float64, libs["be2d"]):
+                    cuts = [None] + ([] if e is None else sorted({1, e - 1, e, e + 1}))
+                    for cut in cuts:
+                        m = n if cut is None else cut
+                        zc, cc = zb[:, :m].contiguous(), cb[:, :m].contiguous()
+                        out = torch.empty((7 if code == 0 else 21, m), dtype=dtype)
+                        getattr(libs[lib], "host_be2d" + sfx)(
+                            code, zc.data_ptr(), cc.data_ptr(), out.data_ptr(), m,
+                            (real * 4)(*ehat))
+                        if code == 0:
+                            ref = B.eg2d_plain(zc, cc, ehat)
+                            ref = torch.cat([ref[0], ref[1][None]])
+                        else:
+                            ref = B.hess2d_plain(zc, cc, ehat)
+                        same = float((out == ref).all(0).float().mean())
+                        failed += same < 1.0
+                        cols = "" if cut is None else f", first {m} columns"
+                        _report(f"be2d {label}{cols}", kw, m, same)
     print(f"{failed} runs not bit-equal", flush=True)
     return int(failed > 0)
 

@@ -15,10 +15,10 @@ prox3d_plain``), those of tests/test_prox_pallas3d.py:88-108: ih0 within
 rtol 2e-5, the regularized energies after the solve within rtol 1e-4 and
 atol 1e-6; the same for K4' (``csrc/prox3d.cu`` vs ``ops/prox3d.py::
 prox3d_chord_comp_plain``, tests/test_torch_prox3d_chord.py), on the
-stock engine's inputs. K4, K4', K4''a and K4''b (``prox3d``,
-``prox3d_chord_comp``, ``prox3d_chord``, ``prox3d_comp``) are also held
-bit for bit to their plain versions, and so are the float64 builds of K1,
-K2, K3, K4, K4', K4''a and K4''b."""
+stock engine's inputs. K2, K3, K4, K4', K4''a and K4''b (``eg2d``,
+``hess2d``, ``prox3d``, ``prox3d_chord_comp``, ``prox3d_chord``,
+``prox3d_comp``) are also held bit for bit to their plain versions, and so
+are the float64 builds of K1, K2, K3, K4, K4', K4''a and K4''b."""
 
 import pytest
 import torch
@@ -129,6 +129,7 @@ def _check_be(z, cells, ehat):
     _close_per_slot(ihk[None], ihp[None], 2e-5, 0.0)
     _close_per_slot(gk, gp, 1e-4, 1e-6)
     _close_per_slot(Hk, Hp, 1e-4, 1e-6)
+    assert torch.equal(gk, gp) and torch.equal(ihk, ihp) and torch.equal(Hk, Hp)
 
 
 def test_k2_k3_match_plain():
@@ -658,6 +659,37 @@ def test_k2_k3_f64_bit_equal_to_plain(n):
     assert (B.eg2d.launches_f64, B.hess2d.launches_f64) == (before[0] + 1, before[1] + 1)
     gp, ihp = B.eg2d_plain(z, cells, ehat)
     assert gk.dtype == torch.float64
+    assert torch.equal(gk, gp) and torch.equal(ihk, ihp)
+    assert torch.equal(Hk, B.hess2d_plain(z, cells, ehat))
+
+
+# K3's block edges in both builds, bit for bit against the plain version
+# (and K2 on the same columns), on Shoulder nx=48's step-0 inputs of backward
+# Euler (9,216 slots): 1, E - 1, E and E + 1 columns, E the elements of the
+# block K3 launches with in that dtype (from the built library).
+K3_EDGES = ["n=1", "n=E-1", "n=E", "n=E+1"]
+
+
+@pytest.mark.parametrize("case", K3_EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k2_k3_block_edges_bit_equal_to_plain(dtype, case):
+    _card()
+    _, integ = build_problem(ExperimentConfig(
+        test_type="Shoulder", dim=2, mon_type=1, method=2, nx=48, ny=48, dtype=dtype))
+    z = integ.eg.gather(integ.mesh.X0).contiguous()
+    cells, ehat = integ.eg.cells(z), integ.mesh.ehat_np.reshape(-1)
+    e = B.hess_block(z.dtype)["elements"]
+    m = {"n=1": 1, "n=E-1": e - 1, "n=E": e, "n=E+1": e + 1}[case]
+    z, cells = z[:, :m].contiguous(), cells[:, :m].contiguous()
+    f64 = dtype == "float64"
+    before = (B.hess2d.launches, B.hess2d.launches_f64)
+    gk, ihk = B.eg2d(z, cells, ehat)
+    Hk = B.hess2d(z, cells, ehat)
+    torch.cuda.synchronize()
+    assert (B.hess2d.launches, B.hess2d.launches_f64) == (before[0] + (not f64),
+                                                          before[1] + f64)
+    gp, ihp = B.eg2d_plain(z, cells, ehat)
+    assert Hk.dtype == z.dtype and Hk.shape == (21, m)
     assert torch.equal(gk, gp) and torch.equal(ihk, ihp)
     assert torch.equal(Hk, B.hess2d_plain(z, cells, ehat))
 

@@ -262,7 +262,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("name,headers", [
-    ("prox2d", {"huang2d.cuh", "dual.cuh", "stage.cuh"}), ("be2d", {"huang2d.cuh", "dual.cuh"}),
+    ("prox2d", {"huang2d.cuh", "dual.cuh", "stage.cuh"}),
+    ("be2d", {"huang2d.cuh", "dual.cuh", "stage.cuh"}),
     ("prox3d", {"huang3d.cuh", "dual.cuh", "stage.cuh"}),
 ])
 def test_build_hash_covers_every_header(name, headers, tmp_path, monkeypatch):
