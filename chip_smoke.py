@@ -79,7 +79,15 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    paths' step-0 ``I_h`` within rtol 1e-12 of the JAX package's and
    CompSquare-20's step 1 within rtol 1e-7, the ADMM counts printed beside
    the JAX package's), and card against CPU on that route at nx=4 (rtol
-   1e-10, the same ADMM counts);
+   1e-10, the same ADMM counts); then explicit and backward Euler
+   (methods 1 and 2) on the compact path (``ops/compact_eg.py``, plain
+   PyTorch: every launch count 0): at 3D Shoulder-40, 3D SquareGrid-40
+   and 3D CompSquare-40 in float32 (at most ``COMPACT_CAPS`` steps: 20
+   and 10) and at Monitor3320r as loaded (float64, at most 10 steps; steps
+   0 and 1 within rtol 1e-10 of the JAX package's, the same Newton
+   counts), each with its ms per step, Newton counts and peak device
+   memory, ``I_h`` finite and falling, and card against CPU at 3D
+   SquareGrid nx=4 in float64 (rtol 1e-10, the same Newton counts);
 5. timing: each kernel alone as a call of its wrapper (median of 20
    single calls between CUDA events: what a path pays, the wrapper's host
    work included) and as a launch of its bare C entry into the same
@@ -100,6 +108,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -207,6 +216,18 @@ RECORDED_3D = {
 # eg2d launches of one backward-Euler step beyond its Newton iterations:
 # the explicit-Euler guess, the residual F0 and the post-step energy
 BE_EG_PER_STEP = 3
+# explicit (1) and backward (2) Euler on the compact path
+# (ops/compact_eg.py, plain PyTorch, no kernel): the step caps of each
+# full-width path
+COMPACT_CAPS = {1: 20, 2: 10}
+# The JAX package's values of Monitor3320r as loaded (float64) on its
+# compact path, computed once with JAX 0.9.0 on the CPU by
+# scripts/euler_jax_refs.py: {method: {step: (I_h, Newton iterations)}},
+# held within the float64 band of tests/test_torch_be_compact.py (rel
+# 1e-10; the port on the CPU is within 2e-16 of these) and the same count
+JAX_COMPACT_M3320R = {1: {0: (0.1713965975485735, None), 1: (0.17118649805513925, None)},
+                      2: {0: (0.1711919565389179, 1), 1: (0.17099507092332503, 1)}}
+COMPACT_RTOL = 1e-10
 
 
 def say(msg: str) -> None:
@@ -225,13 +246,14 @@ def shoulder(nx: int, method: int = 0, device: str = "cuda", dtype: str = "float
 
 
 def box3d(test_type: str, mon_type: int, n: int, device: str = "cuda",
-          dtype: str = "float32"):
-    """3D MM-ADMM on an n^3 box mesh: Shoulder with the identity monitor (a
-    constant grid) or SquareGrid with the radial bump (the 48-wide table)."""
+          dtype: str = "float32", method: int = 0):
+    """3D MM-ADMM (or ``method``) on an n^3 box mesh: Shoulder with the
+    identity monitor (a constant grid) or SquareGrid with the radial bump
+    (the 48-wide table)."""
     from mmadmm_tpu_torch import ExperimentConfig, build_problem
 
     cfg = ExperimentConfig(
-        test_type=test_type, dim=3, mon_type=mon_type, method=0, nx=n, ny=n, nz=n,
+        test_type=test_type, dim=3, mon_type=mon_type, method=method, nx=n, ny=n, nz=n,
         dt=5e-3, tau=0.1, rho=50.0, dtype=dtype,
     )
     mesh, integ = build_problem(cfg, device=device)
@@ -239,16 +261,17 @@ def box3d(test_type: str, mon_type: int, n: int, device: str = "cuda",
 
 
 def comp_square(n: int, device: str = "cuda", dtype: str = "float32", prox_chord=None,
-                prox_backend: str = "auto"):
-    """3D MM-ADMM on the stock engine: an n^3 SquareGrid box mesh on its
-    computational mesh, MonType 5, rho 10 (the 3DMonitor3 family as the
-    JAX package's tests set it, tests/test_prox_pallas3d.py:137-143). In
-    float64, ``prox_backend="pallas"`` takes the float64 kernels, "auto"
-    the generic prox."""
+                prox_backend: str = "auto", method: int = 0):
+    """3D MM-ADMM (or ``method``) on the stock engine: an n^3 SquareGrid box
+    mesh on its computational mesh, MonType 5, rho 10 (the 3DMonitor3
+    family as the JAX package's tests set it,
+    tests/test_prox_pallas3d.py:137-143). In float64,
+    ``prox_backend="pallas"`` takes the float64 kernels, "auto" the generic
+    prox."""
     from mmadmm_tpu_torch import ExperimentConfig, build_problem
 
     cfg = ExperimentConfig(
-        test_type="SquareGrid", dim=3, mon_type=5, method=0, comp_mesh=True, nx=n, ny=n,
+        test_type="SquareGrid", dim=3, mon_type=5, method=method, comp_mesh=True, nx=n, ny=n,
         nz=n, dt=5e-3, tau=0.1, rho=10.0, dtype=dtype, prox_backend=prox_backend,
     )
     mesh, integ = build_problem(cfg, device=device, prox_chord=prox_chord)
@@ -284,16 +307,17 @@ def generic(test_type: str, n: int, device: str = "cuda", **kw):
     return cfg, mesh, integ
 
 
-def monitor3320r(device: str = "cuda", as_loaded: bool = False):
+def monitor3320r(device: str = "cuda", as_loaded: bool = False, method: int = 0):
     """``Experiments/InputFiles/Monitor3320r.json`` as shipped: in float32
-    on the kernel route, or ``as_loaded`` (float64, the generic route)."""
+    on the kernel route, or ``as_loaded`` (float64, the generic route);
+    MM-ADMM or ``method``."""
     import os
 
     from mmadmm_tpu_torch import build_problem, load_experiment_config
 
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = load_experiment_config(os.path.join(here, "Experiments", "InputFiles",
-                                              "Monitor3320r.json"), method=0)
+                                              "Monitor3320r.json"), method=method)
     if not as_loaded:
         cfg.dtype = "float32"
     mesh, integ = build_problem(cfg, device=device)
@@ -730,10 +754,11 @@ def zero_counts():
         _wrappers()[name].launches_f64 = 0
 
 
-def drive(label, cfg, integ, cap=STEP_CAP):
+def drive(label, cfg, integ, cap=STEP_CAP, times=None):
     """One main path: ``(infos, trace, launch counts)``, the counts set to
     0 just before the run and read just after. Every ``I_h`` must be finite
-    and the last below the first."""
+    and the last below the first. ``times``, if given, gets each step's
+    seconds."""
     from mmadmm_tpu_torch.integrators.run_loop import run
 
     infos = []
@@ -743,6 +768,8 @@ def drive(label, cfg, integ, cap=STEP_CAP):
         torch.cuda.synchronize()
         now = time.perf_counter()
         infos.append(info)
+        if times is not None:
+            times.append(now - last[0])
         extra = "".join(f" {f} {getattr(info, f)}" for f in ("n_iters", "n_newton")
                         if hasattr(info, f))
         say(f"{label} step {k}: ih {info.ih:.9f}{extra} {1e3 * (now - last[0]):.1f} ms")
@@ -978,6 +1005,55 @@ def check_jax(label, infos):
         say(f"{label} step {k}: Ih {ih!r} within rtol {rtol} of the JAX package's {ref!r} "
             f"(rel {abs(ih / ref - 1):.2e})"
             + (f", {iters} ADMM iterations as the JAX package" if iters is not None else ""))
+
+
+def drive_compact(label, make, cap):
+    """Explicit or backward Euler on the compact path at full width: the
+    integrator ``make()`` builds must evaluate on ``CompactEG``; the run
+    (at most ``cap`` steps, the DtTol stop) launches no kernel. Prints its
+    ms per step (the mean of steps after the first, and the first), the
+    Newton iterations per step and the path's peak device memory: the
+    peak of its set-up and run above what the process held before it.
+    Returns the infos."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    cfg, mesh, integ = make()
+    engine = type(integ.eg).__name__
+    say(f"{label} set-up: {mesh.n_pnts} nodes, {mesh.n_elements} elements, "
+        f"{type(integ).__name__} on {engine}, {mesh.dtype}, Hessian slab {mesh.jac_batch} "
+        f"({time.perf_counter() - t:.2f} s)")
+    if engine != "CompactEG":
+        raise AssertionError(f"{label}: {engine}, not the compact path")
+    times = []
+    infos, ih, launched = drive(label, cfg, integ, cap, times)
+    expect(label, launched, {})
+    later = times[1:] or times
+    newton = [i.n_newton for i in infos] if cfg.method == 2 else "none (explicit)"
+    say(f"{label}: {len(infos)} steps, {1e3 * sum(later) / len(later):.1f} ms per step after the "
+        f"first ({1e3 * times[0]:.1f} ms the first), Newton iterations per step {newton}, peak "
+        f"device memory {(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before it, every kernel launch count 0; Ih trace "
+        f"{[float(v) for v in ih]}")
+    return infos
+
+
+def check_jax_compact(label, method, infos):
+    """Monitor3320r's compact Euler or backward Euler against the JAX
+    package's values (``JAX_COMPACT_M3320R``)."""
+    for k, (ref, newton) in JAX_COMPACT_M3320R[method].items():
+        ih = infos[k].ih
+        if not math.isclose(ih, ref, rel_tol=COMPACT_RTOL):
+            raise AssertionError(f"{label} step {k}: Ih {ih!r} vs the JAX package's {ref!r}, "
+                                 f"outside rtol {COMPACT_RTOL}")
+        if newton is not None and infos[k].n_newton != newton:
+            raise AssertionError(f"{label} step {k}: {infos[k].n_newton} Newton iterations, "
+                                 f"the JAX package took {newton}")
+        say(f"{label} step {k}: Ih {ih!r} within rtol {COMPACT_RTOL} of the JAX package's "
+            f"{ref!r} (rel {abs(ih / ref - 1):.2e})"
+            + (f", {newton} Newton iterations as the JAX package" if newton is not None else ""))
 
 
 def main() -> int:
@@ -1296,6 +1372,19 @@ def main() -> int:
     for label, _, _, _ in F64_STOCK[1:]:
         card_vs_cpu_f64(f"3D MM-ADMM at {label.replace('-40', '')} nx=4 (stock engine, kernel "
                         f"route)", lambda device, label=label: f64_stock(label, 4, device)[2])
+    # explicit and backward Euler on the compact path (no kernel)
+    name = {1: "explicit Euler", 2: "backward Euler"}
+    for method in (1, 2):
+        for label, make in (
+                ("3D Shoulder-40", lambda: box3d("Shoulder", 0, 40, method=method)),
+                ("3D SquareGrid-40", lambda: box3d("SquareGrid", 1, 40, method=method)),
+                ("3D CompSquare-40", lambda: comp_square(40, method=method))):
+            drive_compact(f"{name[method]} {label}", make, COMPACT_CAPS[method])
+        label = f"{name[method]} Monitor3320r float64"
+        infos_c = drive_compact(label, lambda: monitor3320r(as_loaded=True, method=method), 10)
+        check_jax_compact(label, method, infos_c)
+        card_vs_cpu_f64(f"{name[method]} at 3D SquareGrid nx=4 float64 (compact path)",
+                        lambda device: box3d("SquareGrid", 1, 4, device, "float64", method)[2])
 
     # ---- timing --------------------------------------------------------------
     z, dxpu, free, cells = inputs

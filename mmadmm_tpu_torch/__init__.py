@@ -11,9 +11,13 @@ stencil engines and the stock element-major engine, through
   ``ops.prox2d.prox2d`` (kernel K1, ``csrc/prox2d.cu``); on the stencil
   engines each kernel is built in the mesh's dtype, float32 or float64;
 * explicit Euler (method 1): ``integrators.euler.EulerIntegrator`` ->
-  ``ops.be2d.eg2d`` (kernel K2, ``csrc/be2d.cu``);
+  ``ops.be2d.eg2d`` (kernel K2, ``csrc/be2d.cu``) on the 2D stencil
+  engine; on every other mesh the compact path ``ops.compact_eg`` (plain
+  PyTorch, no kernel, as in the JAX package);
 * backward Euler (method 2): ``integrators.backward_euler.
-  BackwardEulerIntegrator`` -> K2 and ``ops.be2d.hess2d`` (kernel K3);
+  BackwardEulerIntegrator`` -> K2 and ``ops.be2d.hess2d`` (kernel K3) on
+  the 2D stencil engine with the ``neumann`` solve; ``ops.compact_eg`` and
+  ``ops.krylov`` elsewhere and for the other inner solvers;
 * 3D MM-ADMM (method 0 on 3D SquareGrid and Shoulder box meshes):
   ``integrators.admm_soa.SoAADMM3D`` -> ``ops.prox3d.prox3d`` (kernel K4,
   ``csrc/prox3d.cu``);

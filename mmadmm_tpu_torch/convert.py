@@ -7,7 +7,8 @@ from the same config, so that both packages start from the same bits
 state and constants stay float64 from end to end, never rounded through
 float32):
 ``GridADMM2D`` constants and state, the Euler and backward-Euler state
-(``EulerState`` / ``BackwardEulerState``), ``SoAADMM3D`` constants and
+(``EulerState`` / ``BackwardEulerState``, the backward-Euler chord carry
+included), ``SoAADMM3D`` constants and
 state, and the stock ``ADMMIntegrator``'s state. The tests use them;
 nothing here imports JAX.
 
@@ -37,7 +38,8 @@ import torch
 from .integrators.admm import ADMMIntegrator, ADMMState
 from .integrators.admm_grid2d import Grid2DState, GridADMM2D
 from .integrators.admm_soa import SoA3DState, SoAADMM3D
-from .integrators.euler import EulerState
+from .integrators.backward_euler import BackwardEulerIntegrator, BackwardEulerState
+from .ops.dense_eg2d import DenseEG2D
 
 
 def _t(a, like: torch.Tensor, shape=None):
@@ -90,14 +92,40 @@ def load_grid2d_state(integ: GridADMM2D, arrays: dict) -> Grid2DState:
     )
 
 
-def load_euler_state(integ, arrays: dict) -> EulerState:
+def load_euler_state(integ, arrays: dict):
     """A port state for ``EulerIntegrator`` or ``BackwardEulerIntegrator``
+    (an ``EulerState`` or a ``BackwardEulerState`` with no carried chord)
     from ``x`` and, optionally, ``x_prev`` (default ``x``: the JAX
     ``EulerState`` has none) and ``steps``."""
     like = integ.mesh.X0
     x = _t(arrays["x"], like)
     x_prev = _t(arrays["x_prev"], like) if "x_prev" in arrays else x
-    return EulerState(x=x, x_prev=x_prev, steps=int(arrays.get("steps", 0)))
+    return integ.init_state()._replace(x=x, x_prev=x_prev, steps=int(arrays.get("steps", 0)))
+
+
+def load_be_state(integ: BackwardEulerIntegrator, arrays: dict) -> BackwardEulerState:
+    """A port state for ``BackwardEulerIntegrator`` from the JAX
+    ``BackwardEulerState``'s ``x, x_prev [NP, D], He [NF, n, n], dvec [NP,
+    D], steps, rebuild``. A size-0 ``He`` or ``dvec`` (the JAX package's
+    placeholders without the chord carry) loads as None. On the stencil
+    engine ``He`` goes into its slots' lower triangle ``[21, NFd]``
+    (``H[i][j]``, i >= j; carved slots 0)."""
+    like = integ.mesh.X0
+    He = np.asarray(arrays["He"])
+    dvec = np.asarray(arrays["dvec"])
+    He_t = dvec_t = None
+    if He.size:
+        eg = integ.eg
+        if isinstance(eg, DenseEG2D):
+            m = eg.mesh_of_dense
+            rows = np.where(m[:, None, None] >= 0, He[np.maximum(m, 0)], 0.0)
+            He = np.stack([rows[:, i, j] for i in range(6) for j in range(i + 1)])
+        He_t = torch.tensor(He, dtype=like.dtype, device=like.device)
+    if dvec.size:
+        dvec_t = _t(dvec, like)
+    return BackwardEulerState(
+        x=_t(arrays["x"], like), x_prev=_t(arrays["x_prev"], like),
+        steps=int(arrays["steps"]), He=He_t, dvec=dvec_t, rebuild=bool(arrays["rebuild"]))
 
 
 def load_soa3d_consts(integ: SoAADMM3D, arrays: dict) -> None:

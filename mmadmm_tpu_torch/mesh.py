@@ -185,3 +185,11 @@ class MovingMesh:
         z = self.gather(x)
         ih_e, g_e = huang.element_energy_grad(z, gather_cell(self.grid, z), self.elem_ehat)
         return sum_f64(ih_e), self.scatter_add(g_e * self.elem_free)
+
+    def gradient_interior(self, x: torch.Tensor):
+        """``(Ih, grad [NP, D])`` for explicit and backward Euler
+        (``Mesh::eulerStepMod``, Mesh.cpp:533-579): the element gradients
+        unmasked, scattered to every node, then masked to INTERIOR nodes."""
+        z = self.gather(x)
+        ih_e, g_e = huang.element_energy_grad(z, gather_cell(self.grid, z), self.elem_ehat)
+        return sum_f64(ih_e), self.scatter_add(g_e) * self.interior_nodes

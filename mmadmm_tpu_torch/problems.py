@@ -3,8 +3,13 @@
 
 The port runs MM-ADMM (method 0), explicit Euler (method 1) and backward
 Euler (method 2) on the 2D stencil engine, MM-ADMM on the 3D stencil
-engine (the JAX package's ``SoAADMM3D`` in stencil mode), and MM-ADMM on
-the stock element-major engine (``ADMMIntegrator``) for every other mesh.
+engine (the JAX package's ``SoAADMM3D`` in stencil mode), MM-ADMM on the
+stock element-major engine (``ADMMIntegrator``) for every other mesh, and
+explicit and backward Euler on the compact element-major path
+(``ops/compact_eg.py``) for every mesh off the 2D stencil engine: 3D
+meshes, computational meshes, FromFile and LevelSet meshes and 2D boxes
+off the gate, and every backward-Euler run with an inner solver other
+than ``neumann``.
 
 Box meshes (SquareGrid, Shoulder) on the stencil gate take their
 stencil engine in float32 and in float64, with the engine's kernels built
@@ -26,8 +31,8 @@ package keeps off its SoA engine, ``problems.py:106-111``). In float64
 under ``"auto"`` that is the generic prox with the carried chord Jacobian,
 the JAX package's default. The JAX package also gates the stencil engines
 on mesh size (and, for Euler and backward Euler, on environment switches),
-the port on the mesh alone. What the port does not run raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+the port on the mesh alone. What the port does not run (multi-GPU runs,
+monitors that are not symmetric) raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -81,12 +86,6 @@ def build_problem(cfg: ExperimentConfig, device=None, *, prox_chord: bool | None
     sweeps on a computational mesh only)."""
     if cfg.method not in (0, 1, 2):
         raise ValueError(f"unknown method {cfg.method}")
-    if cfg.method != 0 and (cfg.dim == 3 or cfg.comp_mesh):
-        item = "A11" if cfg.method == 1 else "A12"
-        raise NotImplementedError(
-            f"method {cfg.method} in 3D or on a computational mesh runs on the compact "
-            f"path (ROADMAP item {item})"
-        )
     if cfg.n_devices > 1:
         raise NotImplementedError("multi-GPU runs are ROADMAP item A15")
     X, F, mask = build_geometry(cfg)
@@ -97,14 +96,18 @@ def build_problem(cfg: ExperimentConfig, device=None, *, prox_chord: bool | None
         prox_chord=prox_chord,
     )
     box = cfg.test_type in ("SquareGrid", "Shoulder")
+    # the grid dims of a 2D box, for the stencil engine of methods 1 and 2
+    # (problems.py:167-185 in the JAX package); without them, or off the
+    # gate, they run on the compact path
+    grid2d_dims = (cfg.nx, cfg.ny) if box and cfg.dim == 2 and not cfg.comp_mesh else None
     if cfg.method == 1:
         from .integrators.euler import EulerIntegrator
 
-        return mesh, EulerIntegrator(mesh, cfg.dt, cfg.nx, cfg.ny)
+        return mesh, EulerIntegrator(mesh, cfg.dt, grid2d_dims=grid2d_dims)
     if cfg.method == 2:
         from .integrators.backward_euler import BackwardEulerIntegrator
 
-        return mesh, BackwardEulerIntegrator(mesh, cfg.dt, cfg.nx, cfg.ny,
+        return mesh, BackwardEulerIntegrator(mesh, cfg.dt, grid2d_dims=grid2d_dims,
                                              tol=cfg.step_tol)
     if cfg.prox_backend == "vmap" or cfg.comp_mesh or not box:
         return mesh, _stock(cfg, mesh)

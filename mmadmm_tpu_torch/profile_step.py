@@ -29,7 +29,12 @@ kernels with the most device time. On the generic route it also prints
 the device time and launches of the prox's Jacobian builds
 (``ElementKernels.masked_jac``) and of its LDL^T solves
 (``ops/linalg.py::ldlt_solve``), the ``record_function`` ranges of
-``ops/prox.py``. Needs a CUDA card.
+``ops/prox.py``. Then explicit (method 1) and backward (method 2) Euler on
+the compact path (``ops/compact_eg.py``, no kernel) at 3D Shoulder-40 and
+3D SquareGrid-40 (``--dtype``), and backward Euler at Monitor3320r as
+loaded, each with the device time and launches of the compact path's
+ranges: the ``(Ih, grad)`` evaluations, the element-Hessian builds and
+the matvec products. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -42,7 +47,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import ExperimentConfig, build_problem, load_experiment_config
-from .ops.prox import RANGES  # the generic prox's traced ranges
+from .ops import compact_eg, prox
+
+# the traced ranges: the generic prox's and the compact Euler path's
+RANGES = prox.RANGES + compact_eg.RANGES
 
 WARM = 5
 STEPS = 5
@@ -74,6 +82,16 @@ RUNS = {
         test_type="SquareGrid", dim=3, mon_type=1, method=0, nx=40, ny=40, nz=40,
         prox_backend="pallas", prox_chord=True),
     "Monitor3320r float64 (generic route)": M3320R,
+    # explicit and backward Euler on the compact path (no kernel)
+    "3D explicit Euler, 3D Shoulder-40": dict(test_type="Shoulder", dim=3, mon_type=0, method=1,
+                                              nx=40, ny=40, nz=40),
+    "3D backward Euler, 3D Shoulder-40": dict(test_type="Shoulder", dim=3, mon_type=0, method=2,
+                                              nx=40, ny=40, nz=40),
+    "3D explicit Euler, 3D SquareGrid-40": dict(test_type="SquareGrid", dim=3, mon_type=1,
+                                                method=1, nx=40, ny=40, nz=40),
+    "3D backward Euler, 3D SquareGrid-40": dict(test_type="SquareGrid", dim=3, mon_type=1,
+                                                method=2, nx=40, ny=40, nz=40),
+    "backward Euler, Monitor3320r float64 (compact path)": (M3320R, 2),
 }
 
 
@@ -81,6 +99,8 @@ def profile_run(name: str, dtype: str = "float32") -> None:
     chord = None
     if isinstance(RUNS[name], str):
         cfg = load_experiment_config(RUNS[name])
+    elif isinstance(RUNS[name], tuple):
+        cfg = load_experiment_config(*RUNS[name])
     else:
         kw = dict(RUNS[name])
         chord = kw.pop("prox_chord", None)
@@ -123,11 +143,12 @@ def profile_run(name: str, dtype: str = "float32") -> None:
     print(f"wall {wall_ms / STEPS:.3f} ms/step (traced); device busy "
           f"{busy_ms:.3f} ms/step = {100 * busy_ms * STEPS / wall_ms:.1f} % of wall; "
           f"{per_kernel}; {launches / STEPS:.0f} kernel launches/step")
-    if mesh.prox_backend == "vmap":
+    compact = type(getattr(integ, "eg", None)) is compact_eg.CompactEG
+    if compact or (cfg.method == 0 and mesh.prox_backend == "vmap"):
         # each range's device time and launches: those of the kernels
         # launched under it
         events = prof.events()
-        for r in RANGES:
+        for r in compact_eg.RANGES if compact else prox.RANGES:
             spans = [e for e in events if e.name == r and e.device_type.name == "CPU"]
             us, n = map(sum, zip(*(_kernels(e) for e in spans))) if spans else (0, 0)
             print(f"  range {r}: {len(spans) / STEPS:.1f} calls/step, device "

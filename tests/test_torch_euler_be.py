@@ -24,6 +24,8 @@ from mmadmm_tpu_torch import ExperimentConfig, build_problem, convert
 from mmadmm_tpu_torch.integrators.backward_euler import BackwardEulerIntegrator
 from mmadmm_tpu_torch.integrators.euler import EulerIntegrator
 from mmadmm_tpu_torch.integrators.run_loop import run
+from mmadmm_tpu_torch.ops.compact_eg import CompactEG
+from mmadmm_tpu_torch.ops.dense_eg2d import DenseEG2D
 
 STEPS = 4
 KW = dict(test_type="Shoulder", dim=2, mon_type=1, nx=16, ny=16, dt=5e-3, tau=0.1,
@@ -137,23 +139,47 @@ def test_build_problem_routes_to_the_stencil_engine(test_type, method, cls, dtyp
 
 
 @pytest.mark.parametrize("method,item", [(1, "A11"), (2, "A12")], ids=["euler", "be"])
-@pytest.mark.parametrize("change,change_item", [
-    (dict(test_type="LevelSet"), None), (dict(n_devices=2), "A15"), (dict(nx=8, ny=8), None),
-    (dict(nx=8, ny=8, dtype="float64"), None),
-], ids=["levelset", "sharded", "off_gate", "off_gate_float64"])
+@pytest.mark.parametrize("change,change_item", [(dict(n_devices=2), "A15")], ids=["sharded"])
 def test_unported_routes_raise(method, item, change, change_item):
     kw = dict(KW, method=method, **change)
     with pytest.raises(NotImplementedError, match=change_item or item):
         build_problem(ExperimentConfig(**kw), device="cpu")
 
 
-@pytest.mark.parametrize("option", [dict(krylov_solver="hess"), dict(krylov_solver="cgstab"),
-                                    dict(precondition=True), dict(chord_carry=True)],
-                         ids=["hess", "cgstab", "precondition", "chord_carry"])
-def test_be_unported_options_raise(option):
+@pytest.mark.parametrize("method,cls", [(1, EulerIntegrator), (2, BackwardEulerIntegrator)],
+                         ids=["euler", "be"])
+@pytest.mark.parametrize("change", [
+    dict(test_type="LevelSet"), dict(nx=8, ny=8), dict(nx=8, ny=8, dtype="float64"),
+], ids=["levelset", "off_gate", "off_gate_float64"])
+def test_routes_off_the_stencil_engine_run_compact(method, cls, change):
+    """Off the stencil engine (ROADMAP A11, A12; these cases raised before):
+    the compact path, one finite step in the mesh's dtype."""
+    mesh, integ = build_problem(ExperimentConfig(**dict(KW, method=method, **change)),
+                                device="cpu")
+    assert type(integ) is cls and type(integ.eg) is CompactEG
+    state, info = integ.step(integ.init_state())
+    assert math.isfinite(info.ih) and bool(torch.isfinite(state.x).all())
+    assert state.x.dtype == mesh.dtype == getattr(torch, change.get("dtype", "float32"))
+
+
+@pytest.mark.parametrize("option,engine", [
+    (dict(krylov_solver="hess"), CompactEG), (dict(krylov_solver="cgstab"), CompactEG),
+    (dict(precondition=True), DenseEG2D), (dict(chord_carry=True), DenseEG2D),
+], ids=["hess", "cgstab", "precondition", "chord_carry"])
+def test_be_options_build_and_step(option, engine):
+    """Each option builds (ROADMAP A12; these cases raised before): a Krylov
+    solver takes the compact path even on the stencil gate, as in the JAX
+    package (backward_euler.py:184-190); ``precondition`` leaves the
+    ``neumann`` solve on the stencil engine, and the chord carry keeps K3's
+    triangle in the state. One finite step each; tests/test_torch_be_options.py
+    holds them to the JAX package."""
     mesh, _ = build_problem(ExperimentConfig(**KW, method=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        BackwardEulerIntegrator(mesh, 5e-3, 16, 16, **option)
+    integ = BackwardEulerIntegrator(mesh, 5e-3, grid2d_dims=(16, 16), **option)
+    assert type(integ.eg) is engine
+    state, info = integ.step(integ.init_state())
+    assert math.isfinite(info.ih) and bool(torch.isfinite(state.x).all())
+    if "chord_carry" in option:
+        assert state.He.shape == (21, 1024) and state.dvec.shape == state.x.shape
 
 
 def test_interior_nodes_match_jax():
