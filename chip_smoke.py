@@ -53,7 +53,7 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    3D CompSquare-40 and -20 in float64 (at most 3 and 10 steps; the
    step-0 ``I_h``, and CompSquare-20's step 1 and counts, against the JAX
    package's), the LevelSet circle at nx=320 in float64 (dt 1e-6, at most
-   10 steps; ``I_h`` falls at every step; steps 0-3 against the JAX
+   4 steps; ``I_h`` falls at every step; steps 0-3 against the JAX
    package's) and
    a 2D computational mesh, SquareGrid-320, in float32 (at most 10 steps);
    K4''a on 3D SquareGrid-40 with ``prox_chord=True`` and K4''b on 3D
@@ -99,7 +99,29 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    line of its own, in each dtype); K1's work line at Shoulder-320 step 0
    in each dtype: element-sweeps, Hessian builds and retirements on the gradient,
    the sweeps the carved slots (free all 0) take alone, and the block K1
-   launches with (elements, one thread each).
+   launches with (elements, one thread each);
+6. the experiment harness (``mmadmm_tpu_torch.harness``, the CLI's code),
+   after every earlier phase has handed its memory back, its launches
+   added to the kernels line's (K4 float64, K1), which prints after it: the 6.1M-tet
+   tier, 3D SquareGrid-80 (MonType 1, 6,144,000 tets) and 3D Shoulder-80
+   (MonType 0, 5,376,000 live tets in 6,144,000 slots), dt 5e-3, tau 0.1,
+   rho 50, in float64 as a JSON config written by ``make_config_json``
+   gives them (DtTol 1e-12, so that every capped step runs), MM-ADMM on
+   the 3D stencil engine through ``run_experiment``, 4 steps each: set-up,
+   first-step and per-step times, the peak device memory, K4 float64
+   launches = ADMM iterations (the runner's thrown-away first step
+   included), ``I_h`` finite and falling, the artifacts (``Ih0.txt`` with
+   steps + 1 rows); K4 float64 on each one's step-0 inputs over all
+   6,144,000 slots bit for bit against its plain version run on slabs of
+   768,000 slots, timed (a wrapper call, a bare launch) beside its bound;
+   explicit and backward Euler at SquareGrid-80 (the compact path, no
+   launch), 3 steps each, with the Newton counts and the peak memory;
+   ``Monitor3320r.json`` through the CLI (``mmadmm_tpu_torch.run.main``),
+   3 steps, as loaded (float64, the generic route, steps 0 and 1 against
+   the JAX package's) and with ``--dtype float32`` (K1 launches = ADMM
+   iterations, step 0 against the JAX package's); Shoulder-320 in float32
+   for 4 steps against 2 steps, a checkpoint, a resume and 2 more (the
+   step-4 state bit-equal).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 1
@@ -111,6 +133,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -137,7 +160,7 @@ MONITOR1320_IH0 = 0.845393  # BASELINE.md:34, the reference's recorded Ih at ste
 # energy of the initial mesh, so it needs no prox.
 JAX_STEP0_IH = {"3D CompSquare-20": 0.2558352160267532, "Monitor3320r": 0.17139660514658317}
 GENERIC_CAPS = {"Monitor3320r float64": 20, "3D CompSquare-40 float64": 3,
-                "3D CompSquare-20 float64": 10, "LevelSet-320 float64": 10,
+                "3D CompSquare-20 float64": 10, "LevelSet-320 float64": 4,
                 "2D CompSquare-320 float32": 10}
 K4PP_CAP = 10
 # The float64 kernel-route paths on the stock engine (prox_backend="pallas"
@@ -228,6 +251,20 @@ COMPACT_CAPS = {1: 20, 2: 10}
 JAX_COMPACT_M3320R = {1: {0: (0.1713965975485735, None), 1: (0.17118649805513925, None)},
                       2: {0: (0.1711919565389179, 1), 1: (0.17099507092332503, 1)}}
 COMPACT_RTOL = 1e-10
+# the experiment harness on the card (harness_phases): the 6.1M-tet tier,
+# 3D SquareGrid-80 and Shoulder-80 (3DMonitor280's and 3DMonitor180's
+# sizes, README.md:353-357) in float64 as a JSON config gives it, capped at
+# TIER_STEPS MM-ADMM and TIER_EULER_STEPS Euler and backward-Euler steps;
+# K4's plain version checked on slabs of TIER_SLAB slots (768,000, the 40^3
+# paths' size); Monitor3320r through the CLI for TIER_CLI_STEPS steps
+TIER_N = 80
+TIER_STEPS = 4
+TIER_EULER_STEPS = 3
+TIER_CLI_STEPS = 3
+TIER_DT_TOL = 1e-12  # DtTol: run the capped steps (SquareGrid-80 meets 1e-5 at step 3)
+TIER_SLAB = 768_000
+SUMMARY_KEYS = {"name", "method", "n_steps", "converged", "failed", "final_ih", "setup_time",
+                "compile_time", "loop_time"}
 
 
 def say(msg: str) -> None:
@@ -1056,42 +1093,300 @@ def check_jax_compact(label, method, infos):
             + (f", {newton} Newton iterations as the JAX package" if newton is not None else ""))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from mmadmm_tpu_torch import cuda_build
+def recorded(call):
+    """``(call(), mesh, integrator, infos)``: ``call()`` builds its
+    problem through the harness runner; the ``(mesh, integrator)`` it built
+    (the last, if several) and the info of every step that integrator took
+    (the runner's thrown-away first step first) are recorded on the way."""
+    from mmadmm_tpu_torch.harness import runner
+
+    made, infos = [], []
+    build = runner.build_problem
+
+    def recording_build(cfg, device=None, **kw):
+        mesh, integ = build(cfg, device, **kw)
+        step = integ.step
+
+        def recording_step(state):
+            state, info = step(state)
+            infos.append(info)
+            return state, info
+
+        integ.step = recording_step
+        made.append((mesh, integ))
+        return mesh, integ
+
+    runner.build_problem = recording_build
+    try:
+        out = call()
+    finally:
+        runner.build_problem = build
+    mesh, integ = made[-1]
+    del integ.step  # the class's step again
+    return out, mesh, integ, infos
+
+
+def check_artifacts(label, out_dir, method, steps):
+    """The runner's artifacts in ``out_dir``: the five files, ``Ih<m>.txt``
+    with ``steps`` + 1 rows (the initial energy first) and
+    ``summary.json`` with the JAX runner's keys."""
+    import os
+
+    names = ["points.txt", "triangles.txt", "mask.txt", f"Ih{method}.txt", "summary.json"]
+    missing = [n for n in names if not os.path.isfile(os.path.join(out_dir, n))]
+    if missing:
+        raise AssertionError(f"{label}: artifacts {missing} not written")
+    with open(os.path.join(out_dir, f"Ih{method}.txt")) as f:
+        rows = f.read().splitlines()
+    if len(rows) != steps + 1:
+        raise AssertionError(f"{label}: Ih{method}.txt has {len(rows)} rows, not {steps + 1}")
+    with open(os.path.join(out_dir, "summary.json")) as f:
+        keys = set(json.load(f))
+    if keys != SUMMARY_KEYS:
+        raise AssertionError(f"{label}: summary.json keys {sorted(keys)}")
+    sizes = ", ".join(f"{n} {os.path.getsize(os.path.join(out_dir, n))} B" for n in names)
+    say(f"{label}: artifacts written ({sizes}); Ih{method}.txt {len(rows)} rows = steps + 1")
+
+
+def drive_tier(label, cfg_path, method, steps, tmp):
+    """One run at the 6.1M-tet tier through the harness runner
+    (``run_experiment``, the CLI's code) on the config file at
+    ``cfg_path``, capped at ``steps`` steps: its set-up, first-step and
+    per-step times, the peak device memory of set-up and run above what
+    the process held before (``max_memory_allocated`` after
+    ``reset_peak_memory_stats``), the launches, ``I_h`` finite and
+    falling, and the artifacts. MM-ADMM launches K4 in float64 once an
+    ADMM iteration (the thrown-away first step's included), every other
+    count 0; explicit and backward Euler (the compact path) launch
+    nothing. Returns ``(result, mesh, integrator, loop infos, launches)``."""
+    import os
+
+    from mmadmm_tpu_torch import load_experiment_config
+    from mmadmm_tpu_torch.harness.runner import run_experiment
+
+    cfg = load_experiment_config(cfg_path, method=method)
+    cfg.n_steps = steps
+    out = os.path.join(tmp, f"{cfg.name}_m{method}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_counts()
+    res, mesh, integ, infos = recorded(lambda: run_experiment(cfg, out_dir=out))
+    torch.cuda.synchronize()
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    ih = res.ih_trace
+    inner = ([i.n_iters for i in infos] if method == 0 else
+             [i.n_newton for i in infos] if method == 2 else "none (explicit)")
+    say(f"{label}: {type(integ).__name__}, {mesh.dtype}, {mesh.n_pnts} nodes, {mesh.n_elements} "
+        f"elements{f', {integ.NFd} slots' if hasattr(integ, 'NFd') else ''}; set-up "
+        f"{res.setup_time:.2f} s, first step (thrown away) {res.compile_time:.2f} s, "
+        f"{res.n_steps} steps in {res.loop_time:.2f} s = {1e3 * res.loop_time / res.n_steps:.1f} ms "
+        f"per step; {'ADMM' if method == 0 else 'Newton'} iterations per step {inner} (the "
+        f"first step's first); peak device memory {peak / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before it; Ih trace {ih}")
+    if res.n_steps != steps or len(infos) != steps + 1:
+        raise AssertionError(f"{label}: {res.n_steps} steps ({len(infos)} step calls), "
+                             f"expected {steps}")
+    if res.failed or not all(math.isfinite(v) for v in ih) or not ih[-1] < ih[0]:
+        raise AssertionError(f"{label}: I_h not finite and falling: {ih}")
+    if method == 0:
+        want = {"prox3d_f64": sum(i.n_iters for i in infos)}
+        expect(label, launched, want)
+        say(f"{label}: K4 float64 launches {launched['prox3d_f64']} = ADMM iterations "
+            f"{want['prox3d_f64']} ({sum(i.n_iters for i in infos[1:])} in the loop), every "
+            f"other count 0")
+    else:
+        expect(label, launched, {})
+        say(f"{label}: every kernel launch count 0 (the compact path)")
+    check_artifacts(label, out, method, steps)
+    shutil.rmtree(out)
+    return res, mesh, integ, infos[1:], launched
+
+
+def compare_tier_k4(label, integ):
+    """K4 float64 at the tier: one launch over every slot of the step-0
+    prox inputs, held bit for bit to its plain version run on slabs of
+    ``TIER_SLAB`` slots (an element's result depends on no other); its
+    wrapper call and bare device time, and its bound on these inputs."""
+    from mmadmm_tpu_torch.ops import prox3d as P3
+
+    (z, dxpu, free, cells), args = prox_call(integ)
+    n = z.shape[1]
+    zk, ihk = P3.prox3d(z, dxpu, free, cells, *args)
+    torch.cuda.synchronize()
+    slabs = [slice(a, min(a + TIER_SLAB, n)) for a in range(0, n, TIER_SLAB)]
+
+    def plain(stats=None):
+        return [P3.prox3d_plain(*(t[:, s].contiguous() for t in (z, dxpu, free, cells)), *args,
+                                stats=stats) for s in slabs]
+
+    t = time.perf_counter()
+    out = plain()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    for s, (zp, ihp) in zip(slabs, out):
+        if not (torch.equal(zk[:, s], zp) and torch.equal(ihk[s], ihp)):
+            err = float((zk[:, s] - zp).abs().max())
+            raise AssertionError(f"{label}: K4 float64 not bit-equal to its plain version on "
+                                 f"slots {s.start}-{s.stop} (max |z' err| {err:.3e})")
+    del out
+    stats = {}
+    per_elem4 = 12 + 12 + 12 + 216 + 12 + 1
+    b = bound(lambda: plain(stats), n * per_elem4, f64=True)
+
+    def call():
+        return P3.prox3d(z, dxpu, free, cells, *args)
+
+    ms = (time_kernel(call, n=5), time_bare(P3, call, runs=1))
+    say(f"K4 float64 vs plain, {label} step 0: {n} slots, bit-equal (z', ih0) on 100.00% of "
+        f"elements, the plain version on {len(slabs)} slabs of at most {TIER_SLAB} slots in "
+        f"{plain_s:.2f} s; {ms[0]:.4f} ms a call of the wrapper (median of 5 calls), "
+        f"{ms[1]:.4f} ms a launch of its C entry (20 back-to-back launches); bound "
+        f"{b[0]:.4f} ms by {b[1]} ({b[2]:.4e} operations at 33.5 TFLOP/s, {b[3]} bytes at "
+        f"3.35 TB/s), the C entry at {100 * b[0] / ms[1]:.1f} % of it; {work(stats)}")
+
+
+def cli_monitor3320r(tmp, dtype=None):
+    """``Experiments/InputFiles/Monitor3320r.json`` through the CLI
+    (``mmadmm_tpu_torch.run.main``), ``TIER_CLI_STEPS`` steps on the card:
+    as loaded (float64, the generic route: no launch; steps 0 and 1
+    against the JAX package's ``JAX_GENERIC`` values and ADMM counts) or
+    with ``--dtype float32`` (the stock engine with K1: launches = ADMM
+    iterations; step 0 within rtol 1e-6 of the JAX package's). Returns the
+    launch counts."""
+    import os
+
+    from mmadmm_tpu_torch import run as cli
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "Experiments", "InputFiles", "Monitor3320r.json")
+    out = os.path.join(tmp, f"Monitor3320r_{dtype or 'as_loaded'}")
+    argv = [path, "0", "--steps", str(TIER_CLI_STEPS), "--out", out, "--device", "cuda"]
+    argv += ["--dtype", dtype] if dtype else []
+    label = f"CLI Monitor3320r {dtype or 'as loaded (float64)'}"
+    zero_counts()
+    t = time.perf_counter()
+    rc, mesh, integ, infos = recorded(lambda: cli.main(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = counts()
+    if rc != 0:
+        raise AssertionError(f"{label}: the CLI returned {rc}")
+    loop = infos[1:]
+    say(f"{label}: `python -m mmadmm_tpu_torch.run {' '.join(argv[1:])}` in {wall:.2f} s; "
+        f"{type(integ).__name__}, prox {mesh.prox_backend}, {mesh.dtype}; Ih "
+        f"{[i.ih for i in loop]}, ADMM iterations {[i.n_iters for i in loop]}; launches "
+        f"{launched}")
+    if len(loop) != TIER_CLI_STEPS:
+        raise AssertionError(f"{label}: {len(loop)} steps, not {TIER_CLI_STEPS}")
+    if dtype is None:
+        expect(label, launched, {})
+        check_jax("Monitor3320r float64", loop)
+    else:
+        want = {"prox2d": sum(i.n_iters for i in infos)}
+        expect(label, launched, want)
+        ref, ih0 = JAX_STEP0_IH["Monitor3320r"], loop[0].ih
+        if not math.isclose(ih0, ref, rel_tol=1e-6):
+            raise AssertionError(f"{label}: step-0 Ih {ih0!r} vs the JAX package's {ref!r}, "
+                                 f"outside rtol 1e-6")
+        say(f"{label}: K1 launches {want['prox2d']} = ADMM iterations (the thrown-away first "
+            f"step's included); step-0 Ih {ih0!r} within rtol 1e-6 of the JAX package's "
+            f"{ref!r} (rel {abs(ih0 / ref - 1):.2e})")
+    check_artifacts(label, out, 0, TIER_CLI_STEPS)
+    shutil.rmtree(out)
+    return launched
+
+
+def resume_on_card(tmp):
+    """Shoulder-320 in float32 (MM-ADMM, K1), 4 steps through the runner
+    with a checkpoint every 2, against 2 steps, the step-2 checkpoint, a
+    resume and 2 more: the step-4 checkpoints of the two runs hold the same
+    state bit for bit (``x`` first), and the resumed run's energies equal
+    the uninterrupted run's."""
+    import os
+
+    import numpy as np
+
+    from mmadmm_tpu_torch import ExperimentConfig
+    from mmadmm_tpu_torch.harness.runner import run_experiment
+
+    cfg = ExperimentConfig(
+        name="Shoulder-320", test_type="Shoulder", dim=2, mon_type=1, nx=320, ny=320,
+        dt=5e-3, tau=0.1, rho=50.0, dtype="float32", n_steps=4, dt_tol=1e-12,
+    )
+    a, b = os.path.join(tmp, "resume_full"), os.path.join(tmp, "resume_b")
+    t = time.perf_counter()
+    full = run_experiment(cfg, out_dir=a, checkpoint_every=2)
+    part = run_experiment(cfg, out_dir=b, checkpoint_every=2,
+                          resume_from=os.path.join(a, "checkpoints", "step_000002.npz"))
+    wall = time.perf_counter() - t
+    with np.load(os.path.join(a, "checkpoints", "step_000004.npz")) as za, \
+            np.load(os.path.join(b, "checkpoints", "step_000004.npz")) as zb:
+        if sorted(za.files) != sorted(zb.files):
+            raise AssertionError(f"resume: checkpoint keys {za.files} vs {zb.files}")
+        differ = [k for k in za.files if not np.array_equal(za[k], zb[k])]
+        keys = za.files
+    if differ or part.n_steps != 4 or part.ih_trace[1:] != full.ih_trace[3:]:
+        raise AssertionError(f"resume: fields {differ} differ, or the energies "
+                             f"{part.ih_trace[1:]} vs {full.ih_trace[3:]}")
+    say(f"resume on the card, Shoulder-320 float32: 4 steps against 2 + checkpoint + resume + 2 "
+        f"({wall:.2f} s for both runs): the step-4 state bit-equal in every field "
+        f"({', '.join(k for k in keys if k != 'config')}); steps 2-3 Ih {part.ih_trace[1:]} as "
+        f"the uninterrupted run's")
+    shutil.rmtree(a)
+    shutil.rmtree(b)
+
+
+def harness_phases():
+    """The experiment harness on the card (after every other phase, with
+    their memory handed back): 3D SquareGrid-80 and Shoulder-80 MM-ADMM in
+    float64 through the runner (the 6.1M-tet tier, K4 float64 held bit for
+    bit at step 0 and timed), methods 1 and 2 at SquareGrid-80, Monitor3320r
+    through the CLI in both dtypes, and a checkpointed and resumed run.
+    The configs are written with ``make_config_json``, as a user writes
+    them. Returns the launch counts by path."""
+    import os
+    import tempfile
+
+    from mmadmm_tpu_torch.harness.experiments import make_config_json
+
+    launched = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for label, test_type, mon in (("3D SquareGrid-80", "SquareGrid", 1),
+                                      ("3D Shoulder-80", "Shoulder", 0)):
+            path = make_config_json(os.path.join(tmp, f"{label.split()[1].replace('-', '')}.json"),
+                                    dim=3, test_type=test_type, mon_type=mon, nx=TIER_N,
+                                    dt=5e-3, tau=0.1, rho=50.0, dt_tol=TIER_DT_TOL)
+            _, mesh, integ, _, launched[label] = drive_tier(f"tier {label} MM-ADMM", path, 0,
+                                                            TIER_STEPS, tmp)
+            if type(integ).__name__ != "SoAADMM3D" or mesh.dtype != torch.float64:
+                raise AssertionError(f"{label}: {type(integ).__name__} in {mesh.dtype}, not the "
+                                     f"3D stencil engine in float64")
+            compare_tier_k4(label, integ)
+            del mesh, integ
+            if label.endswith("SquareGrid-80"):
+                square = path
+        for method in (1, 2):
+            _, _, _, _, launched[f"SquareGrid-80 m{method}"] = drive_tier(
+                f"tier 3D SquareGrid-80 {'explicit' if method == 1 else 'backward'} Euler", square,
+                method, TIER_EULER_STEPS, tmp)
+        for dtype in (None, "float32"):
+            launched[f"CLI Monitor3320r {dtype or 'float64'}"] = cli_monitor3320r(tmp, dtype)
+        resume_on_card(tmp)
+    return launched
+
+
+def kernel_and_path_phases() -> list:
+    """Every kernel against its plain version, the main paths and the
+    kernels' timing (steps 3-5 of the module docstring). Returns the rows
+    of the kernels line; everything else it made is handed back on
+    return."""
     from mmadmm_tpu_torch.ops import be2d as B
     from mmadmm_tpu_torch.ops import prox2d as P
     from mmadmm_tpu_torch.ops import prox3d as P3
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    say(f"device: {kind}; {smi}; max SM clock {clock} (the peak rates' clock); torch "
-        f"{torch.__version__}, CUDA {torch.version.cuda}")
-
-    # ---- build ---------------------------------------------------------------
-    t = time.perf_counter()
-    cuda_build.build(["prox2d", "be2d", "prox3d"])
-    P.library()
-    B.library()
-    P3.library()
-    say(f"build: prox2d, be2d and prox3d (K4, K4' and K4'') together in "
-        f"{time.perf_counter() - t:.2f} s")
-    for name in ("prox2d", "be2d", "prox3d"):
-        for line in cuda_build.ptxas_report(name).splitlines():
-            say(f"ptxas {name}: {line.strip()}")
-    say("resident on each SM (occupancy calculator): " + "; ".join(
-        f"{entry} {b} blocks of {t} threads = {b * t // 32} warps"
-        for entry, (b, t) in P3.residency().items()))
 
     # ---- kernels vs plain ------------------------------------------------------
     _, _, small = shoulder(16)
@@ -1569,6 +1864,56 @@ def main() -> int:
         f"3D MM-ADMM {launched3}, stock engine {launched_s}, generic route {launched_g}, "
         f"K4'' {launched_k}, float64 stencil engines {launched64}, float64 kernel route "
         f"{launched64s}")
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mmadmm_tpu_torch import cuda_build
+    from mmadmm_tpu_torch.ops import be2d as B
+    from mmadmm_tpu_torch.ops import prox2d as P
+    from mmadmm_tpu_torch.ops import prox3d as P3
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    say(f"device: {kind}; {smi}; max SM clock {clock} (the peak rates' clock); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- build ---------------------------------------------------------------
+    t = time.perf_counter()
+    cuda_build.build(["prox2d", "be2d", "prox3d"])
+    P.library()
+    B.library()
+    P3.library()
+    say(f"build: prox2d, be2d and prox3d (K4, K4' and K4'') together in "
+        f"{time.perf_counter() - t:.2f} s")
+    for name in ("prox2d", "be2d", "prox3d"):
+        for line in cuda_build.ptxas_report(name).splitlines():
+            say(f"ptxas {name}: {line.strip()}")
+    say("resident on each SM (occupancy calculator): " + "; ".join(
+        f"{entry} {b} blocks of {t} threads = {b * t // 32} warps"
+        for entry, (b, t) in P3.residency().items()))
+
+    rows = kernel_and_path_phases()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"handed back before the harness phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"still allocated")
+    launched_h = harness_phases()
+    say(f"launches by harness path: {launched_h}")
+    row_of = {r["name"]: r for r in rows}
+    for name in ("prox3d_f64", "prox2d"):
+        row_of[name]["launches"] += sum(v.get(name, 0) for v in launched_h.values())
     print(json.dumps({"kernels": rows}), flush=True)
     say(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..mesh import MovingMesh
@@ -136,3 +137,18 @@ class ADMMIntegrator(ADMMBase):
 
     def energy(self, state: ADMMState) -> float:
         return float(self.mesh.energy(state.x))
+
+    def output_x(self, state: ADMMState, fname: str) -> str:
+        """Debug dump of the node positions, one comma-separated point a
+        line (``MeshIntegrator::outputX``, MeshIntegrator.cpp:219-232)."""
+        np.savetxt(fname, state.x.detach().cpu().numpy(), delimiter=", ", fmt="%.17g")
+        return fname
+
+    def output_z(self, state: ADMMState, fname: str) -> str:
+        """Debug dump of the element-stacked vertex vector ``z = D x``, one
+        comma-separated row per element-vertex slot
+        (``MeshIntegrator::outputZ``, MeshIntegrator.cpp:234-246; NF (D+1)
+        rows, the reference's ``z->rows()/D``)."""
+        z = self.mesh.gather(state.x).detach().cpu().numpy()
+        np.savetxt(fname, z.reshape(-1, self.mesh.dim), delimiter=", ", fmt="%.17g")
+        return fname

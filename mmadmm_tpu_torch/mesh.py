@@ -98,6 +98,7 @@ class MovingMesh:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
 
         self._X_np, self._F_np = X, F
+        self.mask_np = mask  # NodeType per node, as the run artifacts' mask.txt
         fixed_v = mask[F] == NodeType.BOUNDARY_FIXED  # [NF, D+1]
         self._elem_free_np = np.repeat(~fixed_v[:, :, None], D, axis=2).astype(np.float64)
         self.X0 = t(X)

@@ -42,7 +42,7 @@ def grid_nn_map(X: np.ndarray, lo: np.ndarray, hi: np.ndarray, n: int) -> np.nda
     nn = np.empty(q.shape[0], dtype=np.int64)
     rows, k = np.arange(q.shape[0]), min(_K, X.shape[0])
     while rows.size:
-        _, idx = tree.query(q[rows], k=k)
+        _, idx = tree.query(q[rows], k=k, workers=-1)  # every core; the same result
         idx = idx.reshape(rows.size, k)
         dist = dsq(q[rows], idx)
         best = dist.min(1)

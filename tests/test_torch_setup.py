@@ -164,6 +164,8 @@ def test_euler_routes_off_the_stencil_engine_run_compact(change, engine):
 
 @pytest.mark.parametrize("change,item", [
     (dict(n_devices=2), "A15"),
+    # the CLI's nDevices argument: more than one card
+    (dict(cli_devices=2), "A15"),
     # a monitor that is not symmetric needs the narrow cell path, in 2D and 3D
     (dict(monitor=_skewed), "A16"), (dict(dim=3, nz=4, monitor=_skewed), "A16"),
 ])
@@ -173,7 +175,13 @@ def test_unported_routes_name_their_roadmap_item(change, item, monkeypatch):
     monitor = kw.pop("monitor", None)
     if monitor is not None:
         monkeypatch.setattr(problems, "get_monitor", lambda dim, mon_type: monitor)
+    cli_devices = kw.pop("cli_devices", None)
     with pytest.raises(NotImplementedError, match=item):
+        if cli_devices is not None:
+            from mmadmm_tpu_torch.run import main
+
+            main([os.path.join(REPO, "Experiments", "InputFiles", "Monitor3320r.json"), "0",
+                  str(cli_devices), "--device", "cpu"])
         build_problem(ExperimentConfig(**kw), device="cpu")
 
 
