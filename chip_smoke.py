@@ -102,7 +102,7 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    launches with (elements, one thread each);
 6. the experiment harness (``mmadmm_tpu_torch.harness``, the CLI's code),
    after every earlier phase has handed its memory back, its launches
-   added to the kernels line's (K4 float64, K1), which prints after it: the 6.1M-tet
+   added to the kernels line's (K4 float64, K1): the 6.1M-tet
    tier, 3D SquareGrid-80 (MonType 1, 6,144,000 tets) and 3D Shoulder-80
    (MonType 0, 5,376,000 live tets in 6,144,000 slots), dt 5e-3, tau 0.1,
    rho 50, in float64 as a JSON config written by ``make_config_json``
@@ -121,7 +121,23 @@ Drives ``mmadmm_tpu_torch`` (never JAX or ``mmadmm_tpu``) on the card:
    the JAX package's) and with ``--dtype float32`` (K1 launches = ADMM
    iterations, step 0 against the JAX package's); Shoulder-320 in float32
    for 4 steps against 2 steps, a checkpoint, a resume and 2 more (the
-   step-4 state bit-equal).
+   step-4 state bit-equal);
+7. runs over ranks (``mmadmm_tpu_torch.parallel``), two and three
+   processes on the one card over gloo (NCCL refuses two ranks on one
+   device), each held to the one-card run of the same configuration: the
+   dry run's problem (``mmadmm_tpu_torch.dryrun``: 2D SquareGrid nx=22 in
+   float64, 3 MM-ADMM steps and one step of each Euler method; ``I_h``
+   within 1e-9, equal counts) on 2 and 3 ranks; on 2 ranks, Monitor3320r
+   in float32 on the sharded stock engine with K1 (10 steps), 3D
+   CompSquare-40 in float64 with K4' (4 steps), explicit and backward
+   Euler (``hess``) at Monitor3320r in float64 (2 steps each): on every
+   rank K1 and K4' float64 bit-equal to their plain versions on the
+   rank's step-0 shard inputs and launched once an ADMM iteration, every
+   rank reading the same ``I_h`` bits, ``I_h`` within ``SHARD_RTOL`` of
+   the one-card run (rel 1e-5 for float32, 1e-9 for float64) and the
+   float64 counts equal; the ranks' ms a step printed beside the one
+   card's (two processes sharing a card: no scaling number). Their K1 and
+   K4' launches are added to the kernels line, which prints after it.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 1
@@ -298,20 +314,20 @@ def box3d(test_type: str, mon_type: int, n: int, device: str = "cuda",
 
 
 def comp_square(n: int, device: str = "cuda", dtype: str = "float32", prox_chord=None,
-                prox_backend: str = "auto", method: int = 0):
+                prox_backend: str = "auto", method: int = 0, group=None):
     """3D MM-ADMM (or ``method``) on the stock engine: an n^3 SquareGrid box
     mesh on its computational mesh, MonType 5, rho 10 (the 3DMonitor3
     family as the JAX package's tests set it,
     tests/test_prox_pallas3d.py:137-143). In float64,
     ``prox_backend="pallas"`` takes the float64 kernels, "auto" the generic
-    prox."""
+    prox. With ``group``, this rank's part of a run over its ranks."""
     from mmadmm_tpu_torch import ExperimentConfig, build_problem
 
     cfg = ExperimentConfig(
         test_type="SquareGrid", dim=3, mon_type=5, method=method, comp_mesh=True, nx=n, ny=n,
         nz=n, dt=5e-3, tau=0.1, rho=10.0, dtype=dtype, prox_backend=prox_backend,
     )
-    mesh, integ = build_problem(cfg, device=device, prox_chord=prox_chord)
+    mesh, integ = build_problem(cfg, device=device, prox_chord=prox_chord, group=group)
     return cfg, mesh, integ
 
 
@@ -344,10 +360,11 @@ def generic(test_type: str, n: int, device: str = "cuda", **kw):
     return cfg, mesh, integ
 
 
-def monitor3320r(device: str = "cuda", as_loaded: bool = False, method: int = 0):
+def monitor3320r(device: str = "cuda", as_loaded: bool = False, method: int = 0, group=None):
     """``Experiments/InputFiles/Monitor3320r.json`` as shipped: in float32
     on the kernel route, or ``as_loaded`` (float64, the generic route);
-    MM-ADMM or ``method``."""
+    MM-ADMM or ``method``; with ``group``, this rank's part of a run over
+    its ranks."""
     import os
 
     from mmadmm_tpu_torch import build_problem, load_experiment_config
@@ -357,7 +374,7 @@ def monitor3320r(device: str = "cuda", as_loaded: bool = False, method: int = 0)
                                               "Monitor3320r.json"), method=method)
     if not as_loaded:
         cfg.dtype = "float32"
-    mesh, integ = build_problem(cfg, device=device)
+    mesh, integ = build_problem(cfg, device=device, group=group)
     return cfg, mesh, integ
 
 
@@ -392,7 +409,7 @@ def stock_inputs(integ, state=None):
 
     args = (ch(z), ch(dxpu), ch(integ.free), element_cell_rows(integ.mesh.grid, z))
     if integ.mesh.comp_mesh:
-        args += (ch(integ.mesh.elem_ehat),)
+        args += (ch(integ.ehat),)
     return args
 
 
@@ -1379,6 +1396,169 @@ def harness_phases():
     return launched
 
 
+# ---- runs over ranks (ROADMAP A15): 2 ranks on the one card over gloo --------
+SHARD_RANKS = 2
+SHARD_BACKEND = "gloo"  # NCCL refuses two ranks on one device
+SHARD_TIMEOUT_S = 600  # a rank that fails or hangs ends the run
+SHARD_K1 = "Monitor3320r float32 K1"
+SHARD_K4C = "3D CompSquare-40 float64 K4'"
+SHARD_EULER = "explicit Euler Monitor3320r float64"
+SHARD_BE = "backward Euler (hess) Monitor3320r float64"
+# steps and the I_h band against the one-card run of the same configuration
+SHARD_STEPS = {SHARD_K1: 10, SHARD_K4C: 4, SHARD_EULER: 2, SHARD_BE: 2}
+SHARD_RTOL = {SHARD_K1: 1e-5, SHARD_K4C: 1e-9, SHARD_EULER: 1e-9, SHARD_BE: 1e-9}
+
+
+def shard_steps(integ, steps, group=None):
+    """``steps`` steps from the initial state, every launch count set to 0
+    just before and read just after: ``{ih, counts, launches, ms}``. The
+    ranks of ``group`` start the clock together (an all-reduce first), so
+    no rank's time holds its wait for another's set-up."""
+    state = integ.init_state()
+    if group is not None:
+        group.all_reduce_sum(torch.zeros(1, device=group.device))
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    ih, inner = [], []
+    for _ in range(steps):
+        state, info = integ.step(state)
+        ih.append(info.ih)
+        inner.append(getattr(info, "n_iters", getattr(info, "n_newton", 0)))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / steps
+    if not all(math.isfinite(v) for v in ih) or not bool(torch.isfinite(state.x).all()):
+        raise AssertionError(f"non-finite energy or positions: {ih}")
+    return dict(ih=ih, counts=inner, launches=counts(), ms=ms)
+
+
+def shard_admm(label, integ, name, kernel, plain, args, group=None):
+    """A kernel-route MM-ADMM path on this rank's shard (or one card): the
+    kernel against its plain version on the rank's step-0 prox inputs,
+    then ``SHARD_STEPS`` steps; the kernel's launches must equal the ADMM
+    iterations, every other count 0."""
+    inputs = stock_inputs(integ)
+    zk, ihk = kernel(*inputs, *args)
+    zp, ihp = plain(*inputs, *args)
+    out = shard_steps(integ, SHARD_STEPS[label], group)
+    expect(label, out["launches"], {name: sum(out["counts"])})
+    out.update(equal=torch.equal(zk, zp) and torch.equal(ihk, ihp), elements=inputs[0].shape[1],
+               err=max(float((zk - zp).abs().max()), float((ihk - ihp).abs().max())))
+    return out
+
+
+def shard_paths(group=None):
+    """The sharded phase's paths on this rank of ``group``, or on the one
+    card with ``group=None``: Monitor3320r in float32 on the kernel route
+    (K1), 3D CompSquare-40 in float64 on the kernel route (K4' float64),
+    explicit and backward Euler (``hess``) at Monitor3320r in float64."""
+    from mmadmm_tpu_torch.integrators.backward_euler import BackwardEulerIntegrator
+    from mmadmm_tpu_torch.ops import prox2d as P
+    from mmadmm_tpu_torch.ops import prox3d as P3
+
+    out = {}
+    _, mesh, integ = monitor3320r(group=group)
+    out[SHARD_K1] = shard_admm(SHARD_K1, integ, "prox2d", P.prox2d, P.prox2d_plain,
+                               (mesh.ehat_np.reshape(-1), integ.w, integ.prox_tol,
+                                integ.prox_max_iters), group)
+    _, mesh, integ = comp_square(40, dtype="float64", prox_chord=True, prox_backend="pallas",
+                                 group=group)
+    out[SHARD_K4C] = shard_admm(SHARD_K4C, integ, "prox3d_chord_comp_f64", P3.prox3d_chord_comp,
+                                P3.prox3d_chord_comp_plain,
+                                (integ.w, integ.prox_tol, integ.prox_max_iters), group)
+    del mesh, integ
+    for label, method in ((SHARD_EULER, 1), (SHARD_BE, 2)):
+        cfg, mesh, integ = monitor3320r(as_loaded=True, method=method, group=group)
+        if method == 2:
+            integ = BackwardEulerIntegrator(mesh, cfg.dt, tol=cfg.step_tol, krylov_solver="hess",
+                                            group=group)
+        out[label] = shard_steps(integ, SHARD_STEPS[label], group)
+        expect(label, out[label]["launches"], {})
+        del mesh, integ
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_rank(group):
+    """One rank of the sharded phase: the dry run's traces and the paths."""
+    from mmadmm_tpu_torch.dryrun import rank_traces
+
+    return {"backend": group.backend, "device": str(group.device),
+            "dryrun": rank_traces(group), "paths": shard_paths(group)}
+
+
+def sharded_phase():
+    """Runs over ranks (ROADMAP A15), ``SHARD_RANKS`` ranks on the one card
+    over gloo: the dry run's problem (2D SquareGrid nx=22, float64) on
+    ``n_ranks`` and 3 ranks against one card (``I_h`` within 1e-9, equal
+    ADMM counts, one step of each Euler method), and ``shard_paths`` on
+    ``n_ranks`` against one card: K1 and K4' float64 launched on every
+    rank and bit-equal to their plain versions on the rank's step-0 shard
+    inputs, ``I_h`` within ``SHARD_RTOL`` of the one-card run, the float64
+    counts equal (the float32 ones printed beside each other). Ranks that
+    share a card give no scaling number. Returns the ranks' launches of K1
+    and K4' float64."""
+    from mmadmm_tpu_torch import dryrun as DR
+    from mmadmm_tpu_torch.parallel import launch
+
+    n_ranks, backend = SHARD_RANKS, SHARD_BACKEND
+    t = time.perf_counter()
+    one = shard_paths()
+    one_dry = {m: DR.trace(None, m, DR.N_STEPS if m == 0 else 1, "cuda") for m in (0, 1, 2)}
+    say(f"sharded phase: one-card runs in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ranks = launch(_shard_rank, n_ranks, backend=backend, device="cuda",
+                   timeout_s=SHARD_TIMEOUT_S)
+    say(f"sharded phase: {n_ranks} ranks over {ranks[0]['backend']} on "
+        f"{[r['device'] for r in ranks]} in {time.perf_counter() - t:.1f} s (spawn included)")
+    t = time.perf_counter()
+    three = launch(DR.rank_traces, 3, backend=backend, device="cuda", timeout_s=SHARD_TIMEOUT_S)
+    say(f"sharded phase: 3 ranks over {backend} in {time.perf_counter() - t:.1f} s")
+    for k, runs in ((n_ranks, [r["dryrun"] for r in ranks]), (3, three)):
+        for m in (0, 1, 2):
+            ihs1, counts1 = one_dry[m]
+            for r, run in enumerate(runs):
+                ihs, cnt = run[m]
+                if not (DR._close(ihs1, ihs) and cnt == counts1):
+                    raise AssertionError(f"dry run method {m}, rank {r} of {k}: {ihs} {cnt} "
+                                         f"against one card {ihs1} {counts1}")
+        say(f"dry run on {k} ranks: MM-ADMM I_h {runs[0][0][0]} ADMM {runs[0][0][1]}, Euler "
+            f"{runs[0][1][0]}, backward Euler {runs[0][2][0]} Newton {runs[0][2][1]}: within "
+            f"{DR.RTOL} of one card, equal counts")
+    launched = {}
+    for label in SHARD_STEPS:
+        ref = one[label]
+        for r, rank in enumerate(ranks):
+            got = rank["paths"][label]
+            if got["ih"] != ranks[0]["paths"][label]["ih"]:
+                raise AssertionError(f"{label}: rank {r} read other I_h bits than rank 0")
+            if "equal" in got and not got["equal"]:
+                raise AssertionError(f"{label}, rank {r}: the kernel differs from its plain "
+                                     f"version on the rank's step-0 inputs (max err {got['err']})")
+            worst = max(abs(a - b) / abs(b) for a, b in zip(got["ih"], ref["ih"]))
+            if worst > SHARD_RTOL[label]:
+                raise AssertionError(f"{label}, rank {r}: I_h {got['ih']} against one card "
+                                     f"{ref['ih']} (rel {worst:.3e} > {SHARD_RTOL[label]})")
+            if SHARD_RTOL[label] < 1e-6 and got["counts"] != ref["counts"]:
+                raise AssertionError(f"{label}, rank {r}: counts {got['counts']} against one "
+                                     f"card {ref['counts']}")
+        kernel = {k: v for k, v in ranks[0]["paths"][label]["launches"].items() if v}
+        for name in kernel:
+            launched[name] = launched.get(name, 0) + sum(rank["paths"][label]["launches"][name]
+                                                         for rank in ranks)
+        got = ranks[0]["paths"][label]
+        shard = (f"; kernel bit-equal to its plain version on each rank's step-0 shard "
+                 f"({[rank['paths'][label]['elements'] for rank in ranks]} elements; one card "
+                 f"{ref['elements']})" if "equal" in got else "")
+        say(f"{label}: {n_ranks} ranks, launches a rank {kernel or 'none'}; I_h "
+            f"{got['ih']} (one card {ref['ih']}), counts {got['counts']} (one card "
+            f"{ref['counts']}); ms a step {[round(rank['paths'][label]['ms'], 1) for rank in ranks]}"
+            f" on the ranks ({[rank['device'] for rank in ranks]}), {ref['ms']:.1f} on one "
+            f"card{shard}")
+    return launched
+
+
 def kernel_and_path_phases() -> list:
     """Every kernel against its plain version, the main paths and the
     kernels' timing (steps 3-5 of the module docstring). Returns the rows
@@ -1911,8 +2091,9 @@ def main() -> int:
         f"still allocated")
     launched_h = harness_phases()
     say(f"launches by harness path: {launched_h}")
+    launched_h["ranks"] = sharded_phase()
     row_of = {r["name"]: r for r in rows}
-    for name in ("prox3d_f64", "prox2d"):
+    for name in ("prox3d_f64", "prox2d", "prox3d_chord_comp_f64"):
         row_of[name]["launches"] += sum(v.get(name, 0) for v in launched_h.values())
     print(json.dumps({"kernels": rows}), flush=True)
     say(f"all phases passed in {time.perf_counter() - T0:.1f} s")

@@ -26,7 +26,12 @@ stencil engines and the stock element-major engine, through
   ``ops.prox2d.prox_elements`` (K1) or ``ops.prox3d.prox_elements``
   (K4' on a computational mesh, ``csrc/prox3d.cu``; K4 otherwise) in
   float32, the generic prox (``ops/prox.py``) in float64 unless
-  ``prox_backend="pallas"`` asks for K1 or K4 in float64.
+  ``prox_backend="pallas"`` asks for K1 or K4 in float64;
+* a run over several devices (``n_devices > 1``): ranks of
+  ``torch.distributed`` (``parallel``), each on its shard of the elements,
+  MM-ADMM on ``integrators.admm.ShardedADMMIntegrator`` (the same prox
+  routes, on the rank's elements) and Euler and backward Euler on
+  ``ops.compact_eg.ShardedEG``.
 """
 
 from .config import ExperimentConfig, load_experiment_config

@@ -20,9 +20,9 @@ from .runner import run_experiment
 FUNS = """
 run_one()                  -- run a single config (any method)
 run_method_comparison()    -- methods 0/1/2 on one config (Single*.json)
-run_device_scaling()       -- device-count sweep (Para*.json analogue; one card)
+run_device_scaling()       -- device-count sweep (Para*.json analogue)
 run_grid_scale()           -- grid-size sweep over <name><n>.json configs
-run_simultaneous_experiment() -- matched size/device sweep (Simul*.json; one card)
+run_simultaneous_experiment() -- matched size/device sweep (Simul*.json)
 compare_to_reference()     -- parity report vs a recorded Ih<m>.txt trace
 create_input()             -- write a reference-schema config JSON
 exit()
@@ -35,60 +35,60 @@ def _cfg_path(name: str) -> str:
     return os.path.join(exps.INPUTS, f"{name}.json")
 
 
-def run_one(device=None):
+def run_one(**run_kw):
     name = input("config name = ")
     method = int(input("method (0 1 2) = ") or "0")
     cfg = load_experiment_config(_cfg_path(name), method=method)
-    res = run_experiment(cfg, out_dir=f"Results/{cfg.name}", verbose=True, device=device)
+    res = run_experiment(cfg, out_dir=f"Results/{cfg.name}", verbose=True, **run_kw)
     print(f"final Ih={res.final_ih:.8g} steps={res.n_steps} "
           f"loop_time={res.loop_time:.2f}s")
 
 
-def run_method_comparison(device=None):
+def run_method_comparison(**run_kw):
     name = input("config name = ")
-    out = exps.run_method_comparison(_cfg_path(name), out_dir=f"Results/{name}", device=device)
+    out = exps.run_method_comparison(_cfg_path(name), out_dir=f"Results/{name}", **run_kw)
     for m, r in out["methods"].items():
         print(f"method {m}: {r['mean_time']:.2f}s final_ih={r['final_ih']:.8g}")
 
 
-def run_device_scaling(device=None):
+def run_device_scaling(**run_kw):
     name = input("config name = ")
-    counts = input("device counts (default 1) = ") or "1"
+    counts = input("device counts (default 1 2 4 8) = ") or "1 2 4 8"
     out = exps.run_device_scaling(
         _cfg_path(name), device_counts=[int(c) for c in counts.split()],
-        out_dir=f"Results/{name}", device=device,
+        out_dir=f"Results/{name}", **run_kw,
     )
     for nd, r in out["devices"].items():
         print(f"{nd} devices: {r['mean_time']:.2f}s "
               f"({r['steps_per_s']:.2f} steps/s)")
 
 
-def run_grid_scale(device=None):
+def run_grid_scale(**run_kw):
     name = input("test name (config prefix) = ")
     input_dir = input(f"input dir (default {exps.INPUTS}) = ") or exps.INPUTS
-    exps.run_grid_scale(input_dir, name, out_dir=f"Results/{name}", device=device)
+    exps.run_grid_scale(input_dir, name, out_dir=f"Results/{name}", **run_kw)
 
 
-def run_simultaneous_experiment(device=None):
+def run_simultaneous_experiment(**run_kw):
     name = input("test name (config prefix) = ")
     input_dir = input(f"input dir (default {exps.INPUTS}) = ") or exps.INPUTS
     out = exps.run_simultaneous_experiment(
-        input_dir, name, out_dir=f"Results/{name}", device=device
+        input_dir, name, out_dir=f"Results/{name}", **run_kw
     )
     for cfg, rec in out["configs"].items():
         for key, times in rec.items():
             print(f"{cfg} {key}: mean {sum(times)/len(times):.2f}s")
 
 
-def compare_to_reference(device=None):
+def compare_to_reference(**run_kw):
     name = input("config name = ")
     method = int(input("method (0 1 2) = ") or "0")
     cfg = load_experiment_config(_cfg_path(name), method=method)
-    res = run_experiment(cfg, device=device)
+    res = run_experiment(cfg, **run_kw)
     print(exps.compare_to_reference(res, name, method))
 
 
-def create_input(device=None):
+def create_input(**run_kw):
     out = input("output path = ")
     dim = int(input("Dim (2 3) = ") or "2")
     keys = ["test_type", "mon_type", "n_steps", "dt", "tau", "rho", "nx"]
@@ -115,7 +115,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="interactive experiment menu")
     ap.add_argument("--device", default=None, choices=["cpu", "cuda"],
                     help="where the runs go (default: the card)")
-    device = ap.parse_args(argv).device
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="the ranks' backend (default: nccl on the card, gloo on the CPU)")
+    args = ap.parse_args(argv)
+    run_kw = dict(device=args.device, backend=args.backend)
     while True:
         print(FUNS)
         choice = input("experiments> ").strip()
@@ -126,7 +129,7 @@ def main(argv=None):
             print(f"unknown function {choice!r}")
             continue
         try:
-            fn(device)
+            fn(**run_kw)
         except KeyboardInterrupt:
             print("\n(interrupted)")
         except Exception as e:  # keep the REPL alive like the reference

@@ -21,6 +21,15 @@ The file's keys are the JAX package's where a field means the same thing
 the engine's layout and dtype. The other fields keep their own names
 (``j_fresh``; backward Euler's ``He``, ``dvec`` and ``rebuild``). Float
 arrays are stored in float64, which holds float32 values exactly.
+
+A run over ranks saves ``x`` and ``x_prev`` replicated and ``u`` (and
+``J``) of every rank in natural element order (the runner gathers them
+and rank 0 writes), so that a file holds the same arrays whatever the
+number of ranks that wrote it and resumes on any number of ranks. (The
+JAX package saves its partition order, with the padding, and resumes only
+with the checkpoint's own device count, ``checkpoint.py:101-131``.) A
+restore drops ``u`` and ``J`` where their saved shape differs from the
+run's and builds ``J`` afresh, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -90,19 +99,24 @@ def load_checkpoint(path: str):
     return cfg, arrays
 
 
-def resume_experiment(path: str, base_dir: str | None = None, device=None):
+def resume_experiment(path: str, base_dir: str | None = None, device=None, group=None):
     """Rebuild ``(cfg, mesh, integrator, state)`` from a checkpoint file on
-    ``device`` (the card unless the caller asks for the CPU); ``base_dir``
-    overrides the config's root for FromFile paths. A tensor field whose
-    saved shape differs from the fresh state's stays as ``init_state``
-    makes it; an unrestored ``J`` is rebuilt at the next prox call."""
+    ``device`` (the card unless the caller asks for the CPU), or on this
+    rank of ``group``; ``base_dir`` overrides the config's root for
+    FromFile paths. A tensor field whose saved shape differs from the
+    fresh state's stays as ``init_state`` makes it; an unrestored ``J`` is
+    rebuilt at the next prox call."""
     from ..problems import build_problem
 
     cfg, arrays = load_checkpoint(path)
+    cfg = dataclasses.replace(cfg, n_devices=1 if group is None else group.size)
     if base_dir is not None:
         cfg = dataclasses.replace(cfg, base_dir=base_dir)
-    mesh, integ = build_problem(cfg, device)
+    mesh, integ = build_problem(cfg, device, group=group)
     state = integ.init_state()
+    sharded = hasattr(integ, "gather_state")
+    if sharded:
+        state = integ.gather_state(state)  # u and J of every element, natural order
     updates = {}
     for name, v in zip(state._fields, state):
         key = _KEY.get(name, name)
@@ -120,7 +134,8 @@ def resume_experiment(path: str, base_dir: str | None = None, device=None):
             updates[name] = type(v)(a.item())
     if "J" in state._fields and "J" not in updates:
         updates["j_fresh"] = True
-    return cfg, mesh, integ, state._replace(**updates)
+    state = state._replace(**updates)
+    return cfg, mesh, integ, integ.scatter_state(state) if sharded else state
 
 
 def checkpoint_meta(path: str) -> tuple[int, float]:

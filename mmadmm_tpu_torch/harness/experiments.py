@@ -8,8 +8,8 @@ The reference's ``experiments.py`` entry points (``run_scale_experiment``
 * ``run_method_comparison``: methods 0/1/2 on one config, wall times and
   traces (the reference's ``Single<cfg>.json`` artifact),
 * ``run_device_scaling``: a sweep of device counts (the reference swept
-  OpenMP threads 1..32; ``Para<cfg>.json``), one card until multi-GPU
-  runs are ported (ROADMAP item A15),
+  OpenMP threads 1..32; ``Para<cfg>.json``), each count a run over that
+  many ranks,
 * ``run_grid_scale`` and ``run_simultaneous_experiment``: sweeps over the
   ``<name><n>.json`` configs of a directory,
 * ``make_config_json``: a reference-schema config file,
@@ -17,7 +17,8 @@ The reference's ``experiments.py`` entry points (``run_scale_experiment``
   step by step.
 
 ``run_kw`` passes through to ``runner.run_experiment`` (``device``,
-``base_dir``, ``verbose``, ...). Bare config names resolve against this
+``backend``, ``base_dir``, ``verbose``, ...): more ranks than cards need
+``backend="gloo"``. Bare config names resolve against this
 repository's ``Experiments/`` tree (``INPUTS``, ``RESULTS``).
 """
 
@@ -75,18 +76,14 @@ def run_method_comparison(
 
 def run_device_scaling(
     cfg_path: str,
-    device_counts=(1,),
+    device_counts=(1, 2, 4, 8),
     out_dir: str | None = None,
     n_repeats: int = 1,
     **run_kw,
 ) -> dict:
     """Device-count scaling sweep, the reference's OpenMP thread sweep
-    (experiments.py:435-468) mapped to device counts. One card only: a
-    count above 1 raises before anything runs."""
-    if any(int(nd) > 1 for nd in device_counts):
-        raise NotImplementedError(
-            "device scaling over more than one card needs multi-GPU runs (ROADMAP item A15)"
-        )
+    (experiments.py:435-468) mapped to counts of ranks, one device a rank
+    (``run_kw["backend"] = "gloo"`` lets ranks share a card)."""
     results: dict = {"config": cfg_path, "devices": {}}
     for nd in device_counts:
         times = []
@@ -207,7 +204,7 @@ def run_simultaneous_experiment(
     test_name: str,
     out_dir: str | None = None,
     n_repeats: int = 3,
-    highest_pow: int = 0,
+    highest_pow: int = 5,
     **run_kw,
 ) -> dict:
     """Matched size/parallelism sweep (``run_simultaneous_experiment``,
@@ -215,13 +212,7 @@ def run_simultaneous_experiment(
     (sorted by n) runs MM-ADMM on 2^min(i, highest_pow) devices,
     ``n_repeats`` times (the reference paired growing grids with growing
     OpenMP thread counts). Dumps one ``Simul<cfg>.json`` per config in the
-    reference's ``{"(i, pow)": [times...]}`` shape. One card until
-    multi-GPU runs are ported: ``highest_pow`` above 0 raises (ROADMAP
-    item A15)."""
-    if highest_pow > 0:
-        raise NotImplementedError(
-            "a sweep over more than one card needs multi-GPU runs (ROADMAP item A15)"
-        )
+    reference's ``{"(i, pow)": [times...]}`` shape."""
     pows = [2**i for i in range(highest_pow + 1)]
     results: dict = {"test_name": test_name, "configs": {}}
     for i, (n, p) in enumerate(_sized_configs(input_dir, test_name)):

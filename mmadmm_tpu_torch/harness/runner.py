@@ -18,6 +18,12 @@ first ``torch.func`` call. Checkpoint and resume go through
 ``harness.checkpoint``. The JAX package's ``step_chunk`` (several steps in
 one ``lax.scan`` program, a TPU dispatch workaround) has no counterpart:
 every step here already reads its energy on the host.
+
+A config with ``n_devices > 1`` runs over that many ranks: inside a
+``torchrun`` rank on its group, else on ranks that ``parallel.launch``
+spawns here (``backend`` as ``parallel.group.plan`` takes it). Every rank
+steps; rank 0 prints, writes the checkpoints and the artifacts, and its
+``RunResult`` is returned.
 """
 
 from __future__ import annotations
@@ -81,6 +87,8 @@ def run_experiment(
     checkpoint_every: int = 0,
     resume_from: str | None = None,
     device=None,
+    group=None,
+    backend: str | None = None,
 ) -> RunResult:
     """Build the problem on ``device`` (the card unless the caller asks for
     the CPU) and run it to convergence; optionally write the
@@ -89,18 +97,34 @@ def run_experiment(
 
     ``resume_from``: the path of a ``harness.checkpoint`` file; the run
     picks up that checkpoint's config, integrator state, outer step index
-    and DtTol comparator instead of starting fresh."""
+    and DtTol comparator instead of starting fresh.
+
+    ``group``: this rank's ``parallel.RankGroup`` in a run over
+    ``cfg.n_devices`` ranks."""
+    if cfg.n_devices > 1 and group is None:
+        from ..parallel.group import group_from_env, in_torchrun, launch
+
+        if in_torchrun():
+            group = group_from_env(backend=backend, device=device)
+        else:
+            kw = dict(out_dir=out_dir, base_dir=base_dir, verbose=verbose,
+                      checkpoint_every=checkpoint_every, resume_from=resume_from)
+            return launch(_run_rank, cfg.n_devices, (cfg, kw), backend=backend,
+                          device=device)[0]
+    lead = group is None or group.rank == 0  # prints and writes
+    verbose = verbose and lead
     t0 = time.perf_counter()
     start_step, ih_prev0 = 0, math.inf
     if resume_from is not None:
         from .checkpoint import checkpoint_meta, resume_experiment
 
-        cfg, mesh, integ, state = resume_experiment(resume_from, base_dir, device=device)
+        cfg, mesh, integ, state = resume_experiment(resume_from, base_dir, device=device,
+                                                    group=group)
         start_step, ih_prev0 = checkpoint_meta(resume_from)
     else:
         if base_dir is not None:
             cfg = dataclasses.replace(cfg, base_dir=base_dir)
-        mesh, integ = build_problem(cfg, device)
+        mesh, integ = build_problem(cfg, device, group=group)
         state = integ.init_state()
     res = RunResult(name=cfg.name, method=cfg.method)
     res.setup_time = time.perf_counter() - t0
@@ -134,7 +158,9 @@ def run_experiment(
         # assert/exit(1), SURVEY §5.3; here: stop, keep artifacts)
         if not math.isfinite(ih):
             res.failed = True
-            print(f"[{cfg.name}] non-finite energy at step ~{step_i - 1}; stopping", flush=True)
+            if lead:
+                print(f"[{cfg.name}] non-finite energy at step ~{step_i - 1}; stopping",
+                      flush=True)
             break
         # |dIh/dt| < DtTol stop (main.cpp:200-208)
         done = step_i > 1 and abs((ih - ih_prev) / cfg.dt) < cfg.dt_tol
@@ -144,7 +170,10 @@ def run_experiment(
         if checkpoint_every and ckpt_dir and step_i % checkpoint_every == 0:
             from .checkpoint import save_checkpoint
 
-            save_checkpoint(ckpt_dir, cfg, mesh, state, step_i, ih_prev)
+            # a sharded state's u and J of every rank, in natural element order
+            saved = integ.gather_state(state) if hasattr(integ, "gather_state") else state
+            if lead:
+                save_checkpoint(ckpt_dir, cfg, mesh, saved, step_i, ih_prev)
         if done:
             res.converged = True
             break
@@ -152,7 +181,7 @@ def run_experiment(
     res.n_steps = step_i
     res.final_ih = res.ih_trace[-1]
 
-    if out_dir is not None:
+    if out_dir is not None and lead:
         os.makedirs(out_dir, exist_ok=True)
         x_final = positions(state).detach().cpu().numpy().astype(np.float64)
         mesh_io.write_points(os.path.join(out_dir, "points.txt"), x_final)
@@ -164,3 +193,8 @@ def run_experiment(
         with open(os.path.join(out_dir, "summary.json"), "w") as f:
             json.dump(res.summary(), f, indent=2)
     return res
+
+
+def _run_rank(group, cfg, kw):
+    """One spawned rank of a run over ``cfg.n_devices`` ranks."""
+    return run_experiment(cfg, group=group, device=group.device, **kw)

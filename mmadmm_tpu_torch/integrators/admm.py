@@ -1,5 +1,6 @@
 """MM-ADMM on the stock element-major engine (port of
-``mmadmm_tpu/integrators/admm.py::ADMMIntegrator``, single device;
+``mmadmm_tpu/integrators/admm.py::ADMMIntegrator``, on one device and
+over ranks;
 reference ``MeshIntegrator<D>``).
 
 It takes any mesh, structured or not: the per-element state (z, u) is
@@ -24,6 +25,13 @@ The kernels build their Hessians themselves, so the kernel route never
 carries it (``j_carry=True`` raises there).
 
 Each step is ``admm_base.ADMMBase``'s.
+
+``ShardedADMMIntegrator`` runs the same step over the ranks of a
+``parallel.RankGroup`` (``admm.py:388-640``): x is replicated, z, u and
+the carried J hold the rank's shard of the partition-ordered elements
+(``MovingMesh.shard``), padding masked by ``valid``, and the prox
+(the same route: K1 or a K4 build on the rank's own shard, or the generic
+prox) runs on the rank's elements only.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ import numpy as np
 import torch
 
 from ..mesh import MovingMesh
+from ..ops import huang
+from ..ops.monitor_grid import gather_cell
 from .admm_base import ADMMBase
 
 J_CARRY_MAX_BYTES = 400 * 2**20
@@ -86,13 +96,14 @@ class ADMMIntegrator(ADMMBase):
         self.tau, self.w = mesh.tau, mesh.w
         self.dt2w2 = self.dt * self.dt * self.w * self.w
         self.free = mesh.elem_free  # [NF, D+1, D]
+        self.xi, self.ehat = mesh.xi, mesh.elem_ehat
         self.valid = torch.ones((mesh.n_elements, 1, 1), dtype=mesh.dtype, device=mesh.device)
         self.t_diag = self.tau + self.dt2w2 * mesh.deg  # [NP]
 
     def init_state(self) -> ADMMState:
         x0 = self.mesh.X0
         D = self.mesh.dim
-        nf = self.mesh.n_elements
+        nf = self.free.shape[0]
         u = torch.zeros((nf, D + 1, D), dtype=x0.dtype, device=x0.device)
         n = D * (D + 1) if self.j_carry else 0
         J = torch.zeros((nf, n, n), dtype=x0.dtype, device=x0.device)
@@ -127,7 +138,7 @@ class ADMMIntegrator(ADMMBase):
         """The mesh's prox on every element: ``(z', ih0)``, or ``(z', ih0,
         J)`` with the carried chord Jacobian ``J_state = (J, fresh)``."""
         mesh = self.mesh
-        args = (mesh.grid, z, mesh.xi, dxpu, self.free, self.prox_tol, self.prox_max_iters)
+        args = (mesh.grid, z, self.xi, dxpu, self.free, self.prox_tol, self.prox_max_iters)
         return mesh.prox_fn(*args) if J_state is None else mesh.prox_fn(*args, J_state)
 
     def euler_grad(self, x):
@@ -152,3 +163,51 @@ class ADMMIntegrator(ADMMBase):
         z = self.mesh.gather(state.x).detach().cpu().numpy()
         np.savetxt(fname, z.reshape(-1, self.mesh.dim), delimiter=", ", fmt="%.17g")
         return fname
+
+
+class ShardedADMMIntegrator(ADMMIntegrator):
+    """MM-ADMM over the ranks of ``group``, each on its shard of the
+    elements. ``halo=True`` (the JAX default) is the owner-computes step:
+    each ``D^T`` all-reduces only the ``[C, D]`` partial sums of the nodes
+    that two or more shards touch (``admm.py:451-468``; the rows private
+    to other ranks stay incomplete here, and no element of this rank reads
+    them), and x is rebuilt once a step from the ownership mask
+    (``:587-592``). ``halo=False`` all-reduces the whole ``[NP, D]`` field
+    each time; both give the same sums, node by node."""
+
+    def __init__(self, mesh: MovingMesh, dt: float, group, *, halo: bool = True, **kw):
+        super().__init__(mesh, dt, **kw)
+        self.group = group
+        self.halo = bool(halo)
+        self.shard = sh = mesh.shard(group)
+        self.free, self.valid, self.ehat, self.xi = sh.free, sh.valid, sh.ehat, sh.xi
+
+    def gather(self, x):
+        return self.shard.gather(x)
+
+    def scatter(self, y):
+        return self.shard.scatter(y, self.halo)
+
+    def euler_grad(self, x):
+        z = self.gather(x)
+        _, g_e = huang.element_energy_grad(z, gather_cell(self.mesh.grid, z), self.ehat)
+        return self.scatter(g_e * self.free)
+
+    def reduce(self, t):
+        return self.group.all_reduce_sum(t)
+
+    def finish(self, x):
+        return self.shard.owned(x) if self.halo else x
+
+    SHARDED = ("u", "J")  # state fields that hold this rank's rows
+
+    def gather_state(self, state: ADMMState) -> ADMMState:
+        """The state with ``u`` and ``J`` of every element in natural
+        element order (a collective: every rank calls it)."""
+        return state._replace(**{f: self.shard.all_rows(getattr(state, f))
+                                 for f in self.SHARDED})
+
+    def scatter_state(self, state: ADMMState) -> ADMMState:
+        """This rank's rows of a state that ``gather_state`` made."""
+        return state._replace(**{f: self.shard.own_rows(getattr(state, f))
+                                 for f in self.SHARDED})

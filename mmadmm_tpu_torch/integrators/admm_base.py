@@ -8,7 +8,13 @@ synchronisation per ADMM iteration reads both residuals.
 The engines supply the operators: the 2D and 3D stencil engines
 (``admm_grid2d.GridADMM2D``, ``admm_soa.SoAADMM3D``) on channel-major
 slots, the stock engine (``admm.ADMMIntegrator``) on element-major
-``[NF, D+1, D]`` blocks.
+``[NF, D+1, D]`` blocks, and its sharded form
+(``admm.ShardedADMMIntegrator``) on each rank's elements. The reduction
+hook ``reduce`` is the identity on one device; over ranks it all-reduces
+the f64 ``I_h`` sum and the stacked residual pair, so that every rank
+reads the same bits and leaves the loop at the same iteration (a rank that
+stopped alone would deadlock the rest), and ``finish`` rebuilds the
+replicated x once a step.
 """
 
 from __future__ import annotations
@@ -46,6 +52,14 @@ class ADMMBase:
             return x
         return 2.0 * x - state.x_prev
 
+    def reduce(self, t):
+        """The sum of ``t`` over the ranks of a sharded engine."""
+        return t
+
+    def finish(self, x):
+        """The replicated x at the end of a step."""
+        return x
+
     def start(self, state):
         """Predictor and the first x-update: ``(x_bar, x, z, u)``."""
         x_bar = self.predict(state)
@@ -78,15 +92,17 @@ class ADMMBase:
                 z, ih0, J = self.prox(z, dxpu, J_state)
                 J_state = (J, False)
             if i == 0:
-                ih_start = sum_f64(torch.where(valid.reshape(-1) > 0, ih0, 0.0))
+                ih_start = self.reduce(sum_f64(torch.where(valid.reshape(-1) > 0, ih0, 0.0)))
             u = dxpu - z
             x = self.x_update(x_bar, z, u)
             gx = self.gather(x)
-            res = torch.stack([sumsq_f64((gx - z) * valid), sumsq_f64((z - z_prev) * valid)])
+            res = self.reduce(torch.stack([sumsq_f64((gx - z) * valid),
+                                           sumsq_f64((z - z_prev) * valid)]))
             primal, dual = torch.sqrt(res).tolist()
             n = i + 1
             if primal < self.tol and dual < self.tol:
                 break
+        x = self.finish(x)
         ih = float(ih_start) if ih_start is not None else 0.0
         rose = ih > state.ih_last
         new_state = state._replace(

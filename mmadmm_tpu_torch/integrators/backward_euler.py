@@ -47,6 +47,13 @@ become arguments):
   state and are rebuilt only at the first step and after a step of
   ``rebuild_at`` or more Newton iterations (``:152-173``, ``:616-630``).
 
+Over the ranks of a ``parallel.RankGroup`` (``group``) the step runs on
+``compact_eg.ShardedEG`` (``backward_euler.py:654-860``): one all-reduce a
+gradient and a matvec, x and the Krylov vectors replicated, so every rank
+computes the same norms and dots and stops at the same iteration. As in
+the JAX package (``:665-668``), only ``hess`` and ``neumann`` run sharded,
+without ``precondition`` or ``chord_carry``.
+
 The safeguard, the fallback and the best-seen choice stay on the device
 as ``torch.where`` on 0-d tensors; the stop test reads ``||F||_1`` on the
 host once per Newton iteration, the port's counterpart of the JAX
@@ -88,15 +95,20 @@ class BEInfo(NamedTuple):
 
 
 class BackwardEulerIntegrator:
-    """Single-device backward Euler."""
+    """Backward Euler, on one device or over the ranks of ``group``."""
 
     def __init__(self, mesh: MovingMesh, dt: float, *,
                  grid2d_dims: tuple[int, int] | None = None, tol: float = 1e-3,
                  max_newton: int = 1000, krylov_tol: float = 1e-6,
                  krylov_maxiter: int | None = None, krylov_solver: str = "neumann",
-                 precondition: bool = False, chord_carry: bool = False, rebuild_at: int = 5):
+                 precondition: bool = False, chord_carry: bool = False, rebuild_at: int = 5,
+                 group=None):
         if krylov_solver not in SOLVERS:
             raise ValueError(f"unknown krylov_solver {krylov_solver!r}")
+        if group is not None and (krylov_solver not in ("hess", "neumann") or precondition
+                                  or chord_carry):
+            raise ValueError("sharded backward Euler runs the hess and neumann solvers only, "
+                             "without precondition or chord_carry")
         self.mesh = mesh
         self.dt = float(dt)
         self.dt_tau = self.dt / mesh.tau
@@ -109,7 +121,7 @@ class BackwardEulerIntegrator:
         self.precondition = bool(precondition)
         self.chord_carry = bool(chord_carry) and krylov_solver == "neumann"
         self.rebuild_at = int(rebuild_at)
-        self.eg = evaluator(mesh, grid2d_dims if krylov_solver == "neumann" else None)
+        self.eg = evaluator(mesh, grid2d_dims if krylov_solver == "neumann" else None, group)
 
     def init_state(self) -> BackwardEulerState:
         x0 = self.mesh.X0

@@ -18,6 +18,11 @@ of two evaluators (``evaluator``):
 The JAX package takes its stencil engine only from 50,000 elements
 (``euler.py:86-92``); the port takes it wherever the gate holds, and
 ``tests/test_torch_euler_compact.py`` holds the two routes to each other.
+
+Over the ranks of a ``parallel.RankGroup`` (``group``) the step runs on
+``compact_eg.ShardedEG``: each rank's elements, one all-reduce a gradient
+(``build_sharded_gradient`` and the sharded step, ``euler.py:32-62,
+125-175``), never the stencil engine.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..mesh import MovingMesh
-from ..ops.compact_eg import CompactEG
+from ..ops.compact_eg import CompactEG, ShardedEG
 from ..ops.dense_eg2d import make_dense_eg2d
 
 
@@ -44,12 +49,16 @@ class EulerInfo(NamedTuple):
     ih: float  # energy at the pre-step positions (f64 sum)
 
 
-def evaluator(mesh: MovingMesh, grid2d_dims: tuple[int, int] | None):
-    """The stencil engine's evaluator for a 2D mesh on the (nx, ny) grid's
-    gate (float32 or float64: kernels K2 and K3 are built in both), else
-    the compact one. A computational mesh always takes the compact one:
-    K2 and K3 know only the constant reference Ehat."""
-    if grid2d_dims is not None and mesh.dim == 2 and not mesh.comp_mesh:
+def evaluator(mesh: MovingMesh, grid2d_dims: tuple[int, int] | None, group=None):
+    """The sharded evaluator over ``group``'s ranks; else the stencil
+    engine's evaluator for a 2D mesh on the (nx, ny) grid's gate (float32
+    or float64: kernels K2 and K3 are built in both), else the compact one.
+    A computational mesh, or a grid without the symmetric 16-wide table,
+    always takes the compact one: K2 and K3 know only the constant
+    reference Ehat and that table."""
+    if group is not None:
+        return ShardedEG(mesh, group)
+    if grid2d_dims is not None and mesh.dim == 2 and not mesh.comp_mesh and mesh.grid.kernel_table:
         eg = make_dense_eg2d(mesh, *grid2d_dims)
         if eg is not None:
             return eg
@@ -57,14 +66,14 @@ def evaluator(mesh: MovingMesh, grid2d_dims: tuple[int, int] | None):
 
 
 class EulerIntegrator:
-    """Single-device explicit Euler."""
+    """Explicit Euler, on one device or over the ranks of ``group``."""
 
     def __init__(self, mesh: MovingMesh, dt: float, *,
-                 grid2d_dims: tuple[int, int] | None = None):
+                 grid2d_dims: tuple[int, int] | None = None, group=None):
         self.mesh = mesh
         self.dt = float(dt)
         self.dt_tau = self.dt / mesh.tau
-        self.eg = evaluator(mesh, grid2d_dims)
+        self.eg = evaluator(mesh, grid2d_dims, group)
 
     def init_state(self) -> EulerState:
         x0 = self.mesh.X0

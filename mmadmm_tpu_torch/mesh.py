@@ -28,7 +28,9 @@ package) is one of two routes, ``prox_backend``:
   dtype, the JAX package's default.
 
 ``"auto"`` takes the kernels where a float32 kernel computes the function
-(not a 2D computational mesh) and the generic prox elsewhere: float64 (the
+(not a 2D computational mesh, and a grid with the symmetric cell table,
+``mesh.py:128-150`` in the JAX package) and the generic prox elsewhere:
+float64 (the
 JAX package's default, ``mesh.py:126``, which also reaches its float64
 kernels only through ``"pallas"``), and 2D computational meshes. The
 stencil engines take their own kernel in the mesh's dtype whatever the
@@ -117,10 +119,11 @@ class MovingMesh:
                 raise ValueError("comp_mesh needs the computational mesh Xc")
             # xi = Xc[F] in the working dtype, then per element
             # Ehat[d, j] = xi_{j+1, d} - xi_{0, d} (huang._common_terms)
-            self.xi = t(np.asarray(Xc, dtype=np.float64)[F])  # [NF, D+1, D]
+            self._xi_np = np.asarray(Xc, dtype=np.float64)[F]
+            self.xi = t(self._xi_np)  # [NF, D+1, D]
             self.elem_ehat = (self.xi[:, 1:] - self.xi[:, :1]).transpose(1, 2)
         else:
-            self.xi = None
+            self._xi_np = self.xi = None
             self.elem_ehat = self.ehat
         self._select_prox(prox_backend, prox_chord, jac_batch)
 
@@ -130,13 +133,19 @@ class MovingMesh:
         J_state])``."""
         self.prox_chord = self.comp_mesh if chord is None else bool(chord)
         f32 = self.dtype == torch.float32
+        comp2d = self.dim == 2 and self.comp_mesh
         if backend == "auto":
-            backend = "pallas" if f32 and not (self.dim == 2 and self.comp_mesh) else "vmap"
+            backend = "pallas" if f32 and self.grid.kernel_table and not comp2d else "vmap"
         if backend not in ("pallas", "vmap"):
             raise ValueError(f"unknown prox_backend {backend!r}")
-        if backend == "pallas" and self.dim == 2 and self.comp_mesh:
+        if backend == "pallas" and comp2d:
             raise ValueError(
                 "prox_backend 'pallas': K1 has no computational-mesh mode; use 'vmap' or 'auto'"
+            )
+        if backend == "pallas" and not self.grid.kernel_table:
+            raise ValueError(
+                "prox_backend 'pallas': the kernels read only the symmetric cell table; this "
+                "monitor is not symmetric; use 'vmap' or 'auto'"
             )
         self.prox_backend = backend
         w = self.w
@@ -157,6 +166,19 @@ class MovingMesh:
                                             ehat=self.ehat_np.reshape(-1),
                                             chord=self.prox_chord)
         self.prox_fn = prox_fn
+
+    def project_onto_boundary(self, x: torch.Tensor, ref_x: torch.Tensor | None = None):
+        """Free-slip projection of the BOUNDARY_FREE nodes of the proposal
+        ``x`` onto their incident boundary faces at the committed positions
+        ``ref_x`` (default ``x``; pass the positions before the step)
+        (``Mesh::projectOntoBoundary``, ``Mesh.cpp:119-241``). The
+        reference leaves it unused; no integrator calls it."""
+        if not hasattr(self, "_boundary_projector"):
+            from .ops.boundary import make_boundary_projector
+
+            faces = topology.build_boundary_faces(self._F_np, self.mask_np)
+            self._boundary_projector = make_boundary_projector(faces, self.mask_np, self.dim)
+        return self._boundary_projector(x, ref_x)
 
     def prox(self, z, xi, dxpu, free_mask, tol, max_iters):
         """The prox on every element with this mesh's grid: ``(z', ih0)``."""
@@ -194,3 +216,20 @@ class MovingMesh:
         z = self.gather(x)
         ih_e, g_e = huang.element_energy_grad(z, gather_cell(self.grid, z), self.elem_ehat)
         return sum_f64(ih_e), self.scatter_add(g_e) * self.interior_nodes
+
+    def build_shards(self, n_shards: int):
+        """Partition-ordered, padded element shards for a run over
+        ``n_shards`` ranks (``parallel.spmd.build_elem_shards``)."""
+        from .parallel.spmd import build_elem_shards
+
+        # xi is zeros off a computational mesh, as in the JAX package (never read)
+        xi = self._xi_np if self.comp_mesh else np.zeros(self._elem_free_np.shape)
+        return build_elem_shards(self._X_np, self._F_np, xi, self._elem_free_np, self.n_pnts,
+                                 n_shards)
+
+    def shard(self, group):
+        """This rank's part of the elements over ``group``
+        (``parallel.spmd.MeshShard``), on the group's device."""
+        from .parallel.spmd import MeshShard
+
+        return MeshShard(self, group)

@@ -29,6 +29,12 @@ meshes, FromFile and LevelSet meshes and 2D boxes off the stencil gate.
 ``eg``, ``hessians`` and ``apply`` run inside the ``record_function``
 ranges ``RANGES``, which ``profile_step`` reads.
 
+``ShardedEG`` is the same evaluator over the ranks of a
+``parallel.RankGroup`` (``euler.py:32-62``, ``backward_euler.py:654-860``):
+each rank takes its shard of the partition-ordered elements, padding
+masked by ``valid``, and every gradient, energy and matvec ends in one
+all-reduce, so that x and the Krylov vectors stay replicated, bit for bit.
+
 Plain PyTorch on either device; there is no kernel here.
 """
 
@@ -39,6 +45,7 @@ from torch.profiler import record_function
 
 from . import huang
 from .monitor_grid import gather_cell
+from .reductions import sum_f64
 
 RANGES = ("compact.eg", "compact.hessians", "compact.apply")  # the traced ranges
 
@@ -53,6 +60,8 @@ class CompactEG:
         self.mesh = mesh
         self.dim = D = mesh.dim
         self.n = D * (D + 1)
+        self.ehat = mesh.elem_ehat
+        self.gather, self.scatter = mesh.gather, mesh.scatter_add
 
     def __call__(self, x):
         """``(Ih, grad)`` at node positions ``x``: Ih a float64 0-d tensor,
@@ -68,7 +77,7 @@ class CompactEG:
         """The element Hessians ``[NF, n, n]``, ``[e, i, k] = d g_i / d z_k``."""
         mesh, n, D = self.mesh, self.n, self.dim
         with record_function(RANGES[1]):
-            z = mesh.gather(x)
+            z = self.gather(x)
             cells = gather_cell(mesh.grid, z)
             zf = z.reshape(-1, n)
             nf = zf.shape[0]
@@ -77,7 +86,7 @@ class CompactEG:
             out = torch.empty((nf, n, n), dtype=zf.dtype, device=zf.device)
             for a in range(0, nf, step):
                 sl = slice(a, a + step)
-                c, eh = {k: v[sl] for k, v in cells.items()}, _rows(mesh.elem_ehat, sl)
+                c, eh = {k: v[sl] for k, v in cells.items()}, _rows(self.ehat, sl)
 
                 def g(q):
                     return huang.element_energy_grad(q.reshape(-1, D + 1, D), c,
@@ -91,15 +100,13 @@ class CompactEG:
 
     def apply(self, He, v):
         """``D^T (He D v)``: ``[NP, D] -> [NP, D]``."""
-        mesh = self.mesh
         with record_function(RANGES[2]):
-            ve = mesh.gather(v).reshape(-1, self.n, 1)
-            return mesh.scatter_add(torch.bmm(He, ve).reshape(-1, self.dim + 1, self.dim))
+            ve = self.gather(v).reshape(-1, self.n, 1)
+            return self.scatter(torch.bmm(He, ve).reshape(-1, self.dim + 1, self.dim))
 
     def hdiag(self, He):
         """``D^T diag(He)``: ``[NP, D]``."""
-        return self.mesh.scatter_add(
-            torch.diagonal(He, dim1=1, dim2=2).reshape(-1, self.dim + 1, self.dim))
+        return self.scatter(torch.diagonal(He, dim1=1, dim2=2).reshape(-1, self.dim + 1, self.dim))
 
     def energy_hdiag(self, x):
         """``D^T`` of the element energies' Hessian diagonals at ``x``:
@@ -118,3 +125,29 @@ class CompactEG:
         eye = torch.eye(n, dtype=zf.dtype, device=zf.device)
         cols = [torch.func.jvp(grad, (zf,), (eye[k].expand_as(zf),))[1][:, k] for k in range(n)]
         return mesh.scatter_add(torch.stack(cols, -1).reshape(-1, D + 1, D))
+
+
+class ShardedEG(CompactEG):
+    """``CompactEG`` over the ranks of ``group``: D x gathers the rank's
+    elements, D^T is the rank's partial sum (padding masked by ``valid``)
+    and one all-reduce, and the energy is the all-reduced sum of the
+    rank's f64 partial sum."""
+
+    def __init__(self, mesh, group):
+        super().__init__(mesh)
+        self.group = group
+        self.shard = sh = mesh.shard(group)
+        self.ehat, self.gather, self.scatter = sh.ehat, sh.gather, sh.scatter
+
+    def _ih(self, ih_e):
+        return self.group.all_reduce_sum(sum_f64(ih_e * self.shard.valid.reshape(-1)))
+
+    def __call__(self, x):
+        with record_function(RANGES[0]):
+            z = self.gather(x)
+            ih_e, g_e = huang.element_energy_grad(z, gather_cell(self.mesh.grid, z), self.ehat)
+            return self._ih(ih_e), self.scatter(g_e) * self.mesh.interior_nodes
+
+    def energy(self, x):
+        z = self.gather(x)
+        return self._ih(huang.element_energy(z, gather_cell(self.mesh.grid, z), self.ehat))

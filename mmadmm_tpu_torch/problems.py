@@ -11,7 +11,8 @@ meshes, computational meshes, FromFile and LevelSet meshes and 2D boxes
 off the gate, and every backward-Euler run with an inner solver other
 than ``neumann``.
 
-Box meshes (SquareGrid, Shoulder) on the stencil gate take their
+Box meshes (SquareGrid, Shoulder) on the stencil gate, with a monitor
+grid the kernels read (``MonitorGrid.kernel_table``), take their
 stencil engine in float32 and in float64, with the engine's kernels built
 in the mesh's dtype (K1, K2 and K3 in 2D, K4 in 3D), as the JAX package
 builds its Pallas kernels in the mesh's dtype (``admm_grid2d.py:158-163``,
@@ -31,8 +32,16 @@ package keeps off its SoA engine, ``problems.py:106-111``). In float64
 under ``"auto"`` that is the generic prox with the carried chord Jacobian,
 the JAX package's default. The JAX package also gates the stencil engines
 on mesh size (and, for Euler and backward Euler, on environment switches),
-the port on the mesh alone. What the port does not run (multi-GPU runs,
-monitors that are not symmetric) raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+the port on the mesh alone.
+
+A run over ``n_devices > 1`` ranks (``problems.py:83-86`` in the JAX
+package) takes the sharded stock engine for MM-ADMM
+(``admm.ShardedADMMIntegrator``) and the sharded compact path for methods
+1 and 2, whatever the mesh: the JAX stencil engines require
+``device_mesh is None`` (``problems.py:107, 143``) and its sharded Euler
+and backward Euler take no stencil dims. Each rank calls
+``build_problem`` with its ``parallel.RankGroup`` (``group``, or the
+group of a ``torchrun`` rank), on the group's device.
 """
 
 from __future__ import annotations
@@ -79,15 +88,30 @@ def build_geometry(cfg: ExperimentConfig):
     raise ValueError(f"unknown TestType {cfg.test_type!r}")
 
 
-def build_problem(cfg: ExperimentConfig, device=None, *, prox_chord: bool | None = None):
+def build_problem(cfg: ExperimentConfig, device=None, *, prox_chord: bool | None = None,
+                  group=None, halo: bool = True):
     """Return ``(mesh, integrator)`` ready to run, on ``device`` (CUDA
     unless the caller asks for the CPU). ``prox_chord`` picks chord or
     Newton sweeps in the 3D prox kernel (``MovingMesh``; None: chord
-    sweeps on a computational mesh only)."""
+    sweeps on a computational mesh only). Over ranks this is one rank's
+    part: ``group`` (a ``parallel.RankGroup``) gives the rank, the rank
+    count and the device, whatever ``cfg.n_devices`` says; without a
+    group, ``cfg.n_devices > 1`` takes a ``torchrun`` rank's. ``halo`` is
+    the sharded MM-ADMM step's exchange."""
     if cfg.method not in (0, 1, 2):
         raise ValueError(f"unknown method {cfg.method}")
-    if cfg.n_devices > 1:
-        raise NotImplementedError("multi-GPU runs are ROADMAP item A15")
+    if group is None and cfg.n_devices > 1:
+        from .parallel.group import group_from_env, in_torchrun
+
+        if not in_torchrun():
+            raise RuntimeError(
+                f"n_devices={cfg.n_devices} needs one process a rank: start them with "
+                "parallel.launch or torchrun")
+        group = group_from_env(device=device)
+    if group is not None:
+        device = group.device
+        if group.size == 1:
+            group = None
     X, F, mask = build_geometry(cfg)
     mesh = MovingMesh(
         X, F, mask, get_monitor(cfg.dim, cfg.mon_type),
@@ -99,22 +123,29 @@ def build_problem(cfg: ExperimentConfig, device=None, *, prox_chord: bool | None
     # the grid dims of a 2D box, for the stencil engine of methods 1 and 2
     # (problems.py:167-185 in the JAX package); without them, or off the
     # gate, they run on the compact path
-    grid2d_dims = (cfg.nx, cfg.ny) if box and cfg.dim == 2 and not cfg.comp_mesh else None
+    grid2d_dims = ((cfg.nx, cfg.ny) if box and cfg.dim == 2 and not cfg.comp_mesh
+                   and mesh.grid.kernel_table else None)
+    if group is not None:
+        grid2d_dims = None
     if cfg.method == 1:
         from .integrators.euler import EulerIntegrator
 
-        return mesh, EulerIntegrator(mesh, cfg.dt, grid2d_dims=grid2d_dims)
+        return mesh, EulerIntegrator(mesh, cfg.dt, grid2d_dims=grid2d_dims, group=group)
     if cfg.method == 2:
         from .integrators.backward_euler import BackwardEulerIntegrator
 
         return mesh, BackwardEulerIntegrator(mesh, cfg.dt, grid2d_dims=grid2d_dims,
-                                             tol=cfg.step_tol)
-    if cfg.prox_backend == "vmap" or cfg.comp_mesh or not box:
+                                             tol=cfg.step_tol, group=group)
+    if group is not None:
+        from .integrators.admm import ShardedADMMIntegrator
+
+        return mesh, ShardedADMMIntegrator(mesh, cfg.dt, group, halo=halo, **_stock_kw(cfg))
+    if cfg.prox_backend == "vmap" or cfg.comp_mesh or not box or not mesh.grid.kernel_table:
         return mesh, _stock(cfg, mesh)
     if cfg.dim == 3:
         # the 3D stencil engine's gate (problems.py:93-127 in the JAX
-        # package, without the size threshold; the monitor grid is constant
-        # or 48-wide, since build_monitor_grid builds no other 3D grid)
+        # package, without the size threshold; the monitor grid constant or
+        # 48-wide)
         if not mesh.prox_chord and dense_layout_3d(cfg.nx, cfg.ny, cfg.nz, mesh) is not None:
             return mesh, _soa3d(cfg, mesh)
         return mesh, _stock(cfg, mesh)
@@ -136,11 +167,12 @@ def _stock(cfg: ExperimentConfig, mesh: MovingMesh):
     package), with the chord-Jacobian carry's default rule."""
     from .integrators.admm import ADMMIntegrator
 
-    return ADMMIntegrator(
-        mesh, cfg.dt,
-        admm_iters=cfg.admm_iter, tol=cfg.step_tol,
-        prox_max_iters=cfg.prox_newton_iters, grad_use=cfg.grad_use,
-    )
+    return ADMMIntegrator(mesh, cfg.dt, **_stock_kw(cfg))
+
+
+def _stock_kw(cfg: ExperimentConfig) -> dict:
+    return dict(admm_iters=cfg.admm_iter, tol=cfg.step_tol,
+                prox_max_iters=cfg.prox_newton_iters, grad_use=cfg.grad_use)
 
 
 def _soa3d(cfg: ExperimentConfig, mesh: MovingMesh):

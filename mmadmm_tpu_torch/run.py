@@ -9,9 +9,13 @@ Usage:
 ``Experiments/InputFiles/`` when not a path (the reference CLI's
 convention). ``methodType`` 0=MM-ADMM, 1=explicit Euler, 2=backward Euler
 (clobbers the JSON ``Method`` key, like ``main.cpp:809``). ``nDevices``
-above 1 needs multi-GPU runs, not yet ported (ROADMAP item A15). The run
-goes to the card unless ``--device cpu``; artifacts go to ``--out``
-(default ``Results/<name>``).
+shards the element batch over that many ranks, one device a rank: the CLI
+spawns them (``parallel.launch``), or, started by ``torchrun
+--nproc-per-node <n> -m mmadmm_tpu_torch.run <input> <method> <n>``, each
+process is one rank. The backend is ``nccl`` on the card, ``gloo`` on the
+CPU; ``--backend gloo`` puts several ranks on one card. The run goes to
+the card unless ``--device cpu``; rank 0 writes the artifacts to
+``--out`` (default ``Results/<name>``).
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", default=None, help="checkpoint file to resume")
     ap.add_argument("--device", default=None, choices=["cpu", "cuda"],
                     help="where the run goes (default: the card)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="the ranks' backend (default: nccl on the card, gloo on the CPU)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -48,8 +54,6 @@ def main(argv=None) -> int:
     from .harness.experiments import INPUTS
     from .harness.runner import run_experiment
 
-    if args.n_devices > 1:
-        raise NotImplementedError("multi-GPU runs are ROADMAP item A15")
     path = args.input
     if not os.path.exists(path):
         cand = os.path.join(INPUTS, path + ".json")
@@ -76,7 +80,12 @@ def main(argv=None) -> int:
         checkpoint_every=args.checkpoint_every,
         resume_from=args.resume,
         device=args.device,
+        backend=args.backend,
     )
+    from .parallel.group import in_torchrun
+
+    if in_torchrun() and int(os.environ.get("RANK", "0")) != 0:
+        return 0
     s = res.summary()
     print(
         f"{cfg.name}: method={s['method']} steps={s['n_steps']} "

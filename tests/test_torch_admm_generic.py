@@ -43,6 +43,7 @@ from mmadmm_tpu.config import ExperimentConfig as JaxConfig
 from mmadmm_tpu.integrators.admm import ADMMIntegrator as JaxADMM
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem, convert, load_experiment_config
 from mmadmm_tpu_torch.integrators.admm import ADMMIntegrator
 

@@ -56,6 +56,7 @@ from mmadmm_tpu.problems import build_geometry as jax_geometry
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
 import _torch_soa3d as S
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem, convert, load_experiment_config
 from mmadmm_tpu_torch.geometry import io as port_io
 from mmadmm_tpu_torch.integrators.admm import ADMMIntegrator

@@ -23,6 +23,7 @@ from mmadmm_tpu.config import ExperimentConfig as JaxConfig
 from mmadmm_tpu.ops.prox_pallas2d import make_be_kernels2d
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.mesh import MovingMesh
 from mmadmm_tpu_torch.monitors import get_monitor

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 import _torch_euler as E
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from mmadmm_tpu_torch.integrators.backward_euler import BackwardEulerIntegrator
 from mmadmm_tpu_torch.ops.compact_eg import CompactEG

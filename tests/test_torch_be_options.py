@@ -39,6 +39,7 @@ import pytest
 import torch
 
 import _torch_euler as E
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu.ops import krylov as jax_krylov
 
 from mmadmm_tpu_torch import convert

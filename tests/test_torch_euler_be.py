@@ -20,6 +20,7 @@ import torch
 from mmadmm_tpu.config import ExperimentConfig as JaxConfig
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem, convert
 from mmadmm_tpu_torch.integrators.backward_euler import BackwardEulerIntegrator
 from mmadmm_tpu_torch.integrators.euler import EulerIntegrator
@@ -139,10 +140,13 @@ def test_build_problem_routes_to_the_stencil_engine(test_type, method, cls, dtyp
 
 
 @pytest.mark.parametrize("method,item", [(1, "A11"), (2, "A12")], ids=["euler", "be"])
-@pytest.mark.parametrize("change,change_item", [(dict(n_devices=2), "A15")], ids=["sharded"])
+@pytest.mark.parametrize("change,change_item", [(dict(n_devices=2), "torchrun")], ids=["sharded"])
 def test_unported_routes_raise(method, item, change, change_item):
+    """A sharded run (ROADMAP A15, ported since; ``tests/test_torch_spmd.py``
+    runs it on ranks) built outside a rank group raises rather than run on
+    one device."""
     kw = dict(KW, method=method, **change)
-    with pytest.raises(NotImplementedError, match=change_item or item):
+    with pytest.raises(RuntimeError, match=change_item or item):
         build_problem(ExperimentConfig(**kw), device="cpu")
 
 

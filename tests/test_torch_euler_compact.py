@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 import _torch_euler as E
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.integrators.euler import EulerIntegrator

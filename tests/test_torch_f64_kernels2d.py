@@ -26,6 +26,7 @@ import torch
 
 from mmadmm_tpu.ops import prox_pallas2d as jp
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.integrators.admm_grid2d import GridADMM2D
 from mmadmm_tpu_torch.ops import be2d as B

@@ -13,6 +13,10 @@ slots with SquareGrid's Ehat (the JAX kernel takes Ehat as a constant),
 so that one interpreted kernel compiles (some two minutes on a CPU), under
 the lock of tests/_torch_soa3d.py.
 
+The comparison runs as one case a mesh, each on its half of the batch
+(so that the file's five tests put it among the files that pytest-xdist's
+``--dist loadfile`` hands out before the four-test files).
+
 Bands, float64 (the same operations on both sides, ordered a little
 differently by XLA and PyTorch): ih0 within rtol 1e-12, the regularized
 energies after the solve within rtol 1e-10 and the iterates within atol
@@ -26,6 +30,7 @@ import torch
 from mmadmm_tpu.ops import prox_pallas3d as jp
 
 from _torch_soa3d import jax_compile_lock
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.integrators.admm_soa import SoAADMM3D
 from mmadmm_tpu_torch.ops import newton as N
@@ -51,6 +56,7 @@ def batch():
     rng = np.random.default_rng(0)
     parts = [_slots(tt, mon, rng) for tt, mon in (("SquareGrid", 1), ("Shoulder", 0))]
     integ = parts[0][0]
+    assert parts[0][1][0].shape[1] == parts[1][1][0].shape[1]  # two halves, one a mesh
     inputs = tuple(torch.cat([p[1][i] for p in parts], dim=1).contiguous() for i in range(4))
     assert parts[1][0].w == integ.w
     live = torch.cat([p[0].valid for p in parts]) > 0
@@ -87,18 +93,22 @@ def plain_run(batch):
     return zp, ihp, stats
 
 
-def test_k4_plain_matches_jax_in_float64(batch, kernel_run, plain_run):
+@pytest.mark.parametrize("half", [0, 1], ids=["SquareGrid", "Shoulder"])
+def test_k4_plain_matches_jax_in_float64(batch, kernel_run, plain_run, half):
+    """On each mesh's half of the batch."""
     ehat, w, _, _, (z, dxpu, free, cells), live = batch
     zk, ihk = kernel_run
     zp, ihp, _ = plain_run
     assert zp.dtype == ihp.dtype == torch.float64
-    np.testing.assert_allclose(ihp.numpy(), ihk, rtol=1e-12, atol=0)
+    n = z.shape[1] // 2
+    sl = slice(half * n, (half + 1) * n)
+    np.testing.assert_allclose(ihp.numpy()[sl], ihk[sl], rtol=1e-12, atol=0)
     rows = P._rows(cells)
     half_w2 = N.consts(w, torch.float64)[1]
     e_p = P.energy_c3(list(zp), rows, tuple(ehat), list(dxpu), half_w2)[1].numpy()
     e_k = P.energy_c3(list(torch.tensor(zk)), rows, tuple(ehat), list(dxpu), half_w2)[1].numpy()
-    np.testing.assert_allclose(e_p, e_k, rtol=1e-10, atol=0)
-    np.testing.assert_allclose(zp.numpy(), zk, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(e_p[sl], e_k[sl], rtol=1e-10, atol=0)
+    np.testing.assert_allclose(zp.numpy()[:, sl], zk[:, sl], rtol=0, atol=1e-10)
 
 
 def test_k4_moves_only_free_coordinates_in_float64(batch, plain_run):

@@ -29,6 +29,7 @@ from mmadmm_tpu.config import ExperimentConfig as JaxConfig
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
 import _torch_soa3d as S
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.integrators.admm_soa import SoAADMM3D
 

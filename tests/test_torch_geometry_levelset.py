@@ -10,6 +10,7 @@ from mmadmm_tpu.geometry import level_set as jax_ls
 from mmadmm_tpu.geometry.refine import refine_triangle_mesh as jax_refine
 from mmadmm_tpu.problems import build_geometry as jax_geometry
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig
 from mmadmm_tpu_torch.geometry import level_set as ls
 from mmadmm_tpu_torch.geometry.node_type import NodeType

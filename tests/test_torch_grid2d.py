@@ -17,6 +17,7 @@ import torch
 from mmadmm_tpu.config import ExperimentConfig as JaxConfig
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem, convert
 from mmadmm_tpu_torch.integrators.admm_grid2d import GridADMM2D
 from mmadmm_tpu_torch.integrators.run_loop import run

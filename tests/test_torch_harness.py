@@ -42,6 +42,7 @@ from mmadmm_tpu.geometry import io as jax_io
 from mmadmm_tpu.harness import experiments as jax_exps
 from mmadmm_tpu.harness.runner import run_experiment as jax_run_experiment
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem, load_experiment_config
 from mmadmm_tpu_torch.geometry import io
 from mmadmm_tpu_torch.harness import experiments as exps
@@ -248,9 +249,10 @@ def test_monitor3320r_loads_as_in_the_jax_package():
 
 
 def test_sweeps_and_reference_compare(runs, tmp_path):
-    """``run_grid_scale`` over two sized configs, ``run_method_comparison``
-    and ``run_device_scaling`` on one card, ``compare_to_reference``
-    against a recorded trace."""
+    """``run_grid_scale`` over two sized configs, ``run_method_comparison``,
+    ``run_simultaneous_experiment`` and ``run_device_scaling`` on one and on
+    two ranks (gloo on the CPU), ``compare_to_reference`` against a
+    recorded trace."""
     ind = str(tmp_path / "inputs")
     for n in (4, 6):
         exps.make_config_json(os.path.join(ind, f"Tiny{n}.json"), mon_type=1, n_steps=2,
@@ -262,12 +264,12 @@ def test_sweeps_and_reference_compare(runs, tmp_path):
     assert out["configs"]["6"]["1"]["n_elements"] == 4 * 36
     assert os.path.exists(tmp_path / "data" / "ScaleTiny.json")
     sim = exps.run_simultaneous_experiment(ind, "Tiny", out_dir=str(tmp_path / "sim"),
-                                           n_repeats=1, device="cpu")
-    assert list(sim["configs"]["Tiny6"]) == ["(1, 1)"]
-    para = exps.run_device_scaling(os.path.join(ind, "Tiny4.json"), device="cpu")
-    assert set(para["devices"]) == {"1"}
-    with pytest.raises(NotImplementedError, match="A15"):
-        exps.run_device_scaling(os.path.join(ind, "Tiny4.json"), device_counts=(1, 2))
+                                           n_repeats=1, highest_pow=1, device="cpu")
+    assert list(sim["configs"]["Tiny4"]) == ["(0, 1)"]
+    assert list(sim["configs"]["Tiny6"]) == ["(1, 2)"]
+    para = exps.run_device_scaling(os.path.join(ind, "Tiny4.json"), device_counts=(1, 2),
+                                   device="cpu")
+    assert set(para["devices"]) == {"1", "2"}
     rj, jd, rp, pd = runs[0]
     os.makedirs(tmp_path / "results" / "tiny")
     shutil.copy(os.path.join(jd, "Ih0.txt"), tmp_path / "results" / "tiny" / "Ih0.txt")

@@ -23,6 +23,7 @@ are the float64 builds of K1, K2, K3, K4, K4', K4''a and K4''b."""
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.integrators.run_loop import run
 from mmadmm_tpu_torch.ops import be2d as B

@@ -29,6 +29,7 @@ from mmadmm_tpu.config import ExperimentConfig as JaxConfig
 from mmadmm_tpu.ops.linalg import ldlt_solve as jax_ldlt_solve
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.ops.linalg import ldlt_solve
 from mmadmm_tpu_torch.ops.prox import make_prox_solver

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.ops import newton as N
 from mmadmm_tpu_torch.ops import prox2d as P2

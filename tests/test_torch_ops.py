@@ -21,6 +21,7 @@ from mmadmm_tpu.ops.reductions import block_sum_f64, block_sumsq_f64
 from mmadmm_tpu.ops.stencil2d import make_stencil_ops as jax_stencil
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.mesh import MovingMesh
 from mmadmm_tpu_torch.monitors import get_monitor

@@ -27,6 +27,7 @@ from mmadmm_tpu.ops.stencil3d import match_dense_3d as jax_match_dense_3d
 from mmadmm_tpu.problems import build_geometry as jax_geometry
 from mmadmm_tpu.runtime.native import grid_nn_map as jax_nn_map
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.ops import huang
 from mmadmm_tpu_torch.ops.monitor_grid import SYM3, cell_index, cell_rows216, gather_cell

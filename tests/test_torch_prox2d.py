@@ -19,6 +19,7 @@ from mmadmm_tpu.config import ExperimentConfig as JaxConfig
 from mmadmm_tpu.ops import prox_pallas2d as jp
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch.ops import prox2d as P
 
 TOL, MAX_ITERS = 1e-5, 50

@@ -33,6 +33,7 @@ from mmadmm_tpu.ops.monitor_grid import _cell_index as jax_cell_index
 from mmadmm_tpu.problems import build_geometry as jax_geometry
 
 from _torch_soa3d import jax_compile_lock
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch.ops import newton as N
 from mmadmm_tpu_torch.ops import prox3d as P
 

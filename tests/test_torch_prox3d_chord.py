@@ -37,6 +37,7 @@ from mmadmm_tpu.ops import prox_pallas3d as jp
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
 from _torch_soa3d import release_jax_memory
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.integrators.admm import ADMMIntegrator
 from mmadmm_tpu_torch.ops import newton as N

@@ -29,6 +29,7 @@ import torch
 from mmadmm_tpu.config import ExperimentConfig as JaxConfig
 from mmadmm_tpu.problems import build_problem as jax_build_problem
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.integrators.admm import ADMMIntegrator
 from mmadmm_tpu_torch.ops import prox3d as P3

@@ -18,6 +18,7 @@ import pytest
 
 from mmadmm_tpu.integrators.device_loop import build_run_loop
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch.integrators.run_loop import run
 
 DT = 5e-3

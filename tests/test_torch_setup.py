@@ -23,7 +23,8 @@ from mmadmm_tpu.ops.stencil2d import match_dense as jax_match_dense
 from mmadmm_tpu.problems import build_geometry as jax_geometry
 from mmadmm_tpu.runtime.native import grid_nn_map as jax_nn_map
 
-from mmadmm_tpu_torch import ExperimentConfig, build_problem, load_experiment_config, problems
+from _torch_threads import one_torch_thread  # noqa: F401
+from mmadmm_tpu_torch import ExperimentConfig, build_problem, load_experiment_config
 from mmadmm_tpu_torch.geometry.glibc_rand import GlibcRand
 from mmadmm_tpu_torch.geometry.topology import build_boundary_faces
 from mmadmm_tpu_torch.monitors import MONITORS_2D, MONITORS_3D
@@ -136,7 +137,8 @@ def test_config_loads_like_jax():
 
 def _skewed(X):
     """A monitor that is not symmetric, ``M[0, 1] = 0.5 + x`` (every
-    shipped monitor is symmetric): the narrow cell path's input."""
+    shipped monitor is symmetric): the input of the 20-wide 2D table and
+    the narrow 3D cell path (tests/test_torch_monitor_boundary.py)."""
     D = X.shape[1]
     M = np.broadcast_to(np.eye(D), (X.shape[0], D, D)).copy()
     M[:, 0, 1] = 0.5 + X[:, 0]
@@ -160,29 +162,6 @@ def test_euler_routes_off_the_stencil_engine_run_compact(change, engine):
     assert type(integ).__name__ == engine and type(integ.eg).__name__ == "CompactEG"
     state, info = integ.step(integ.init_state())
     assert np.isfinite(info.ih) and bool(torch.isfinite(state.x).all())
-
-
-@pytest.mark.parametrize("change,item", [
-    (dict(n_devices=2), "A15"),
-    # the CLI's nDevices argument: more than one card
-    (dict(cli_devices=2), "A15"),
-    # a monitor that is not symmetric needs the narrow cell path, in 2D and 3D
-    (dict(monitor=_skewed), "A16"), (dict(dim=3, nz=4, monitor=_skewed), "A16"),
-])
-def test_unported_routes_name_their_roadmap_item(change, item, monkeypatch):
-    kw = dict(KW, test_type="Shoulder")
-    kw.update(change)
-    monitor = kw.pop("monitor", None)
-    if monitor is not None:
-        monkeypatch.setattr(problems, "get_monitor", lambda dim, mon_type: monitor)
-    cli_devices = kw.pop("cli_devices", None)
-    with pytest.raises(NotImplementedError, match=item):
-        if cli_devices is not None:
-            from mmadmm_tpu_torch.run import main
-
-            main([os.path.join(REPO, "Experiments", "InputFiles", "Monitor3320r.json"), "0",
-                  str(cli_devices), "--device", "cpu"])
-        build_problem(ExperimentConfig(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("change,engine,backend", [

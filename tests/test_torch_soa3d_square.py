@@ -6,6 +6,7 @@ import pytest
 import torch
 
 import _torch_soa3d as S
+from _torch_threads import one_torch_thread  # noqa: F401
 from mmadmm_tpu_torch import ExperimentConfig, build_problem
 from mmadmm_tpu_torch.integrators.run_loop import run
 
